@@ -2,11 +2,14 @@
 
 A second package beside the JAX reference: SPDZ-style two-party MPC over the
 Curve25519 scalar field with batch-first share arithmetic on torch tensors,
-a round-based fabric, and hand-written CUDA kernels (sm_90a) for the
-authenticated Beaver multiplication path.  Entry points run on the CUDA card
+a round-based fabric, Ed25519 point protocols and MSM, and hand-written CUDA
+kernels (sm_90a) for the authenticated Beaver multiplication path and the
+curve layer.  Entry points run on the CUDA card
 unless the caller passes another `device` (the tests pass "cpu").
 """
 
+from .algebra.curve import CurvePoint
+from .algebra.point_share import PointShare
 from .algebra.scalar import BaseFelt, Scalar
 from .algebra.share import PARTY0, PARTY1, ScalarShare
 from .fabric.context import MpcFabric
@@ -24,6 +27,8 @@ __all__ = [
     "Scalar",
     "BaseFelt",
     "ScalarShare",
+    "CurvePoint",
+    "PointShare",
     "PARTY0",
     "PARTY1",
     "MpcFabric",

@@ -140,12 +140,16 @@ def _cond_sub(spec: FieldSpec, s: torch.Tensor) -> torch.Tensor:
 
 def add(spec: FieldSpec, x, y):
     """(x + y) mod m, inputs/outputs in [0, m)."""
+    if _is_p25519(spec):
+        return add25519(x, y)
     s, _ = _carry(_i64(x) + _i64(y))
     return _cond_sub(spec, s).to(LIMB_DTYPE)
 
 
 def sub(spec: FieldSpec, x, y):
     """(x - y) mod m."""
+    if _is_p25519(spec):
+        return sub25519(x, y)
     out = torch.empty_like(_i64(x))
     borrow = torch.zeros_like(out[0])
     xi, yi = _i64(x), _i64(y)
@@ -240,8 +244,132 @@ def _pm_fold(spec: FieldSpec, cols: torch.Tensor):
     return res.to(LIMB_DTYPE)
 
 
+# ---------------------------------------------------------------------------
+# p = 2^255 - 19 (the Ed25519 base field): few-op plain arithmetic
+#
+# The curve layer runs thousands of base-field ops per scalar multiplication,
+# so these avoid the 16-step carry loops above.  Between ops a value is kept
+# LAZY: int64 limbs below 2^17 - 80 whose value is only congruent mod p;
+# carries move in whole-tensor passes.  `canon25519` brings a lazy value to
+# canonical limbs, resolving the last exact carry chain by a look-ahead (the
+# carry into limb i comes from the nearest limb below it that is not
+# 0xFFFF).  Canonical outputs are bit-identical to every other route.
+# ---------------------------------------------------------------------------
+
+P25519 = (1 << 255) - 19
+# 8p with every limb in [2^18 - 152, 2^18): x + 8p - y has no negative limb
+# for lazy y.
+_EIGHTP = [(1 << 18) - 152] + [(1 << 18) - 4] * (NLIMBS - 1)
+_const_cache: dict = {}
+_MUL_CHUNK = 1 << 20  # elements per plain product call
+
+
+def _is_p25519(spec: FieldSpec) -> bool:
+    return spec.modulus == P25519
+
+
+def _limb_const(values, like: torch.Tensor) -> torch.Tensor:
+    key = (tuple(values), str(like.device))
+    if key not in _const_cache:
+        _const_cache[key] = torch.tensor(values, dtype=torch.int64,
+                                         device=like.device)
+    return _const_cache[key].reshape((NLIMBS,) + (1,) * (like.dim() - 1))
+
+
+def _wrap_pass(v: torch.Tensor) -> torch.Tensor:
+    """One carry pass over int64 limbs, the carry out of limb 15 folded
+    into limb 0 as x 38 (2^256 = 38 mod p).  Congruent mod p."""
+    c = v >> LIMB_BITS
+    out = v & LIMB_MASK
+    out[1:] += c[:-1]
+    out[0] += 38 * c[-1]
+    return out
+
+
+def _normalize(v: torch.Tensor):
+    """Exact carry propagation of int64 limbs in [0, 2^17 - 1) ->
+    (16 limbs < 2^16, carry out of limb 15 in {0, 1})."""
+    g = v >> LIMB_BITS  # each limb generates at most one carry
+    r = v & LIMB_MASK
+    idx = _limb_const(list(range(NLIMBS)), r)
+    # a limb that is not 0xFFFF passes on exactly its own carry; 0xFFFF
+    # limbs pass on the carry they receive
+    last = torch.cummax(torch.where(r != LIMB_MASK, idx, -1), dim=0).values
+    c = torch.gather(g, 0, last.clamp(min=0)) * (last >= 0)
+    r[1:] += c[:-1]
+    return r & LIMB_MASK, c[-1]
+
+
+def canon25519(v: torch.Tensor) -> torch.Tensor:
+    """Lazy int64 limbs (< 2^17 - 80) -> canonical int32 limbs mod p."""
+    v = v.clone()
+    top = v[-1] >> 15
+    v[-1] &= 0x7FFF
+    v[0] += 19 * top  # 2^255 = 19 (mod p); the value is now < 2p
+    # normalize v and v + 19 together: v >= p  <=>  v + 19 >= 2^255
+    w = torch.stack([v, v], dim=1)
+    w[0, 1] += 19
+    w, _ = _normalize(w)
+    r, u = w[:, 0], w[:, 1]
+    ge = (u[-1] >> 15) == 1
+    u[-1] &= 0x7FFF
+    return torch.where(ge, u, r).to(LIMB_DTYPE)
+
+
+def lazy_mul25519(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Product of lazy (or canonical) limb tensors, lazy int64 out."""
+    x, y = torch.broadcast_tensors(_i64(x), _i64(y))
+    shape = x.shape
+    xf, yf = x.reshape(NLIMBS, -1), y.reshape(NLIMBS, -1)
+    n = xf.shape[1]
+    if n > _MUL_CHUNK:  # bound the (16, 33, n) int64 intermediate
+        return torch.cat([lazy_mul25519(xf[:, i:i + _MUL_CHUNK], yf[:, i:i + _MUL_CHUNK])
+                          for i in range(0, n, _MUL_CHUNK)], 1).reshape(shape)
+    outer = xf[:, None, :] * yf[None, :, :]  # (16, 16, n), each < 2^34
+    # skew row i right by i (pad rows to 33, read back as rows of 32) and
+    # sum: column k = sum_{i+j=k} x_i y_j < 2^38
+    skew = torch.cat([outer, outer.new_zeros(NLIMBS, NLIMBS + 1, n)], 1)
+    cols = skew.reshape(NLIMBS * 33, n)[:NLIMBS * 32].reshape(NLIMBS, 32, n).sum(0)
+    v = cols[:NLIMBS] + 38 * cols[NLIMBS:]  # < 2^43.3
+    # three passes: limbs < 2^32.6, then < 2^17.4, then < 2^16 + 39
+    return _wrap_pass(_wrap_pass(_wrap_pass(v))).reshape(shape)
+
+
+def lazy_add25519(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return _wrap_pass(_i64(x) + _i64(y))  # limbs < 2^16 + 114
+
+
+def lazy_sub25519(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    x = _i64(x)
+    return _wrap_pass(x + _limb_const(_EIGHTP, x) - _i64(y))  # < 2^16 + 190
+
+
+def lazy_addsub25519(x: torch.Tensor, y: torch.Tensor,
+                     sub: torch.Tensor) -> torch.Tensor:
+    """x + y where `sub` is False, x - y where True (`sub` broadcasts over
+    the limb axis): several sums and differences in one pass."""
+    x, y = _i64(x), _i64(y)
+    y = torch.where(sub, _limb_const(_EIGHTP, y) - y, y)
+    return _wrap_pass(x + y)
+
+
+def mul25519(x, y):
+    """Canonical product mod 2^255 - 19 of (16, *batch) limb tensors."""
+    return canon25519(lazy_mul25519(x, y))
+
+
+def add25519(x, y):
+    return canon25519(lazy_add25519(x, y))
+
+
+def sub25519(x, y):
+    return canon25519(lazy_sub25519(x, y))
+
+
 def mont_mul_plain(spec: FieldSpec, x, y):
     """Plain torch field product in internal form (any device)."""
+    if _is_p25519(spec):
+        return mul25519(x, y)
     cols = _conv(_i64(x), _i64(y))
     if spec.pm_c:
         return _pm_fold(spec, cols)

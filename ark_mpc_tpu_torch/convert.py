@@ -5,6 +5,8 @@ authenticated shares and offline material.  Everything crosses as numpy:
 
   - a (16, ...) uint32 limb array (Montgomery form) <-> a `FieldArray`;
   - a (share, mac) pair of such arrays <-> a `ScalarShare`;
+  - a (4, 16, ...) uint32 array of canonical X, Y, Z, T limbs <-> a
+    `CurvePoint`, and a (share, mac) pair of those <-> a `PointShare`;
   - a dict of exported offline material <-> a preprocessing source that
     serves it:
 
@@ -22,7 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .algebra.curve import CurvePoint
 from .algebra.limbs import NLIMBS
+from .algebra.point_share import PointShare
 from .algebra.scalar import FieldArray, Scalar
 from .algebra.share import ScalarShare
 from .device import resolve_device
@@ -59,6 +63,28 @@ def to_share(pair, field=Scalar, device=None) -> ScalarShare:
 
 def from_share(sh) -> tuple[np.ndarray, np.ndarray]:
     return from_field(sh.share), from_field(sh.mac)
+
+
+def to_point(arr, device=None) -> CurvePoint:
+    """(4, 16, ...) uint32 limbs of X, Y, Z, T -> `CurvePoint` on `device`."""
+    arr = np.asarray(arr)
+    if arr.shape[:1] != (4,):
+        raise ValueError(f"point arrays must be (4, 16, ...), got shape {arr.shape}")
+    return CurvePoint(*(to_field(c, CurvePoint.base_field, device) for c in arr))
+
+
+def from_point(pt) -> np.ndarray:
+    """A point batch of either package -> (4, 16, ...) uint32 numpy."""
+    return np.stack([from_field(c) for c in (pt.X, pt.Y, pt.Z, pt.T)])
+
+
+def to_point_share(pair, device=None) -> PointShare:
+    share, mac = pair
+    return PointShare(to_point(share, device), to_point(mac, device))
+
+
+def from_point_share(ps) -> tuple[np.ndarray, np.ndarray]:
+    return from_point(ps.share), from_point(ps.mac)
 
 
 def export_source(source, batch_sizes) -> dict:

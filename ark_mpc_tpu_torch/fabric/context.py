@@ -1,8 +1,8 @@
 """The MPC fabric: an eager, round-based batched runtime on torch tensors.
 
 Counterpart of `ark_mpc_tpu/fabric/context.py` (`MpcFabric`) without the
-mesh, curve-point protocols and tracer, which come with later slices of the
-port.  Shares are limb tensors on the fabric's device; each protocol step
+mesh and tracer, which come with later slices of the port; the curve-point
+protocols live in `fabric/points.py`.  Shares are limb tensors on the fabric's device; each protocol step
 is a batched computation followed by at most one coalesced exchange:
 
   - `open`: one message each way carrying all n shares, one local combine.
@@ -65,6 +65,7 @@ class MpcFabric:
         self.rng = default_crypto_rng() if rng is None else rng
         # deferred MAC-check accumulators (flattened d-value Scalars)
         self._deferred: list[Scalar] = []
+        self._deferred_points: list = []  # flattened point check values
         self.n_rounds = 0
 
     def _from_wire(self, arr: np.ndarray) -> Scalar:
@@ -152,20 +153,24 @@ class MpcFabric:
         return value
 
     def verify_deferred(self, fold: bool = False) -> None:
-        """Run ONE commit-reveal MAC check over every deferred open.
+        """Run ONE commit-reveal MAC check over every deferred open, and one
+        for the deferred point opens, if any.
 
-        With `fold=True` the check values are first collapsed to ONE scalar
-        by a public-coin random linear combination (the SPDZ aggregated
-        check): O(1) wire bytes instead of O(n)."""
-        if not self._deferred:
-            return
-        d = (self._deferred[0] if len(self._deferred) == 1
-             else self.field.concatenate(self._deferred))
-        self._deferred = []
-        if fold:
-            self._run_mac_check_folded(d)
-        else:
-            self._run_mac_check(d)
+        With `fold=True` the scalar check values are first collapsed to ONE
+        scalar by a public-coin random linear combination (the SPDZ
+        aggregated check): O(1) wire bytes instead of O(n)."""
+        if self._deferred:
+            d = (self._deferred[0] if len(self._deferred) == 1
+                 else self.field.concatenate(self._deferred))
+            self._deferred = []
+            if fold:
+                self._run_mac_check_folded(d)
+            else:
+                self._run_mac_check(d)
+        if self._deferred_points:
+            from . import points
+
+            points.verify_deferred_points(self)
 
     def public_coin_rng(self) -> CSPRNG:
         """Jointly-seeded CSPRNG via commit-reveal seed exchange (3 small
@@ -284,6 +289,42 @@ class MpcFabric:
                 break
             base = self.mul(base, base)
         return result.reshape(*shape)
+
+    # -- curve-point protocols (`fabric/points.py`) ------------------------
+    def share_points(self, points=None, sender: int = 0, n: int | None = None):
+        from . import points as pts
+
+        return pts.share_points(self, points, sender, n)
+
+    def share_public_points(self, points):
+        from . import points as pts
+
+        return pts.share_public_points(self, points)
+
+    def open_points(self, ps):
+        from . import points as pts
+
+        return pts.open_points(self, ps)
+
+    def open_authenticated_points(self, ps, defer: bool = False):
+        from . import points as pts
+
+        return pts.open_authenticated_points(self, ps, defer)
+
+    def mul_points(self, x, ps):
+        from . import points as pts
+
+        return pts.beaver_mul_points(self, x, ps)
+
+    def mul_generator(self, x):
+        from . import points as pts
+
+        return pts.mul_generator(self, x)
+
+    def msm(self, scalars, points):
+        from . import points as pts
+
+        return pts.msm_authenticated(self, scalars, points)
 
     # -- offline sampling passthroughs ------------------------------------
     def next_triple_batch(self, n: int):

@@ -1,0 +1,562 @@
+// Hand-written Hopper (sm_90a) kernels for the Ed25519 curve layer:
+// windowed scalar multiplication, the window-sum MSM core, and the bucketed
+// Pippenger accumulate and reduce.
+//
+// They replace the Pallas TPU kernels windowed_mul_pallas and
+// window_sums_pallas (ark_mpc_tpu/ops/curve_kernels.py) and
+// bucket_accumulate_pallas and bucket_reduce_pallas
+// (ark_mpc_tpu/ops/msm_kernels.py).  Source notes per kernel are in the
+// Python wrappers (ops/curve_kernels.py, ops/msm_kernels.py).
+//
+// Base field p = 2^255 - 19 on eight 32-bit words: a product is a 512-bit
+// schoolbook, the high half folded down x38 (2^256 = 38 mod p), then
+// brought to CANONICAL form, as are sums and differences.  Canonical values
+// are unique, so running the reference's formula sequence (twisted Edwards
+// a = -1, extended coordinates) gives results bit-identical to the plain
+// torch versions.
+//
+// Device-memory layout is the reference's: a coordinate is a (16, n) int32
+// tensor of 16-bit limbs, repacked to 32-bit words in registers.
+//
+// Plain C interface (loaded with ctypes): every entry point launches on the
+// given stream, allocates nothing and returns cudaGetLastError().
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int NW = 8;        // 32-bit words per field element
+constexpr int NLIMBS = 16;   // 16-bit limbs per field element in memory
+constexpr int MUL_THREADS = 128;
+constexpr int BUCKET_THREADS = 128;
+
+struct Fe {
+  uint32_t w[NW];
+};
+struct Pt {
+  Fe x, y, z, t;
+};
+struct Cached {  // (Y - X, Y + X, 2d T, Z)
+  Fe p, q, r, z;
+};
+
+// 2d, d = -121665/121666 mod p
+__device__ __forceinline__ Fe fe_d2() {
+  return Fe{{0x26b2f159u, 0xebd69b94u, 0x8283b156u, 0x00e0149au, 0xeef3d130u,
+             0x198e80f2u, 0x56dffce7u, 0x2406d9dcu}};
+}
+
+__device__ __forceinline__ Fe fe_zero() { return Fe{{0, 0, 0, 0, 0, 0, 0, 0}}; }
+__device__ __forceinline__ Fe fe_one() { return Fe{{1, 0, 0, 0, 0, 0, 0, 0}}; }
+
+__device__ __forceinline__ Pt pt_identity() {
+  return Pt{fe_zero(), fe_one(), fe_one(), fe_zero()};
+}
+
+// ---------------------------------------------------------------------------
+// memory: (16, n) int32 limbs <-> words
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fe fe_load(const int32_t* __restrict__ p,
+                                      int64_t stride, int64_t j) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const uint32_t lo = static_cast<uint32_t>(__ldg(p + (2 * k) * stride + j));
+    const uint32_t hi = static_cast<uint32_t>(__ldg(p + (2 * k + 1) * stride + j));
+    r.w[k] = lo | (hi << 16);
+  }
+  return r;
+}
+
+// Loads that must see other blocks' writes of this launch (bypass L1).
+__device__ __forceinline__ Fe fe_load_cg(const int32_t* p, int64_t stride,
+                                         int64_t j) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const uint32_t lo = static_cast<uint32_t>(__ldcg(p + (2 * k) * stride + j));
+    const uint32_t hi = static_cast<uint32_t>(__ldcg(p + (2 * k + 1) * stride + j));
+    r.w[k] = lo | (hi << 16);
+  }
+  return r;
+}
+
+// A thread's own accumulator, written earlier in this launch (no __ldg).
+__device__ __forceinline__ Fe fe_load_own(const int32_t* p, int64_t stride,
+                                          int64_t j) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    r.w[k] = static_cast<uint32_t>(p[(2 * k) * stride + j]) |
+             (static_cast<uint32_t>(p[(2 * k + 1) * stride + j]) << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void fe_store(int32_t* p, int64_t stride, int64_t j,
+                                         const Fe& a) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    p[(2 * k) * stride + j] = static_cast<int32_t>(a.w[k] & 0xFFFFu);
+    p[(2 * k + 1) * stride + j] = static_cast<int32_t>(a.w[k] >> 16);
+  }
+}
+
+// Four coordinate arrays of one point batch.
+struct Coords {
+  const int32_t* c[4];
+};
+struct OutCoords {
+  int32_t* c[4];
+};
+
+__device__ __forceinline__ Pt pt_load(const Coords& p, int64_t stride,
+                                      int64_t j) {
+  return Pt{fe_load(p.c[0], stride, j), fe_load(p.c[1], stride, j),
+            fe_load(p.c[2], stride, j), fe_load(p.c[3], stride, j)};
+}
+
+__device__ __forceinline__ void pt_store(const OutCoords& o, int64_t offset,
+                                         int64_t stride, int64_t j,
+                                         const Pt& a) {
+  fe_store(o.c[0] + offset, stride, j, a.x);
+  fe_store(o.c[1] + offset, stride, j, a.y);
+  fe_store(o.c[2] + offset, stride, j, a.z);
+  fe_store(o.c[3] + offset, stride, j, a.t);
+}
+
+// ---------------------------------------------------------------------------
+// base field p = 2^255 - 19, canonical in and out
+// ---------------------------------------------------------------------------
+
+// r += k (k < 2^32) with carry over the 8 words; returns the carry out.
+__device__ __forceinline__ uint32_t fe_add_small(Fe& r, uint32_t k) {
+  uint64_t c = k;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t s = static_cast<uint64_t>(r.w[i]) + c;
+    r.w[i] = static_cast<uint32_t>(s);
+    c = s >> 32;
+  }
+  return static_cast<uint32_t>(c);
+}
+
+// Any r < 2^256 -> r mod p.
+__device__ __forceinline__ Fe fe_canon(Fe r) {
+  const uint32_t top = r.w[7] >> 31;
+  r.w[7] &= 0x7FFFFFFFu;
+  fe_add_small(r, 19u * top);  // now r < 2^255 + 19
+  Fe u = r;
+  fe_add_small(u, 19u);  // r >= p  <=>  r + 19 >= 2^255
+  const uint32_t ge = 0u - (u.w[7] >> 31);
+  u.w[7] &= 0x7FFFFFFFu;
+  Fe out;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) out.w[i] = (u.w[i] & ge) | (r.w[i] & ~ge);
+  return out;
+}
+
+__device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
+  Fe s;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t v = static_cast<uint64_t>(a.w[i]) + b.w[i] + c;
+    s.w[i] = static_cast<uint32_t>(v);
+    c = v >> 32;
+  }
+  return fe_canon(s);  // a + b < 2p < 2^256
+}
+
+__device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
+  Fe d;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t v = static_cast<uint64_t>(a.w[i]) - b.w[i] - borrow;
+    d.w[i] = static_cast<uint32_t>(v);
+    borrow = (v >> 32) & 1u;
+  }
+  // add p back where a < b: p = 2^255 - 19 = (2^255 - 1) - 18
+  const uint32_t m = 0u - static_cast<uint32_t>(borrow);
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t pw = (i == 0) ? 0xFFFFFFEDu : (i == 7 ? 0x7FFFFFFFu : 0xFFFFFFFFu);
+    const uint64_t v = static_cast<uint64_t>(d.w[i]) + (pw & m) + c;
+    d.w[i] = static_cast<uint32_t>(v);
+    c = v >> 32;
+  }
+  return d;
+}
+
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
+  uint32_t t[2 * NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const uint64_t s = static_cast<uint64_t>(a.w[j]) * b.w[i] + t[i + j] + c;
+      t[i + j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+    t[i + NW] = static_cast<uint32_t>(c);
+  }
+  // fold: lo + 38 * hi < 39 * 2^256
+  Fe r;
+  uint64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const uint64_t s = static_cast<uint64_t>(t[k]) + 38ull * t[k + NW] + c;
+    r.w[k] = static_cast<uint32_t>(s);
+    c = s >> 32;
+  }
+  // c <= 38: fold again; a carry out leaves r < 2^11, so the last fold of
+  // 38 cannot carry
+  const uint32_t c2 = fe_add_small(r, static_cast<uint32_t>(c) * 38u);
+  r.w[0] += 38u * c2;
+  return fe_canon(r);
+}
+
+// ---------------------------------------------------------------------------
+// Edwards formulas: the reference's _double, _double_no_t, _padd,
+// _padd_cached (ark_mpc_tpu/ops/curve_kernels.py:45-99)
+// ---------------------------------------------------------------------------
+
+struct DoubleParts {
+  Fe e, f, g, h;
+};
+
+__device__ __forceinline__ DoubleParts double_parts(const Fe& x, const Fe& y,
+                                                    const Fe& z) {
+  const Fe a = fe_mul(x, x);
+  const Fe b = fe_mul(y, y);
+  const Fe zz = fe_mul(z, z);
+  const Fe c = fe_add(zz, zz);
+  const Fe h = fe_add(a, b);
+  const Fe xy = fe_add(x, y);
+  const Fe e = fe_sub(h, fe_mul(xy, xy));
+  const Fe g = fe_sub(a, b);
+  const Fe f = fe_add(c, g);
+  return DoubleParts{e, f, g, h};
+}
+
+__device__ __forceinline__ Pt pt_double(const Pt& p) {
+  const DoubleParts d = double_parts(p.x, p.y, p.z);
+  return Pt{fe_mul(d.e, d.f), fe_mul(d.g, d.h), fe_mul(d.f, d.g),
+            fe_mul(d.e, d.h)};
+}
+
+// Doubling without the T output; p.t is left as it was (unused).
+__device__ __forceinline__ void pt_double_no_t(Pt& p) {
+  const DoubleParts d = double_parts(p.x, p.y, p.z);
+  p.x = fe_mul(d.e, d.f);
+  p.y = fe_mul(d.g, d.h);
+  p.z = fe_mul(d.f, d.g);
+}
+
+__device__ __forceinline__ Pt finish_add(const Fe& a, const Fe& b, const Fe& c,
+                                         const Fe& zz) {
+  const Fe dd = fe_add(zz, zz);
+  const Fe e = fe_sub(b, a);
+  const Fe f = fe_sub(dd, c);
+  const Fe g = fe_add(dd, c);
+  const Fe h = fe_add(b, a);
+  return Pt{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
+}
+
+__device__ __forceinline__ Pt pt_add(const Pt& p, const Pt& q) {
+  const Fe a = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x));
+  const Fe b = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x));
+  const Fe c = fe_mul(fe_mul(p.t, q.t), fe_d2());
+  const Fe zz = fe_mul(p.z, q.z);
+  return finish_add(a, b, c, zz);
+}
+
+__device__ __forceinline__ Pt pt_add_cached(const Pt& p, const Cached& q) {
+  const Fe a = fe_mul(fe_sub(p.y, p.x), q.p);
+  const Fe b = fe_mul(fe_add(p.y, p.x), q.q);
+  const Fe c = fe_mul(p.t, q.r);
+  const Fe zz = fe_mul(p.z, q.z);
+  return finish_add(a, b, c, zz);
+}
+
+__device__ __forceinline__ Cached to_cached(const Pt& p) {
+  return Cached{fe_sub(p.y, p.x), fe_add(p.y, p.x), fe_mul(p.t, fe_d2()), p.z};
+}
+
+// The 16 multiples 0..15 of P in cached form: evens by doubling the half
+// entry, odds by adding P (the reference's table order).
+__device__ __forceinline__ void build_table(const Pt& P, Cached tab[16]) {
+  Pt ext[8];
+  ext[0] = pt_identity();
+  ext[1] = P;
+  tab[0] = to_cached(ext[0]);
+  tab[1] = to_cached(P);
+  Pt prev = P;
+  for (int k = 2; k < 16; ++k) {
+    const Pt cur = (k & 1) ? pt_add(prev, P) : pt_double(ext[k >> 1]);
+    if (k < 8) ext[k] = cur;
+    tab[k] = to_cached(cur);
+    prev = cur;
+  }
+}
+
+// Entry `digit` of the table by a masked scan over all 16 entries: no
+// address or branch depends on the digit.
+__device__ __forceinline__ Cached select_entry(const Cached tab[16],
+                                               uint32_t digit) {
+  Cached s;
+  uint32_t* sw = reinterpret_cast<uint32_t*>(&s);
+#pragma unroll
+  for (int i = 0; i < 4 * NW; ++i) sw[i] = 0;
+  for (int k = 0; k < 16; ++k) {
+    const uint32_t m = 0u - static_cast<uint32_t>(digit == static_cast<uint32_t>(k));
+    const uint32_t* tw = reinterpret_cast<const uint32_t*>(&tab[k]);
+#pragma unroll
+    for (int i = 0; i < 4 * NW; ++i) sw[i] |= tw[i] & m;
+  }
+  return s;
+}
+
+// 4-bit digit `index` (least significant first) of a scalar's 8 words.
+__device__ __forceinline__ uint32_t nibble(const Fe& s, int index) {
+  const int off = 4 * index;
+  return (s.w[off >> 5] >> (off & 31)) & 15u;
+}
+
+// ---------------------------------------------------------------------------
+// windowed_mul: out = (s mod 2^(4 windows)) * P, one thread per point
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(MUL_THREADS)
+windowed_mul_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
+                    int64_t n, int windows) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const Fe s = fe_load(canon, n, j);
+  Cached tab[16];
+  build_table(pt_load(p, n, j), tab);
+  Pt acc = pt_identity();
+  for (int i = windows - 1; i >= 0; --i) {
+    pt_double_no_t(acc);
+    pt_double_no_t(acc);
+    pt_double_no_t(acc);
+    acc = pt_double(acc);
+    acc = pt_add_cached(acc, select_entry(tab, nibble(s, i)));
+  }
+  pt_store(o, 0, n, j, acc);
+}
+
+// ---------------------------------------------------------------------------
+// window_sums: lane j of window w accumulates digit_w(s_i) * P_i over
+// i = j, j + L, ... into out[w][.][j] (out: (windows, 16, L) per coordinate)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(MUL_THREADS)
+window_sums_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
+                   int64_t n, int windows, int64_t lanes) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  const int64_t wstride = static_cast<int64_t>(NLIMBS) * lanes;
+  const Pt ident = pt_identity();
+  for (int w = 0; w < windows; ++w) pt_store(o, w * wstride, lanes, lane, ident);
+  for (int64_t i = lane; i < n; i += lanes) {
+    const Fe s = fe_load(canon, n, i);
+    Cached tab[16];
+    build_table(pt_load(p, n, i), tab);
+    for (int w = 0; w < windows; ++w) {
+      const int64_t base = w * wstride;
+      Pt a{fe_load_own(o.c[0] + base, lanes, lane), fe_load_own(o.c[1] + base, lanes, lane),
+           fe_load_own(o.c[2] + base, lanes, lane), fe_load_own(o.c[3] + base, lanes, lane)};
+      a = pt_add_cached(a, select_entry(tab, nibble(s, w)));
+      pt_store(o, base, lanes, lane, a);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bucket_accumulate: thread (w, d) sums the points idx[w, off[w,d] ..
+// off[w,d+1]) from the identity; bucket 0 stays the identity.
+// pts: (n, 4, 16) int32 limbs, point-major.  out: (16, W, nb) per coordinate.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fe fe_load_row(const int32_t* __restrict__ p) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    r.w[k] = static_cast<uint32_t>(__ldg(p + 2 * k)) |
+             (static_cast<uint32_t>(__ldg(p + 2 * k + 1)) << 16);
+  }
+  return r;
+}
+
+__global__ void __launch_bounds__(BUCKET_THREADS)
+bucket_accumulate_kernel(const int32_t* __restrict__ idx,
+                         const int32_t* __restrict__ off,
+                         const int32_t* __restrict__ pts, OutCoords o,
+                         int64_t n, int windows, int nb) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<int64_t>(windows) * nb) return;
+  const int w = static_cast<int>(t / nb);
+  const int d = static_cast<int>(t % nb);
+  Pt acc = pt_identity();
+  if (d != 0) {
+    const int32_t* seg = idx + static_cast<int64_t>(w) * n;
+    const int32_t beg = __ldg(off + static_cast<int64_t>(w) * (nb + 1) + d);
+    const int32_t end = __ldg(off + static_cast<int64_t>(w) * (nb + 1) + d + 1);
+    for (int32_t k = beg; k < end; ++k) {
+      const int32_t* q = pts + static_cast<int64_t>(__ldg(seg + k)) * (4 * NLIMBS);
+      const Pt P{fe_load_row(q), fe_load_row(q + NLIMBS),
+                 fe_load_row(q + 2 * NLIMBS), fe_load_row(q + 3 * NLIMBS)};
+      acc = pt_add(acc, P);
+    }
+  }
+  pt_store(o, 0, static_cast<int64_t>(windows) * nb, t, acc);
+}
+
+// ---------------------------------------------------------------------------
+// bucket_reduce: block w (nb threads, one per bucket) computes
+// S_w = sum_d d * B[w, d] by the lane suffix scan and the lane tree in
+// shared memory; the last block to finish runs the Horner
+// acc = 2^c * acc + S_w over the windows, most significant first.
+// scratch: (W, 4, 16) int32; ticket: one int32, zero on entry.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void pt_to_smem(uint32_t* s, const Pt& a) {
+  const uint32_t* aw = reinterpret_cast<const uint32_t*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4 * NW; ++i) s[i] = aw[i];
+}
+
+__device__ __forceinline__ Pt pt_from_smem(const uint32_t* s) {
+  Pt a;
+  uint32_t* aw = reinterpret_cast<uint32_t*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4 * NW; ++i) aw[i] = s[i];
+  return a;
+}
+
+struct ReduceArgs {
+  Coords in;        // (16, W, nb) each
+  int32_t* scratch; // (W, 4, 16)
+  int* ticket;
+  OutCoords out;    // (16,) each
+};
+
+__global__ void bucket_reduce_kernel(ReduceArgs r, int windows, int nb,
+                                     int c_bits) {
+  extern __shared__ uint32_t smem[];  // nb points of 32 words
+  const int w = blockIdx.x;
+  const int d = threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(windows) * nb;
+  // bucket 0 has weight 0: drop it
+  Pt v = (d == 0) ? pt_identity()
+                  : pt_load(r.in, stride, static_cast<int64_t>(w) * nb + d);
+  // suffix scan: lane d <- sum_{e >= d} B_e (identity shifted in)
+  for (int k = 1; k < nb; k *= 2) {
+    pt_to_smem(smem + 32 * d, v);
+    __syncthreads();
+    const Pt u = (d + k < nb) ? pt_from_smem(smem + 32 * (d + k)) : pt_identity();
+    __syncthreads();
+    v = pt_add(v, u);
+  }
+  if (d == 0) v = pt_identity();
+  // tree: lane 0 <- sum_{d >= 1} suffix_d = sum_d d * B_d
+  for (int k = nb / 2; k >= 1; k /= 2) {
+    pt_to_smem(smem + 32 * d, v);
+    __syncthreads();
+    if (d < k) v = pt_add(v, pt_from_smem(smem + 32 * (d + k)));
+    __syncthreads();
+  }
+  if (d != 0) return;
+  const OutCoords sc{{r.scratch + w * 4 * NLIMBS, r.scratch + w * 4 * NLIMBS + NLIMBS,
+                      r.scratch + w * 4 * NLIMBS + 2 * NLIMBS,
+                      r.scratch + w * 4 * NLIMBS + 3 * NLIMBS}};
+  pt_store(sc, 0, 1, 0, v);
+  __threadfence();
+  if (atomicAdd(r.ticket, 1) != windows - 1) return;
+  __threadfence();
+  // the last block: Horner across the windows on this one thread
+  auto load_s = [&](int ww) {
+    const int32_t* b = r.scratch + ww * 4 * NLIMBS;
+    return Pt{fe_load_cg(b, 1, 0), fe_load_cg(b + NLIMBS, 1, 0),
+              fe_load_cg(b + 2 * NLIMBS, 1, 0), fe_load_cg(b + 3 * NLIMBS, 1, 0)};
+  };
+  Pt acc = load_s(windows - 1);
+  for (int ww = windows - 2; ww >= 0; --ww) {
+    for (int b = 0; b < c_bits - 1; ++b) pt_double_no_t(acc);
+    acc = pt_add(pt_double(acc), load_s(ww));
+  }
+  pt_store(r.out, 0, 1, 0, acc);
+}
+
+inline unsigned int blocks_for(int64_t n, int threads) {
+  return static_cast<unsigned int>((n + threads - 1) / threads);
+}
+
+Coords coords_of(void* const* ptrs) {
+  return Coords{{static_cast<const int32_t*>(ptrs[0]),
+                 static_cast<const int32_t*>(ptrs[1]),
+                 static_cast<const int32_t*>(ptrs[2]),
+                 static_cast<const int32_t*>(ptrs[3])}};
+}
+
+OutCoords out_coords_of(void* const* ptrs) {
+  return OutCoords{{static_cast<int32_t*>(ptrs[0]), static_cast<int32_t*>(ptrs[1]),
+                    static_cast<int32_t*>(ptrs[2]), static_cast<int32_t*>(ptrs[3])}};
+}
+
+}  // namespace
+
+extern "C" {
+
+// ptrs: canon x y z t ox oy oz ot (all (16, n))
+int ark_windowed_mul(void* const* ptrs, long long n, int windows, void* stream) {
+  windowed_mul_kernel<<<blocks_for(n, MUL_THREADS), MUL_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ptrs[0]), coords_of(ptrs + 1),
+      out_coords_of(ptrs + 5), n, windows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ptrs: canon x y z t (16, n); ox oy oz ot (windows, 16, lanes)
+int ark_window_sums(void* const* ptrs, long long n, int windows,
+                    long long lanes, void* stream) {
+  window_sums_kernel<<<blocks_for(lanes, MUL_THREADS), MUL_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ptrs[0]), coords_of(ptrs + 1),
+      out_coords_of(ptrs + 5), n, windows, lanes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ptrs: idx (W, n), offsets (W, nb + 1), pts (n, 4, 16); ox oy oz ot (16, W, nb)
+int ark_bucket_accumulate(void* const* ptrs, long long n, int windows, int nb,
+                          void* stream) {
+  const int64_t threads = static_cast<int64_t>(windows) * nb;
+  bucket_accumulate_kernel<<<blocks_for(threads, BUCKET_THREADS), BUCKET_THREADS,
+                             0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ptrs[0]), static_cast<const int32_t*>(ptrs[1]),
+      static_cast<const int32_t*>(ptrs[2]), out_coords_of(ptrs + 3), n, windows,
+      nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ptrs: bx by bz bt (16, W, nb); scratch (W, 4, 16); ticket (1,) zeroed;
+//       ox oy oz ot (16,)
+int ark_bucket_reduce(void* const* ptrs, int windows, int nb, int c_bits,
+                      void* stream) {
+  ReduceArgs r{coords_of(ptrs), static_cast<int32_t*>(ptrs[4]),
+               static_cast<int*>(ptrs[5]), out_coords_of(ptrs + 6)};
+  const size_t smem = static_cast<size_t>(nb) * 4 * NW * sizeof(uint32_t);
+  bucket_reduce_kernel<<<windows, nb, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, windows, nb, c_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

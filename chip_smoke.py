@@ -15,15 +15,30 @@ Phases (any failure exits non-zero; there is no CPU path):
   5. chain    the headline: n = 2^22 elements, 64 dependent rounds, one MAC
               check, timed with CUDA events over 5 runs after a warm-up;
   6. report   every kernel timed at its main-path shape beside its plain
-              version on the same inputs, its bound and its launch count.
+              version on the same inputs, its bound and its launch count;
+  7. curve    the four curve kernels against their plain versions at n = 2^12
+              and n = 1000 (64 windows), bit for bit;
+  8. points   the point protocols through `execute_mock_mpc_dealer` at
+              n = 10,000 points: `share_points`, a Beaver scalar x point
+              product, an authenticated MSM, deferred authenticated opens and
+              one `verify_deferred`, spot-checked against Python ints; then a
+              corrupted point MAC and an order-2 input point must abort;
+  9. msm      the public MSM at n = 2^16 through each route (windowed + tree,
+              bucket, winsum): routes agree with each other and with Python
+              ints; median of 5 CUDA-event timings after a warm-up;
+ 10. report   the curve kernels as in phase 6.
 
-The launch counts are those of phases 3-5 (the main path).  The last line is
+The launch counts of the field kernels are those of phases 3-5, those of the
+curve kernels those of phases 8-9 (each path's counts are set to 0 just
+before it and read just after).  The last line is
 `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import random
 import subprocess
 import sys
 import time
@@ -33,6 +48,8 @@ import torch
 
 from ark_mpc_tpu_torch import (
     AuthenticationError,
+    CurvePoint,
+    PointShare,
     Scalar,
     ScalarShare,
     TrustedDealerSource,
@@ -42,14 +59,22 @@ from ark_mpc_tpu_torch import (
 from ark_mpc_tpu_torch.algebra import limbs as lb
 from ark_mpc_tpu_torch.algebra.fields import SCALAR_FIELD as SPEC
 from ark_mpc_tpu_torch.fabric import commitment
+from ark_mpc_tpu_torch.ops import _build
+from ark_mpc_tpu_torch.ops import curve_kernels as ck
 from ark_mpc_tpu_torch.ops import fp_kernels as fk
+from ark_mpc_tpu_torch.ops import msm_kernels as mk
 
 L = SPEC.modulus
 SOURCE = "ark_mpc_tpu_torch/ops/csrc/fp_kernels.cu"
+CURVE_SOURCE = "ark_mpc_tpu_torch/ops/csrc/curve_kernels.cu"
 REPLACES = {
     "mont_mul": "ark_mpc_tpu/ops/fp_kernels.py:63",
     "beaver_round": "ark_mpc_tpu/ops/fp_kernels.py:88",
     "beaver_chain": "ark_mpc_tpu/ops/fp_kernels.py:132",
+    "windowed_mul": "ark_mpc_tpu/ops/curve_kernels.py:106",
+    "window_sums": "ark_mpc_tpu/ops/curve_kernels.py:248",
+    "bucket_accumulate": "ark_mpc_tpu/ops/msm_kernels.py:133",
+    "bucket_reduce": "ark_mpc_tpu/ops/msm_kernels.py:372",
 }
 # Device-memory rates by card (NVIDIA data sheets); SXM is the default.
 MEM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
@@ -59,6 +84,14 @@ N_CMP, K_CMP, N_ODD = 1 << 16, 2, 1000
 N_FABRIC = 1 << 20
 N_CHAIN, K_CHAIN = 1 << 22, 64
 CHAIN_RUNS = 5  # timed runs of the headline after its warm-up
+N_CURVE_CMP = 1 << 12
+N_POINTS = 10_000          # circuit_msm_throughput.rs top size
+N_MSM = 1 << 16            # native_msm.rs top size
+MSM_RUNS = 5
+MSM_ROUTES = ("ladder", "bucket", "winsum")
+# 32-bit multiply instructions per base-field product: 64 32x32->64
+# products (lo and hi) and the x38 fold of 8 high words
+MUL_OPS = 2 * 64 + 2 * 8
 
 
 def log(msg: str) -> None:
@@ -141,7 +174,9 @@ def compare_kernels(ops: Operands, rounds: int) -> dict:
 
 def phase_build() -> str:
     t0 = time.time()
-    logs = fk.build()
+    logs = _build.build(["fp_kernels", ck.SOURCE])  # one nvcc each, in parallel
+    fk._lib()
+    ck._lib()
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -336,15 +371,22 @@ def phase_chain(dev, card: str) -> tuple[Chain, dict]:
     return ch, headline
 
 
-def phase_report(dev, ch: Chain, launches: dict) -> list:
+def device_rates(dev) -> tuple[float, float]:
+    """(device-memory bytes/s, 32-bit integer multiplies/s) of this card."""
     props = torch.cuda.get_device_properties(dev)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     name = torch.cuda.get_device_name(0)
     mem_rate = next((r for k, r in MEM_BYTES_PER_S.items() if k in name), 3.35e12)
     int_rate = props.multi_processor_count * INT32_LANES_PER_SM * clock_mhz * 1e6
-    log(f"[6 report] bounds from {mem_rate / 1e12:.2f} TB/s and "
+    log(f"[report] bounds from {mem_rate / 1e12:.2f} TB/s and "
         f"{props.multi_processor_count} SMs x {INT32_LANES_PER_SM} int32 "
         f"multiplies/clock x {clock_mhz:.0f} MHz = {int_rate:.4e} /s")
+    return mem_rate, int_rate
+
+
+def phase_report(dev, ch: Chain, launches: dict) -> list:
+    props = torch.cuda.get_device_properties(dev)
+    mem_rate, int_rate = device_rates(dev)
 
     # Work per element, in 32-bit multiply instructions: a 32x32->64 product
     # is two (lo and hi), a REDC quotient word one; 64 products per 256-bit
@@ -401,6 +443,252 @@ def phase_report(dev, ch: Chain, launches: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the curve layer
+# ---------------------------------------------------------------------------
+
+P25519 = (1 << 255) - 19
+ED_D = (-121665 * pow(121666, -1, P25519)) % P25519
+GEN = (15112221349535400772501151409588531511454012693041857206046113283949847762202,
+       46316835694926478169428394003475163141307993866256225615783033603165251855960)
+
+
+def ed_add(p1, p2):
+    """Python-int Edwards addition (the reference for the checks)."""
+    (x1, y1), (x2, y2) = p1, p2
+    t = ED_D * x1 * x2 % P25519 * y1 % P25519 * y2 % P25519
+    return ((x1 * y2 + x2 * y1) * pow(1 + t, -1, P25519) % P25519,
+            (y1 * y2 + x1 * x2) * pow(1 - t, -1, P25519) % P25519)
+
+
+def ed_mul(k: int, pt=GEN):
+    acc = (0, 1)
+    while k:
+        if k & 1:
+            acc = ed_add(acc, pt)
+        pt = ed_add(pt, pt)
+        k >>= 1
+    return acc
+
+
+def affine(pt, idx=None) -> list:
+    if idx is not None:
+        pt = pt[torch.tensor(idx, device=pt.device)]
+    x, y = pt.to_affine()
+    return list(zip(x.to_ints(), y.to_ints()))
+
+
+class CurveOperands:
+    """Random points P_i = g_i * G (known g_i) and scalars at one size."""
+
+    def __init__(self, n: int, seed: int, dev):
+        rng = np.random.default_rng(seed)
+        self.n = n
+        self.g = Scalar.random(n, rng, device=dev)
+        self.k = Scalar.random(n, rng, device=dev)
+        self.points = CurvePoint.generator((n,), device=dev).mul(self.g)
+        self.canon = self.k.canonical_limbs().contiguous()
+        self.coords = [c.limbs.contiguous() for c in self.points._coords()]
+        self.idx, self.off = mk.bucket_prologue(self.canon)
+        self.lanes = ck.default_lanes(n)
+
+    def args(self, name: str, buckets=None):
+        if name == "windowed_mul":
+            return (self.canon, *self.coords)
+        if name == "window_sums":
+            return (self.canon, *self.coords, ck.WINDOWS, self.lanes)
+        if name == "bucket_accumulate":
+            return (self.idx, self.off, *self.coords)
+        return tuple(buckets)
+
+
+def compare_curve_kernels(ops: CurveOperands) -> dict:
+    diffs = {}
+    for name in ("windowed_mul", "window_sums", "bucket_accumulate"):
+        diffs[name] = max_diff(mk.KERNELS[name](*ops.args(name)),
+                               mk.PLAIN[name](*ops.args(name)))
+    buckets = mk.bucket_accumulate(*ops.args("bucket_accumulate"))
+    diffs["bucket_reduce"] = max_diff(mk.bucket_reduce(*buckets),
+                                      mk.bucket_reduce_plain(*buckets))
+    torch.cuda.synchronize()
+    return diffs
+
+
+def phase_curve_kernels(dev) -> None:
+    for n, seed in ((N_CURVE_CMP, 21), (N_ODD, 22)):
+        diffs = compare_curve_kernels(CurveOperands(n, seed, dev))
+        log(f"[7 curve] max limb difference kernel vs plain at n={n} "
+            f"(64 windows): {diffs}")
+        check(all(v == 0 for v in diffs.values()),
+              f"curve kernels differ from plain at n={n}")
+
+
+def points_program(gs, ks, check_idx):
+    """Share points P_i = g_i G, multiply by shared k_i (Beaver), an
+    authenticated MSM, deferred authenticated opens, one verify_deferred."""
+    def prog(fabric):
+        dev, n = fabric.device, len(gs)
+        marks = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pts = (CurvePoint.generator((n,), device=dev).mul(Scalar.from_ints(gs, device=dev))
+               if fabric.party_id == 0 else None)
+        sp = fabric.share_points(pts, sender=0, n=n)
+        sk = fabric.share_values(Scalar.from_ints(ks, device=dev)
+                                 if fabric.party_id == 1 else None, sender=1, n=n)
+        torch.cuda.synchronize()
+        marks["share"] = time.time() - t0
+        prod = fabric.mul_points(sk, sp)
+        torch.cuda.synchronize()
+        marks["beaver"] = time.time() - t0 - sum(marks.values())
+        msm = fabric.msm(sk, sp)
+        torch.cuda.synchronize()
+        marks["msm"] = time.time() - t0 - sum(marks.values())
+        opened = fabric.open_authenticated_points(prod, defer=True)
+        opened_msm = fabric.open_authenticated_points(msm.reshape(1), defer=True)
+        fabric.verify_deferred()
+        torch.cuda.synchronize()
+        marks["open+verify"] = time.time() - t0 - sum(marks.values())
+        return affine(opened, check_idx), affine(opened_msm), marks, fabric.n_rounds
+    return prog
+
+
+def corrupt_point_mac_program(fabric):
+    n, dev = 16, fabric.device
+    pts = CurvePoint.generator((n,), device=dev) if fabric.party_id == 0 else None
+    sp = fabric.share_points(pts, sender=0, n=n)
+    if fabric.party_id == 1:
+        sp = PointShare(sp.share, sp.mac + CurvePoint.generator((n,), device=dev))
+    return fabric.open_authenticated_points(sp)
+
+
+def order2_input_program(fabric):
+    """Party 0 inputs the order-2 point (0, -1): the receiver's subgroup
+    check must reject the masked point."""
+    dev = fabric.device
+    pts = (CurvePoint.from_affine_ints([0], [P25519 - 1], device=dev)
+           if fabric.party_id == 0 else None)
+    return fabric.share_points(pts, sender=0, n=1)
+
+
+def phase_points(dev) -> dict:
+    rnd = random.Random(31)
+    gs = [rnd.randrange(1, L) for _ in range(N_POINTS)]
+    ks = [rnd.randrange(L) for _ in range(N_POINTS)]
+    idx = [0, 1, N_POINTS // 3, N_POINTS // 2, N_POINTS - 1]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    (o0, m0, marks, rounds), (o1, m1, _, _) = execute_mock_mpc_dealer(
+        points_program(gs, ks, idx), seed=5, device=dev)
+    secs = time.time() - t0
+    check(o0 == o1 and m0 == m1, "parties opened different points")
+    check(o0 == [ed_mul(ks[i] * gs[i] % L) for i in idx],
+          "opened Beaver products differ from Python ints")
+    check(m0 == [ed_mul(sum(k * g for k, g in zip(ks, gs)) % L)],
+          "authenticated MSM differs from Python ints")
+    log(f"[8 points] n={N_POINTS}: share + Beaver k*P + authenticated MSM + "
+        f"deferred opens + verify_deferred OK in {secs:.2f} s host time "
+        f"({rounds} rounds); party 0 steps (s): "
+        f"{ {k: round(v, 3) for k, v in marks.items()} }; spot checks 5/5 and "
+        "the MSM equal Python ints")
+    for prog, what in ((corrupt_point_mac_program, "corrupted point MAC"),
+                       (order2_input_program, "order-2 input point")):
+        try:
+            execute_mock_mpc_dealer(prog, seed=6, device=dev)
+        except AuthenticationError as err:
+            log(f"[8 points] {what} aborted: AuthenticationError({err})")
+        else:
+            raise RuntimeError(f"check failed: {what} was not detected")
+    return {"host_s": secs, "steps_party0_s": marks, "rounds": rounds}
+
+
+def phase_msm(dev) -> tuple[CurveOperands, dict]:
+    ops = CurveOperands(N_MSM, 41, dev)
+    torch.cuda.synchronize()
+    gs, ks = ops.g.to_ints(), ops.k.to_ints()
+    want = ed_mul(sum(k * g for k, g in zip(ks, gs)) % L)
+    results, times = {}, {}
+    for route in MSM_ROUTES:
+        os.environ["ARK_MSM_FORCE"] = route
+        try:
+            results[route] = CurvePoint.msm(ops.k, ops.points)  # warm-up
+            runs = []
+            for _ in range(MSM_RUNS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                CurvePoint.msm(ops.k, ops.points)
+                b.record()
+                torch.cuda.synchronize()
+                runs.append(a.elapsed_time(b))
+        finally:
+            del os.environ["ARK_MSM_FORCE"]
+        times[route] = {"median_ms": float(np.median(runs)), "runs_ms": runs}
+        check(affine(results[route].reshape(1)) == [want],
+              f"MSM route {route} differs from Python ints")
+    for route in MSM_ROUTES[1:]:
+        check(bool(results[route].equals(results["ladder"])),
+              f"MSM routes ladder and {route} disagree")
+    log(f"[9 msm] n={N_MSM}: routes agree with each other and with Python ints; "
+        + "; ".join(f"{r} median {t['median_ms']:.2f} ms "
+                    f"({min(t['runs_ms']):.2f}-{max(t['runs_ms']):.2f})"
+                    for r, t in times.items()))
+    return ops, times
+
+
+def curve_work(ops: CurveOperands, buckets) -> dict:
+    """-> {kernel: (bytes, 32-bit multiplies)} of this run's inputs."""
+    n, lanes, W = ops.n, ops.lanes, mk.N_WINDOWS
+    counts = (ops.off[:, 1:] - ops.off[:, :-1]).long()
+    adds = int(counts[:, 1:].sum())  # (point, window) pairs with a digit >= 1
+    nb = mk.N_BUCKETS
+    reduce_products = (W * ((nb.bit_length() - 1) * nb + nb - 1) * 9
+                       + (W - 1) * (7 * 7 + 8 + 9))
+    return {
+        "windowed_mul": (9 * 64 * n, (135 + 64 * 37) * MUL_OPS * n),
+        "window_sums": (5 * 64 * n + 4 * 64 * ck.WINDOWS * lanes,
+                        (135 + 64 * 8) * MUL_OPS * n),
+        "bucket_accumulate": (4 * W * n + 4 * W * (nb + 1) + 256 * n
+                              + 4 * 64 * W * nb, 9 * MUL_OPS * adds),
+        "bucket_reduce": (4 * 64 * W * nb + 4 * 64, reduce_products * MUL_OPS),
+    }
+
+
+def phase_curve_report(dev, ops: CurveOperands, launches: dict) -> list:
+    mem_rate, int_rate = device_rates(dev)
+    buckets = mk.bucket_accumulate(*ops.args("bucket_accumulate"))
+    work = curve_work(ops, buckets)
+    rows = []
+    for name in mk.KERNELS:
+        args = ops.args(name, buckets)
+        ms = cuda_ms(lambda: mk.KERNELS[name](*args), reps=5)
+        want = mk.KERNELS[name](*args)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        plain = mk.PLAIN[name](*args)
+        t1.record()
+        torch.cuda.synchronize()
+        err = max_diff(want, plain)
+        check(err == 0, f"{name} differs from its plain version at the main-path "
+                        f"shape (max {err})")
+        nbytes, nops = work[name]
+        t_bytes, t_ops = nbytes / mem_rate, nops / int_rate
+        rows.append({
+            "name": name, "route": "cuda", "source": CURVE_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": t0.elapsed_time(t1),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": None,
+        })
+        log(f"[10 report] {name}: {ms:.4f} ms/launch at n={ops.n}, plain "
+            f"{rows[-1]['plain_ms']:.2f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
+            f"({rows[-1]['bound_by']}); max limb difference vs plain {err}")
+    return rows
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card "
@@ -422,7 +710,21 @@ def main() -> int:
           "a kernel of the main path was never launched")
 
     rows = phase_report(dev, ch, launches)
+    phase_curve_kernels(dev)
+
+    mk.reset_launches()
+    points = phase_points(dev)
+    msm_ops, msm_times = phase_msm(dev)
+    torch.cuda.synchronize()
+    curve_launches = mk.launch_counts()
+    log(f"curve-path launches: {curve_launches}")
+    check(all(v > 0 for v in curve_launches.values()),
+          "a kernel of the curve path was never launched")
+    rows += phase_curve_report(dev, msm_ops, curve_launches)
+
     log(json.dumps({"headline": headline}))
+    log(json.dumps({"points_n_10000": points}))
+    log(json.dumps({"msm_n_2^16": msm_times}))
     log(json.dumps({"times_at_n_2^16": plain_2_16}))
     log(f"total {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

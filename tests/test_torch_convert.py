@@ -106,3 +106,28 @@ def test_reference_material_drives_the_port_fabric():
         assert gv == wv == [x * y % ref.Scalar.spec.modulus for x, y in zip(xs, ys)]
         np.testing.assert_array_equal(gs, ws)
         np.testing.assert_array_equal(gm, wm)
+
+
+def test_point_and_point_share_roundtrip_with_reference():
+    """A reference CurvePoint/PointShare made from a seed goes to the port
+    and back bit for bit, and its affine ints are the reference's."""
+    from ark_mpc_tpu.algebra.curve import CurvePoint as RPoint
+    from ark_mpc_tpu.algebra.point_share import PointShare as RPointShare
+
+    rpt = RPoint.random(3, np.random.default_rng(61))
+    rdbl = rpt.double()  # a projective (Z != 1) representative
+    arr = convert.from_point(rdbl)
+    assert arr.dtype == np.uint32 and arr.shape == (4, 16, 3)
+    pt = convert.to_point(arr, device="cpu")
+    np.testing.assert_array_equal(convert.from_point(pt), arr)
+    x, y = pt.to_affine()
+    rx, ry = rdbl.to_affine()
+    assert x.to_ints() == rx.to_ints() and y.to_ints() == ry.to_ints()
+
+    rps = RPointShare(rpt, rdbl)
+    pair = convert.from_point_share(rps)
+    ps = convert.to_point_share(pair, device="cpu")
+    for got, want in zip(convert.from_point_share(ps), pair):
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="point arrays"):
+        convert.to_point(np.zeros((3, 16, 1), np.uint32), device="cpu")

@@ -69,3 +69,56 @@ def test_chain_splits_long_runs(dev, monkeypatch):
     for g, w in zip(fk.beaver_chain(*args), fk.beaver_chain_plain(*args)):
         assert torch.equal(g, w)
     assert fk.beaver_chain.launches - before == 2
+
+
+# ---------------------------------------------------------------------------
+# the curve kernels (ops/curve_kernels.py, ops/msm_kernels.py)
+# ---------------------------------------------------------------------------
+
+
+def curve_operands(n, seed, dev):
+    from ark_mpc_tpu_torch.algebra.curve import CurvePoint
+
+    rng = np.random.default_rng(seed)
+    pts = CurvePoint.random(n, rng, device="cpu")  # hash-to-curve on the host
+    coords = [c.limbs.to(dev).contiguous() for c in pts._coords()]
+    canon = Scalar.random(n, rng, device=dev).canonical_limbs().contiguous()
+    return canon, coords
+
+
+def same(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4096])
+def test_curve_kernels_match_plain(dev, n):
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+    from ark_mpc_tpu_torch.ops import msm_kernels as mk
+
+    canon, co = curve_operands(n, 100 + n, dev)
+    before = mk.launch_counts()
+    assert same(ck.windowed_mul(canon, *co), ck.windowed_mul_plain(canon, *co))
+    lanes = max(1, n // 3)  # several points per lane
+    assert same(ck.window_sums(canon, *co, lanes=lanes),
+                ck.window_sums_plain(canon, *co, lanes=lanes))
+    idx, off = mk.bucket_prologue(canon)
+    buckets = mk.bucket_accumulate(idx, off, *co)
+    assert same(buckets, mk.bucket_accumulate_plain(idx, off, *co))
+    assert same(mk.bucket_reduce(*buckets), mk.bucket_reduce_plain(*buckets))
+    torch.cuda.synchronize()
+    after = mk.launch_counts()
+    assert [after[k] - before[k] for k in after] == [1, 1, 1, 1]
+
+
+def test_bucket_accumulate_clustered_digits(dev):
+    """Every scalar equal: each window's points all land in one bucket."""
+    from ark_mpc_tpu_torch.ops import msm_kernels as mk
+
+    n = 1000
+    _, co = curve_operands(n, 7, dev)
+    canon = Scalar.from_ints([(1 << 252) + 0x0102030405] * n, device=dev).canonical_limbs()
+    idx, off = mk.bucket_prologue(canon.contiguous())
+    assert int((off[:, 1:] - off[:, :-1]).max()) == n
+    buckets = mk.bucket_accumulate(idx, off, *co)
+    assert same(buckets, mk.bucket_accumulate_plain(idx, off, *co))
+    assert same(mk.bucket_reduce(*buckets), mk.bucket_reduce_plain(*buckets))
