@@ -28,6 +28,7 @@ NLIMBS = 16
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
 LIMB_DTYPE = torch.int32
+P25519 = (1 << 255) - 19
 
 
 def int_to_limbs(value: int, n_limbs: int = NLIMBS) -> np.ndarray:
@@ -61,6 +62,9 @@ class FieldSpec:
         # high limbs x c, and values are stored CANONICALLY.
         c = (1 << (NLIMBS * LIMB_BITS)) % modulus
         self.pm_c = c if modulus.bit_length() >= 250 and c < (1 << 10) else None
+        if self.pm_c and modulus != P25519:
+            raise ValueError("the pseudo-Mersenne arithmetic here is written "
+                             "for 2^255 - 19 only")
         self.r = (1 << (NLIMBS * LIMB_BITS)) % modulus  # R mod m
         self.r2 = (self.r * self.r) % modulus
         # n0 = -m^{-1} mod 2^16 (16-bit REDC); the CUDA kernels run 32-bit
@@ -140,7 +144,7 @@ def _cond_sub(spec: FieldSpec, s: torch.Tensor) -> torch.Tensor:
 
 def add(spec: FieldSpec, x, y):
     """(x + y) mod m, inputs/outputs in [0, m)."""
-    if _is_p25519(spec):
+    if spec.pm_c:
         return add25519(x, y)
     s, _ = _carry(_i64(x) + _i64(y))
     return _cond_sub(spec, s).to(LIMB_DTYPE)
@@ -148,7 +152,7 @@ def add(spec: FieldSpec, x, y):
 
 def sub(spec: FieldSpec, x, y):
     """(x - y) mod m."""
-    if _is_p25519(spec):
+    if spec.pm_c:
         return sub25519(x, y)
     out = torch.empty_like(_i64(x))
     borrow = torch.zeros_like(out[0])
@@ -223,27 +227,6 @@ def _redc(spec: FieldSpec, cols: torch.Tensor, iters: int = NLIMBS):
     return _cond_sub(spec, res).to(LIMB_DTYPE)
 
 
-def _pm_fold(spec: FieldSpec, cols: torch.Tensor):
-    """Pseudo-Mersenne reduction of int64 16-bit columns (at most 33): fold
-    columns >= 16 down by x c (2^256 = c mod m), carry-propagate, fold the
-    carry-outs, conditional subtracts.  Exact."""
-    c = spec.pm_c
-    low = cols[:NLIMBS].clone()
-    high = cols[NLIMBS:2 * NLIMBS]
-    low[:high.shape[0]] += high * c
-    extra = cols[2 * NLIMBS] * c if cols.shape[0] > 2 * NLIMBS else 0
-    res, carry = _carry(low)
-    res[0] += (carry + extra) * c
-    res, carry2 = _carry(res)
-    # a second-order carry-out (value in [2^256, 2^256 + 2^48)) folds once
-    # more; the final chain then clears completely
-    res[0] += carry2 * c
-    res, _ = _carry(res)
-    for _ in range(2):  # value < 2^256 < 2m + c: at most two subtractions
-        res = _cond_sub(spec, res)
-    return res.to(LIMB_DTYPE)
-
-
 # ---------------------------------------------------------------------------
 # p = 2^255 - 19 (the Ed25519 base field): few-op plain arithmetic
 #
@@ -254,18 +237,14 @@ def _pm_fold(spec: FieldSpec, cols: torch.Tensor):
 # canonical limbs, resolving the last exact carry chain by a look-ahead (the
 # carry into limb i comes from the nearest limb below it that is not
 # 0xFFFF).  Canonical outputs are bit-identical to every other route.
+# This is the one field with `FieldSpec.pm_c` (2^256 = 38 mod p).
 # ---------------------------------------------------------------------------
 
-P25519 = (1 << 255) - 19
 # 8p with every limb in [2^18 - 152, 2^18): x + 8p - y has no negative limb
 # for lazy y.
 _EIGHTP = [(1 << 18) - 152] + [(1 << 18) - 4] * (NLIMBS - 1)
 _const_cache: dict = {}
 _MUL_CHUNK = 1 << 20  # elements per plain product call
-
-
-def _is_p25519(spec: FieldSpec) -> bool:
-    return spec.modulus == P25519
 
 
 def _limb_const(values, like: torch.Tensor) -> torch.Tensor:
@@ -368,12 +347,9 @@ def sub25519(x, y):
 
 def mont_mul_plain(spec: FieldSpec, x, y):
     """Plain torch field product in internal form (any device)."""
-    if _is_p25519(spec):
-        return mul25519(x, y)
-    cols = _conv(_i64(x), _i64(y))
     if spec.pm_c:
-        return _pm_fold(spec, cols)
-    return _redc(spec, cols)
+        return mul25519(x, y)
+    return _redc(spec, _conv(_i64(x), _i64(y)))
 
 
 def mont_mul(spec: FieldSpec, x, y):
@@ -417,8 +393,10 @@ def reduce_wide(spec: FieldSpec, wide):
     Requires value < m * 2^256 (true for k <= 28).  Returns the CANONICAL
     value X mod m (convert with `to_mont` if needed)."""
     cols = _i64(wide)
-    if spec.pm_c:
-        return _pm_fold(spec, cols)
+    if spec.pm_c:  # fold columns >= 16 down x 38: limbs < 39 * 2^16
+        pad = cols.new_zeros((2 * NLIMBS - cols.shape[0],) + cols.shape[1:])
+        v = torch.cat([cols, pad])
+        return canon25519(_wrap_pass(v[:NLIMBS] + 38 * v[NLIMBS:]))
     y = _redc(spec, cols)  # X * R^{-1}
     return mont_mul(spec, y, const_like(spec.r2_limbs, y))  # X mod m
 

@@ -339,11 +339,10 @@ def default_lanes(n: int) -> int:
     return max(1, min(n, WS_LANES))
 
 
-def window_sums_plain(canon, x, y, z, t, windows: int = WINDOWS,
-                      lanes: int | None = None):
+def window_sums_plain(canon, x, y, z, t, windows: int = WINDOWS):
     """Plain torch form of `window_sums`."""
     n = canon.shape[1]
-    L = lanes or default_lanes(n)
+    L = default_lanes(n)
     acc = [a.to(torch.int64).unsqueeze(1).expand(NLIMBS, windows, L).contiguous()
            for a in identity_coords(x[:, :1].expand(NLIMBS, L))]
     for lo in range(0, n, L):
@@ -357,19 +356,19 @@ def window_sums_plain(canon, x, y, z, t, windows: int = WINDOWS,
     return tuple(a.permute(1, 0, 2).contiguous() for a in to_canonical(*acc))
 
 
-def window_sums(canon, x, y, z, t, windows: int = WINDOWS,
-                lanes: int | None = None):
+def window_sums(canon, x, y, z, t, windows: int = WINDOWS):
     """Per-window, per-lane partial MSM sums: lane j of window w holds
     sum over points i = j, j + L, ... (in that order, from the identity) of
-    digit_w(s_i) * P_i, by cached adds of table entries.  `windows < 64`
-    takes the low windows only.  -> four (windows, 16, L) tensors."""
+    digit_w(s_i) * P_i, by cached adds of table entries, with
+    L = `default_lanes(n)`.  `windows < 64` takes the low windows only.
+    -> four (windows, 16, L) tensors."""
     _check_windows(windows)
     if canon.device.type == "cpu":
-        return window_sums_plain(canon, x, y, z, t, windows, lanes)
+        return window_sums_plain(canon, x, y, z, t, windows)
     dev, flat, n = _coords(canon, x, y, z, t)
     if n == 0:
         raise ValueError("window_sums needs at least one point")
-    L = lanes or default_lanes(n)
+    L = default_lanes(n)
     outs = [torch.empty((windows, NLIMBS, L), dtype=lb.LIMB_DTYPE, device=dev)
             for _ in range(4)]
     with torch.cuda.device(dev):
@@ -383,8 +382,7 @@ def window_sums(canon, x, y, z, t, windows: int = WINDOWS,
 window_sums.launches = 0
 
 
-def msm_windowsum(points, scalars, windows: int = WINDOWS,
-                  lanes: int | None = None):
+def msm_windowsum(points, scalars, windows: int = WINDOWS):
     """MSM through `window_sums`: the lane partials summed by a tree
     (batched over windows), then Horner most significant window first,
     16 * acc + S_w, in plain torch."""
@@ -393,7 +391,7 @@ def msm_windowsum(points, scalars, windows: int = WINDOWS,
     n = scalars.size
     canon = lb.from_mont(SCALAR_FIELD, scalars.reshape(n).limbs)
     sums = window_sums(canon, *_flat_point(points.broadcast_to((n,)), n),
-                       windows=windows, lanes=lanes)
+                       windows=windows)
     S = CurvePoint.from_coords([a.permute(1, 0, 2) for a in sums],
                                (windows, sums[0].shape[2])).sum(axis=1)
     acc = CurvePoint.identity((), device=canon.device)

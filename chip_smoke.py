@@ -90,8 +90,14 @@ N_MSM = 1 << 16            # native_msm.rs top size
 MSM_RUNS = 5
 MSM_ROUTES = ("ladder", "bucket", "winsum")
 # 32-bit multiply instructions per base-field product: 64 32x32->64
-# products (lo and hi) and the x38 fold of 8 high words
+# products (lo and hi) and the x38 fold of 8 high words; a square needs 36
+# word products (8 * 9 / 2)
 MUL_OPS = 2 * 64 + 2 * 8
+SQR_OPS = 2 * 36 + 2 * 8
+# (products, squares) of each Edwards formula, as the kernels run them
+DBL, DBL_NO_T, PADD, PADD_CACHED, PRODUCT = (4, 4), (3, 4), (9, 0), (8, 0), (1, 0)
+# the cached table of 0..15 * P: 7 doubles, 7 adds and 2d * T of entries 1..15
+TABLE = ((7, DBL), (7, PADD), (15, PRODUCT))
 
 
 def log(msg: str) -> None:
@@ -496,7 +502,7 @@ class CurveOperands:
         if name == "windowed_mul":
             return (self.canon, *self.coords)
         if name == "window_sums":
-            return (self.canon, *self.coords, ck.WINDOWS, self.lanes)
+            return (self.canon, *self.coords)
         if name == "bucket_accumulate":
             return (self.idx, self.off, *self.coords)
         return tuple(buckets)
@@ -636,28 +642,50 @@ def phase_msm(dev) -> tuple[CurveOperands, dict]:
     return ops, times
 
 
-def curve_work(ops: CurveOperands, buckets) -> dict:
-    """-> {kernel: (bytes, 32-bit multiplies)} of this run's inputs."""
-    n, lanes, W = ops.n, ops.lanes, mk.N_WINDOWS
-    counts = (ops.off[:, 1:] - ops.off[:, :-1]).long()
-    adds = int(counts[:, 1:].sum())  # (point, window) pairs with a digit >= 1
-    nb = mk.N_BUCKETS
-    reduce_products = (W * ((nb.bit_length() - 1) * nb + nb - 1) * 9
-                       + (W - 1) * (7 * 7 + 8 + 9))
+def fe_ops(*terms) -> int:
+    """32-bit multiplies of (count, formula) terms."""
+    return sum(k * (f[0] * MUL_OPS + f[1] * SQR_OPS) for k, f in terms)
+
+
+def curve_work(ops: CurveOperands) -> dict:
+    """-> {kernel: (bytes, 32-bit multiplies)}: the least work each kernel's
+    function needs on this run's inputs (no work on the identity, a square
+    at 36 word products, the bucket sums weighted by a running sum)."""
+    n, lanes, W, nb = ops.n, ops.lanes, mk.N_WINDOWS, mk.N_BUCKETS
+    counts = (ops.off[:, 1:] - ops.off[:, :-1]).long()[:, 1:]  # digits >= 1
+    # a bucket of c points needs c - 1 adds
+    bucket_adds = int((counts - 1).clamp(min=0).sum())
+    # sum_d d * B_d from the top nonempty digit D down: a running suffix sum
+    # (an add per nonempty bucket below D) and an add of it per digit
+    nonempty = counts > 0
+    digits = torch.arange(1, nb, device=counts.device)
+    top = (nonempty * digits).max(dim=1).values
+    below = (nonempty & (digits < top[:, None])).sum(dim=1)
+    reduce_adds = int((below + (top - 1).clamp(min=0)).sum())
+    window = ((3, DBL_NO_T), (1, DBL), (1, PADD_CACHED))
     return {
-        "windowed_mul": (9 * 64 * n, (135 + 64 * 37) * MUL_OPS * n),
+        # constant time: every window but the top one (a select into the
+        # identity) doubles four times and adds its entry
+        "windowed_mul": (9 * 64 * n,
+                         n * fe_ops(*TABLE, *((63 * k, f) for k, f in window))),
+        # a lane's first point in each window is a select, not an add
         "window_sums": (5 * 64 * n + 4 * 64 * ck.WINDOWS * lanes,
-                        (135 + 64 * 8) * MUL_OPS * n),
+                        n * fe_ops(*TABLE)
+                        + fe_ops((ck.WINDOWS * (n - lanes), PADD_CACHED))),
         "bucket_accumulate": (4 * W * n + 4 * W * (nb + 1) + 256 * n
-                              + 4 * 64 * W * nb, 9 * MUL_OPS * adds),
-        "bucket_reduce": (4 * 64 * W * nb + 4 * 64, reduce_products * MUL_OPS),
+                              + 4 * 64 * W * nb, fe_ops((bucket_adds, PADD))),
+        # the suffix sums, then Horner over windows: c - 1 T-less doubles,
+        # 1 double, 1 add per step
+        "bucket_reduce": (4 * 64 * W * nb + 4 * 64,
+                          fe_ops((reduce_adds, PADD), ((mk.C_BITS - 1) * (W - 1), DBL_NO_T),
+                                 (W - 1, DBL), (W - 1, PADD))),
     }
 
 
 def phase_curve_report(dev, ops: CurveOperands, launches: dict) -> list:
     mem_rate, int_rate = device_rates(dev)
     buckets = mk.bucket_accumulate(*ops.args("bucket_accumulate"))
-    work = curve_work(ops, buckets)
+    work = curve_work(ops)
     rows = []
     for name in mk.KERNELS:
         args = ops.args(name, buckets)

@@ -76,24 +76,27 @@ def test_windowed_mul_few_windows_matches_reference():
 
 
 @pytest.mark.parametrize("lanes", [None, 2])
-def test_msm_windowsum_matches_reference(lanes):
+def test_msm_windowsum_matches_reference(lanes, monkeypatch):
+    if lanes:
+        monkeypatch.setattr(ck, "WS_LANES", lanes)
     n = 4
     rp = ref_points(n, 1)
     ks = [rng.randrange(L) for _ in range(n)]
     ks[0] = L - 1
-    got = ck.msm_windowsum(port_of(rp), Scalar.from_ints(ks, device="cpu"), lanes=lanes)
+    got = ck.msm_windowsum(port_of(rp), Scalar.from_ints(ks, device="cpu"))
     want = rp.mul(RScalar.from_ints(ks)).sum()
     assert affine(got.reshape(1)) == affine(want.reshape(1))
 
 
-def test_window_sums_lanes():
+def test_window_sums_lanes(monkeypatch):
     """Lane j of window w sums digit_w(s_i) P_i over i = j, j + L, ..."""
     n, lanes, windows = 5, 2, 3
+    monkeypatch.setattr(ck, "WS_LANES", lanes)
     rp = ref_points(n, 3)
     pt = port_of(rp)
     ks = [rng.randrange(1 << 12) for _ in range(n)]
     canon = torch.from_numpy(lb.ints_to_limb_array(ks).astype(np.int32))
-    sums = ck.window_sums(canon, *coords(pt), windows=windows, lanes=lanes)
+    sums = ck.window_sums(canon, *coords(pt), windows=windows)
     assert sums[0].shape == (windows, 16, lanes)
     S = CurvePoint.from_coords([a.permute(1, 0, 2) for a in sums], (windows, lanes))
     for w in range(windows):

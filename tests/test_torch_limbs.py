@@ -152,3 +152,11 @@ def test_int_limb_helpers():
     assert lb.limbs_to_int(lb.int_to_limbs(v)) == v
     with pytest.raises(ValueError):
         lb.int_to_limbs(1 << 256)
+
+
+def test_only_p25519_takes_the_pseudo_mersenne_path():
+    """The few-op arithmetic behind `FieldSpec.pm_c` folds by 38 and 19, so
+    another pseudo-Mersenne modulus (here 2^256 = 62 mod m) is refused."""
+    assert BASE_FIELD.pm_c == 38 and SCALAR_FIELD.pm_c is None
+    with pytest.raises(ValueError, match="2\\^255 - 19"):
+        lb.FieldSpec((1 << 255) - 31, "other")
