@@ -2,9 +2,10 @@
 
 A second package beside the JAX reference: SPDZ-style two-party MPC over the
 Curve25519 scalar field with batch-first share arithmetic on torch tensors,
-a round-based fabric, Ed25519 point protocols and MSM, and hand-written CUDA
-kernels (sm_90a) for the authenticated Beaver multiplication path and the
-curve layer.  Entry points run on the CUDA card
+a round-based fabric with a traced circuit scheduler (`fabric.tracer()`),
+gadgets, polynomials and field matrix products, Ed25519 point protocols and
+MSM, and hand-written CUDA kernels (sm_90a) for the authenticated Beaver
+multiplication path and the curve layer.  Entry points run on the CUDA card
 unless the caller passes another `device` (the tests pass "cpu").
 """
 

@@ -36,7 +36,9 @@ GEN_Y = 463168356949264781694283940034751631413079938662562256157830336031652518
 
 # ARK_MSM_FORCE values: "" and "ladder" take the windowed kernel plus a tree
 # sum (the default), "bucket" the bucketed Pippenger, "winsum" the window-sum
-# kernel.  Anything else raises.
+# kernel.  Anything else raises.  As in the reference, the route named
+# "ladder" runs `windowed_mul`; the ladder kernel is reached through
+# `ops.curve_kernels.scalar_mul(..., kernel="ladder")`.
 MSM_ROUTES = ("", "ladder", "bucket", "winsum")
 
 

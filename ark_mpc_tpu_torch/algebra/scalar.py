@@ -194,9 +194,11 @@ class FieldArray:
         return out, mask_arr
 
     def matmul(self, other: "FieldArray") -> "FieldArray":
-        raise NotImplementedError(
-            "field matrix products (ops/matmul.py) come with slice B of "
-            "ROADMAP.md")
+        """Field matrix product (m, k) @ (k, n) (`ops/matmul.py`)."""
+        other = self._coerce(other)
+        from ..ops.matmul import mont_matmul
+
+        return type(self)(mont_matmul(self.spec, self.limbs, other.limbs))
 
     def __matmul__(self, other):
         return self.matmul(other)

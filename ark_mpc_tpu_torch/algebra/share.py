@@ -78,6 +78,14 @@ class ScalarShare:
     def sub_public(self, rhs: Scalar, mac_key: Scalar, party_id: int):
         return self.add_public(-rhs, mac_key, party_id)
 
+    def matmul_public_right(self, rhs: Scalar) -> "ScalarShare":
+        """[X] @ E for public E: linear, applies to share and MAC."""
+        return ScalarShare(self.share @ rhs, self.mac @ rhs)
+
+    def matmul_public_left(self, lhs: Scalar) -> "ScalarShare":
+        """D @ [X] for public D."""
+        return ScalarShare(lhs @ self.share, lhs @ self.mac)
+
     # -- batch structure ---------------------------------------------------
     def __getitem__(self, idx):
         return ScalarShare(self.share[idx], self.mac[idx])

@@ -7,6 +7,8 @@ authenticated shares and offline material.  Everything crosses as numpy:
   - a (share, mac) pair of such arrays <-> a `ScalarShare`;
   - a (4, 16, ...) uint32 array of canonical X, Y, Z, T limbs <-> a
     `CurvePoint`, and a (share, mac) pair of those <-> a `PointShare`;
+  - a (16, deg + 1) coefficient limb array <-> a `DensePoly`, and a
+    (share, mac) pair of those <-> an `AuthenticatedDensePoly`;
   - a dict of exported offline material <-> a preprocessing source that
     serves it:
 
@@ -27,6 +29,7 @@ import torch
 from .algebra.curve import CurvePoint
 from .algebra.limbs import NLIMBS
 from .algebra.point_share import PointShare
+from .algebra.poly import AuthenticatedDensePoly, DensePoly
 from .algebra.scalar import FieldArray, Scalar
 from .algebra.share import ScalarShare
 from .device import resolve_device
@@ -85,6 +88,24 @@ def to_point_share(pair, device=None) -> PointShare:
 
 def from_point_share(ps) -> tuple[np.ndarray, np.ndarray]:
     return from_point(ps.share), from_point(ps.mac)
+
+
+def to_poly(coeffs, device=None) -> DensePoly:
+    """(16, deg + 1) uint32 coefficient limbs -> `DensePoly` on `device`."""
+    return DensePoly(to_field(coeffs, Scalar, device))
+
+
+def from_poly(poly) -> np.ndarray:
+    """A public polynomial of either package -> (16, deg + 1) uint32."""
+    return from_field(poly.coeffs)
+
+
+def to_auth_poly(pair, device=None) -> AuthenticatedDensePoly:
+    return AuthenticatedDensePoly(to_share(pair, Scalar, device))
+
+
+def from_auth_poly(poly) -> tuple[np.ndarray, np.ndarray]:
+    return from_share(poly.coeffs)
 
 
 def export_source(source, batch_sizes) -> dict:

@@ -1,9 +1,11 @@
 """The MPC fabric: an eager, round-based batched runtime on torch tensors.
 
 Counterpart of `ark_mpc_tpu/fabric/context.py` (`MpcFabric`) without the
-mesh and tracer, which come with later slices of the port; the curve-point
-protocols live in `fabric/points.py`.  Shares are limb tensors on the fabric's device; each protocol step
-is a batched computation followed by at most one coalesced exchange:
+mesh, which comes with a later slice of the port; the curve-point protocols
+live in `fabric/points.py` and the traced circuit scheduler in
+`fabric/scheduler.py`.  Shares are limb tensors on the fabric's device; each
+protocol step is a batched computation followed by at most one coalesced
+exchange:
 
   - `open`: one message each way carrying all n shares, one local combine.
   - `open_authenticated`: open + MAC-check values + ONE commitment + one
@@ -20,6 +22,8 @@ random linear combination).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -30,6 +34,7 @@ from ..device import resolve_device
 from ..offline.base import PreprocessingPhase
 from ..ops import fp_kernels
 from ..utils.csprng import CSPRNG, default_crypto_rng
+from ..utils.stats import FabricStats
 from . import commitment, messages
 from .errors import AuthenticationError
 from .transport import Transport
@@ -44,11 +49,14 @@ class MpcFabric:
     """Two-party SPDZ online-phase context for one party.
 
     `device` (default: the CUDA card) is where shares live; the offline
-    source must serve material on the same device."""
+    source must serve material on the same device.  `collect_stats=True`
+    attaches a `FabricStats` (`self.stats`) that the protocol steps record
+    into."""
 
     def __init__(self, party_id: int, transport: Transport,
                  offline: PreprocessingPhase,
-                 rng: np.random.Generator | None = None, device=None):
+                 rng: np.random.Generator | None = None,
+                 collect_stats: bool = False, device=None):
         if party_id != transport.party_id:
             raise ValueError("party_id does not match the transport's party")
         self.party_id = party_id
@@ -63,6 +71,7 @@ class MpcFabric:
         # the share field is carried by the offline source's MAC key
         self.field = type(self.mac_key)
         self.rng = default_crypto_rng() if rng is None else rng
+        self.stats = FabricStats() if collect_stats else None
         # deferred MAC-check accumulators (flattened d-value Scalars)
         self._deferred: list[Scalar] = []
         self._deferred_points: list = []  # flattened point check values
@@ -71,10 +80,17 @@ class MpcFabric:
     def _from_wire(self, arr: np.ndarray) -> Scalar:
         return self.field(torch.from_numpy(arr.astype(np.int32)).to(self.device))
 
+    def _timed(self, op: str, n: int = 0):
+        if self.stats is None:
+            return contextlib.nullcontext()
+        return self.stats.timed(op, n)
+
     # -- low-level messaging ----------------------------------------------
     def _exchange_arrays(self, items):
         """One coalesced frame each way; party 0 sends first."""
         self.n_rounds += 1
+        if self.stats is not None:
+            self.stats.rounds += 1
         frame = messages.encode_arrays(items)
         return messages.decode_arrays(self.transport.exchange(frame))
 
@@ -134,8 +150,9 @@ class MpcFabric:
     def open(self, x: ScalarShare) -> Scalar:
         """Open shares without MAC check: one exchange of the share vector,
         one combine."""
-        (theirs,) = self._exchange_arrays([_wire(x.share)])
-        return x.share + self._from_wire(theirs)
+        with self._timed("open", x.size):
+            (theirs,) = self._exchange_arrays([_wire(x.share)])
+            return x.share + self._from_wire(theirs)
 
     def open_authenticated(self, x: ScalarShare, defer: bool = False) -> Scalar:
         """Open and check MACs.
@@ -197,24 +214,25 @@ class MpcFabric:
 
     def _run_mac_check(self, d: Scalar) -> None:
         """Commit-exchange-reveal-verify of MAC check values."""
-        blinder = self.field.random((), self.rng, device=self.device)
-        my_comm = commitment.commit(d, blinder)
-        # Round 1: exchange commitments.
-        peer_comm = self.exchange_scalars(my_comm)
-        # Round 2: exchange MAC-check values (canonical limbs, hash-ready).
-        canon = self.field(d.canonical_limbs())
-        (peer_d_canon,) = self._exchange_arrays([_wire(canon)])
-        # Round 3: exchange blinders.
-        peer_blinder = self.exchange_scalars(blinder)
+        with self._timed("mac_check", d.size):
+            blinder = self.field.random((), self.rng, device=self.device)
+            my_comm = commitment.commit(d, blinder)
+            # Round 1: exchange commitments.
+            peer_comm = self.exchange_scalars(my_comm)
+            # Round 2: exchange MAC-check values (canonical limbs, hash-ready).
+            canon = self.field(d.canonical_limbs())
+            (peer_d_canon,) = self._exchange_arrays([_wire(canon)])
+            # Round 3: exchange blinders.
+            peer_blinder = self.exchange_scalars(blinder)
 
-        # Verify: peer's commitment opens AND d_mine + d_peer == 0 pairwise.
-        peer_d = self.field(lb.to_mont(self.field.spec,
-                                       self._from_wire(peer_d_canon).limbs))
-        if not commitment.verify(peer_d, peer_blinder, peer_comm):
-            raise AuthenticationError("MAC check commitment failed to verify")
-        if not bool((d + peer_d).is_zero().all()):
-            raise AuthenticationError(
-                "MAC check failed: shares of key*v - mac do not sum to zero")
+            # Verify: peer's commitment opens AND d_mine + d_peer == 0 pairwise.
+            peer_d = self.field(lb.to_mont(self.field.spec,
+                                           self._from_wire(peer_d_canon).limbs))
+            if not commitment.verify(peer_d, peer_blinder, peer_comm):
+                raise AuthenticationError("MAC check commitment failed to verify")
+            if not bool((d + peer_d).is_zero().all()):
+                raise AuthenticationError(
+                    "MAC check failed: shares of key*v - mac do not sum to zero")
 
     # -- authenticated arithmetic -----------------------------------------
     def mul(self, x: ScalarShare, y: ScalarShare) -> ScalarShare:
@@ -223,13 +241,14 @@ class MpcFabric:
         combine."""
         shape = x.shape
         n = x.size
-        a, b, c = self.offline.next_triplet_batch(n)
-        masked = self.field.concatenate([(x.reshape(n) - a).share,
-                                         (y.reshape(n) - b).share])
-        (theirs,) = self._exchange_arrays([_wire(masked)])
-        opened = masked + self._from_wire(theirs)
-        d, e = opened[:n], opened[n:]
-        return self._beaver_combine_dispatch(a, b, c, d, e).reshape(*shape)
+        with self._timed("beaver_mul", n):
+            a, b, c = self.offline.next_triplet_batch(n)
+            masked = self.field.concatenate([(x.reshape(n) - a).share,
+                                             (y.reshape(n) - b).share])
+            (theirs,) = self._exchange_arrays([_wire(masked)])
+            opened = masked + self._from_wire(theirs)
+            d, e = opened[:n], opened[n:]
+            return self._beaver_combine_dispatch(a, b, c, d, e).reshape(*shape)
 
     def _beaver_combine_dispatch(self, a, b, c, d, e) -> ScalarShare:
         """Post-open Beaver combine through the `beaver_round` kernel (its
@@ -345,6 +364,19 @@ class MpcFabric:
 
     def one_authenticated(self, shape=()) -> ScalarShare:
         return self.share_public(self.field.ones(shape, device=self.device))
+
+    def tracer(self):
+        """Start a batched-circuit trace (see `fabric/scheduler.py`)."""
+        from .scheduler import Tracer
+
+        return Tracer(self)
+
+    def num_ops(self) -> int:
+        """Fused protocol calls so far (0 without `collect_stats=True`): one
+        `mul` over a batch of 2^20 elements counts as 1."""
+        if self.stats is None:
+            return 0
+        return sum(self.stats.op_counts.values())
 
     def shutdown(self):
         self.transport.close()

@@ -1,8 +1,9 @@
 """Two-party in-process transports.
 
 Copied from `ark_mpc_tpu/fabric/transport.py` (stdlib only): the `Transport`
-interface, the `LocalTransport` queue pair, and the lockstep pair the mock
-simulator uses.  TCP and TLS transports come in a later slice of the port.
+interface, the `LocalTransport` queue pair, the lockstep pair the mock
+simulator uses, and `NoRecvTransport` for single-party gate-throughput
+runs.  TCP and TLS transports come in a later slice of the port.
 
 Party 0 always sends first in an exchange, so framing order is
 deterministic and deadlock-free.
@@ -196,3 +197,17 @@ class LockstepTransport(Transport):
 
     def close(self):
         pass
+
+
+class NoRecvTransport(Transport):
+    """Sends are dropped and a receive raises: one party alone, for
+    gate-throughput runs of circuits that need no peer."""
+
+    def __init__(self, party_id=PARTY0):
+        super().__init__(party_id)
+
+    def _send(self, data):
+        pass
+
+    def _recv(self):
+        raise RuntimeError("NoRecvTransport cannot receive")

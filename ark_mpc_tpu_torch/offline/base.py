@@ -51,14 +51,15 @@ class PreprocessingPhase:
         raise NotImplementedError
 
     def next_matrix_triplet(self, m: int, k: int, n: int):
-        """Matrix Beaver triple ([P](m,k), [Q](k,n), [P@Q](m,n))."""
-        raise NotImplementedError(
-            "matrix triples come with slice B of ROADMAP.md (ops/matmul.py)")
+        """Matrix Beaver triple ([P](m,k), [Q](k,n), [P@Q](m,n)): shared
+        matmul communication O(mk + kn) instead of O(mkn)."""
+        raise NotImplementedError
 
     def next_poly_triplet(self, da: int, db: int):
-        """Polynomial Beaver triple ([P] deg da, [Q] deg db, [P*Q])."""
-        raise NotImplementedError(
-            "polynomial triples come with slice B of ROADMAP.md (algebra/poly.py)")
+        """Polynomial Beaver triple: coefficient ScalarShares of random polys
+        ([P] deg da, [Q] deg db, [P*Q]).  A source without them makes
+        `algebra.poly.poly_mul` take one scalar Beaver round instead."""
+        raise NotImplementedError
 
 
 class PartyIDBeaverSource(PreprocessingPhase):
@@ -113,6 +114,34 @@ class PartyIDBeaverSource(PreprocessingPhase):
         pid = self.party_id
         value = 3 * pid
         return ScalarShare(self._ints([value] * n), self._ints([pid * value] * n))
+
+    def next_matrix_triplet(self, m: int, k: int, n: int):
+        pid = self.party_id
+
+        def mat(shape, share_val, value):
+            cnt = shape[0] * shape[1]
+            return ScalarShare(self._ints([share_val] * cnt).reshape(*shape),
+                               self._ints([pid * value] * cnt).reshape(*shape))
+
+        # P = all-2, Q = all-3, C = P@Q = all-(6k); splits follow the scalar
+        # triple's
+        c_share = 2 * k if pid == 0 else 4 * k
+        return (mat((m, k), 1, 2), mat((k, n), 3 if pid == 0 else 0, 3),
+                mat((m, n), c_share, 6 * k))
+
+    def next_poly_triplet(self, da: int, db: int):
+        pid = self.party_id
+        p_vals = [2] * (da + 1)
+        q_vals = [3] * (db + 1)
+        c_vals = [6 * (min(k, da) - max(0, k - db) + 1) for k in range(da + db + 1)]
+
+        def share_of(vals, share_vals):
+            return ScalarShare(self._ints(share_vals),
+                               self._ints([pid * v for v in vals]))
+
+        return (share_of(p_vals, [1] * (da + 1)),
+                share_of(q_vals, [3 if pid == 0 else 0] * (db + 1)),
+                share_of(c_vals, c_vals if pid == 0 else [0] * len(c_vals)))
 
 
 class TrustedDealerSource(PreprocessingPhase):
@@ -191,3 +220,23 @@ class TrustedDealerSource(PreprocessingPhase):
         mask = self._rand_scalars(n)
         shares = self._deal(mask)
         return self._mine(shares)
+
+    def next_matrix_triplet(self, m: int, k: int, n: int):
+        p = self._rand_scalars(m * k).reshape(m, k)
+        q = self._rand_scalars(k * n).reshape(k, n)
+        c = p @ q
+
+        def deal_mat(v):
+            mine = self._mine(self._deal(v.reshape(v.size)))
+            return mine.reshape(*v.shape)
+
+        return deal_mat(p), deal_mat(q), deal_mat(c)
+
+    def next_poly_triplet(self, da: int, db: int):
+        from ..algebra.poly import _conv_coeffs
+
+        p = self._rand_scalars(da + 1)
+        q = self._rand_scalars(db + 1)
+        c = self.field(_conv_coeffs(p.limbs, q.limbs))
+        return (self._mine(self._deal(p)), self._mine(self._deal(q)),
+                self._mine(self._deal(c)))

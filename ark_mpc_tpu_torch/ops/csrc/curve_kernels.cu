@@ -1,9 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels for the Ed25519 curve layer:
-// windowed scalar multiplication, the window-sum MSM core, and the bucketed
-// Pippenger accumulate and reduce.
+// windowed and ladder scalar multiplication, the window-sum MSM core, and
+// the bucketed Pippenger accumulate and reduce.
 //
-// They replace the Pallas TPU kernels windowed_mul_pallas and
-// window_sums_pallas (ark_mpc_tpu/ops/curve_kernels.py) and
+// They replace the Pallas TPU kernels windowed_mul_pallas, ladder_pallas
+// and window_sums_pallas (ark_mpc_tpu/ops/curve_kernels.py) and
 // bucket_accumulate_pallas and bucket_reduce_pallas
 // (ark_mpc_tpu/ops/msm_kernels.py).  Source notes per kernel are in the
 // Python wrappers (ops/curve_kernels.py, ops/msm_kernels.py).
@@ -354,6 +354,43 @@ windowed_mul_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
 }
 
 // ---------------------------------------------------------------------------
+// ladder: out = s * P by the 256-step MSB-first ladder acc = 2 acc, then
+// acc = bit ? acc + P : acc, one thread per point.  The sum is always
+// computed and taken by a masked word select: no branch or address depends
+// on the scalar (it may be a MAC-key share).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fe fe_select(const Fe& a, const Fe& b, uint32_t m) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) r.w[i] = (a.w[i] & m) | (b.w[i] & ~m);
+  return r;
+}
+
+__global__ void __launch_bounds__(MUL_THREADS)
+ladder_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
+              int64_t n) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const Fe s = fe_load(canon, n, j);
+  const Pt P = pt_load(p, n, j);
+  Pt acc = pt_identity();
+  for (int k = NW - 1; k >= 0; --k) {
+    uint32_t word = 0;  // s.w[k] without a register-array index
+#pragma unroll
+    for (int q = 0; q < NW; ++q) word |= (q == k) ? s.w[q] : 0u;
+    for (int b = 31; b >= 0; --b) {
+      acc = pt_double(acc);
+      const Pt sum = pt_add(acc, P);
+      const uint32_t m = 0u - ((word >> b) & 1u);
+      acc = Pt{fe_select(sum.x, acc.x, m), fe_select(sum.y, acc.y, m),
+               fe_select(sum.z, acc.z, m), fe_select(sum.t, acc.t, m)};
+    }
+  }
+  pt_store(o, 0, n, j, acc);
+}
+
+// ---------------------------------------------------------------------------
 // window_sums: lane j of window w accumulates digit_w(s_i) * P_i over
 // i = j, j + L, ... into out[w][.][j] (out: (windows, 16, L) per coordinate)
 // ---------------------------------------------------------------------------
@@ -522,6 +559,15 @@ int ark_windowed_mul(void* const* ptrs, long long n, int windows, void* stream) 
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ptrs[0]), coords_of(ptrs + 1),
       out_coords_of(ptrs + 5), n, windows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ptrs: canon x y z t ox oy oz ot (all (16, n))
+int ark_ladder(void* const* ptrs, long long n, void* stream) {
+  ladder_kernel<<<blocks_for(n, MUL_THREADS), MUL_THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ptrs[0]), coords_of(ptrs + 1),
+      out_coords_of(ptrs + 5), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,6 +29,16 @@ Source notes (bounds for one H100 SXM; see `chip_smoke.py` for the counts):
     Base-field products are 8x32-bit schoolbooks folded x38, then brought
     to canonical form.
 
+  `ladder` replaces `ladder_pallas` (ark_mpc_tpu/ops/curve_kernels.py:196).
+    Bound: operations (17 base-field products per bit: a full double and a
+    complete add).  Design: one thread per point, no table: for bit
+    255 .. 0 of the canonical scalar, acc = 2 acc, then the sum acc + P is
+    always computed and taken by a masked word select, so nothing branches
+    on the scalar.  Reached through `scalar_mul(..., kernel="ladder")` and
+    `mul_by_order(..., kernel="ladder")`, as the reference reaches its
+    kernel through `kernel=ladder_pallas`; `CurvePoint.mul`, the subgroup
+    check and every MSM route take `windowed_mul`.
+
   `window_sums` replaces `window_sums_pallas` (:248).
     Bound: operations (~650 products per point).  The TPU carried its 64
     window accumulators through a sequential grid; CUDA blocks run in no
@@ -65,10 +75,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.ark_windowed_mul.argtypes = [vp, i64, i32, vp]
+    lib.ark_ladder.argtypes = [vp, i64, vp]
     lib.ark_window_sums.argtypes = [vp, i64, i32, i64, vp]
     lib.ark_bucket_accumulate.argtypes = [vp, i64, i32, i32, vp]
     lib.ark_bucket_reduce.argtypes = [vp, i32, i32, i32, vp]
-    for fn in (lib.ark_windowed_mul, lib.ark_window_sums,
+    for fn in (lib.ark_windowed_mul, lib.ark_ladder, lib.ark_window_sums,
                lib.ark_bucket_accumulate, lib.ark_bucket_reduce):
         fn.restype = ctypes.c_int
     return lib
@@ -82,10 +93,20 @@ def _lib() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 
+def _common_shape(tensors):
+    """Broadcast shape of `tensors`; equal shapes, the common case, skip
+    `torch.broadcast_shapes`, whose pure-Python cost dominates the plain
+    formulas on small batches."""
+    first = tensors[0].shape
+    if all(t.shape == first for t in tensors):
+        return first
+    return torch.broadcast_shapes(*(t.shape for t in tensors))
+
+
 def _batched(fn, pairs):
     if len(pairs) == 1:
         return [fn(*pairs[0])]
-    shape = torch.broadcast_shapes(*(t.shape for pair in pairs for t in pair))
+    shape = _common_shape([t for pair in pairs for t in pair])
     a = torch.stack([p[0].to(torch.int64).expand(shape) for p in pairs], 1)
     b = torch.stack([p[1].to(torch.int64).expand(shape) for p in pairs], 1)
     return list(fn(a, b).unbind(1))
@@ -97,7 +118,7 @@ def _mul(*pairs):
 
 def _lin(*terms):
     """[x + y or x - y for (x, op, y) in terms], op "+" or "-", in one call."""
-    shape = torch.broadcast_shapes(*(t.shape for x, _, y in terms for t in (x, y)))
+    shape = _common_shape([t for x, _, y in terms for t in (x, y)])
     x = torch.stack([t[0].to(torch.int64).expand(shape) for t in terms], 1)
     y = torch.stack([t[2].to(torch.int64).expand(shape) for t in terms], 1)
     sub = _cached(("sub", tuple(t[1] == "-" for t in terms)), x.device)
@@ -109,7 +130,7 @@ def to_canonical(*vals):
     """Lazy values -> canonical int32 limbs, in one batched call."""
     if len(vals) == 1:
         return (lb.canon25519(vals[0]),)
-    shape = torch.broadcast_shapes(*(v.shape for v in vals))
+    shape = _common_shape(vals)
     return lb.canon25519(torch.stack([v.to(torch.int64).expand(shape)
                                       for v in vals], 1)).unbind(1)
 
@@ -297,37 +318,86 @@ def windowed_mul(canon, x, y, z, t, windows: int = WINDOWS):
 windowed_mul.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# ladder
+# ---------------------------------------------------------------------------
+
+
+def ladder_plain(canon, x, y, z, t):
+    """Plain torch form of `ladder`."""
+    pt = tuple(c.to(torch.int64) for c in (x, y, z, t))
+    acc = tuple(c.to(torch.int64) for c in identity_coords(x))
+    for i in range(255, -1, -1):
+        bit = ((canon[i >> 4] >> (i & 15)) & 1).bool()
+        acc = _double(*acc)
+        added = _padd(*acc, *pt)
+        acc = tuple(torch.where(bit, a, d) for a, d in zip(added, acc))
+    return to_canonical(*acc)
+
+
+def ladder(canon, x, y, z, t):
+    """s*P over (16, n) canonical scalar limbs and point coordinates by the
+    256-step most-significant-first double-and-add ladder (the full double,
+    then the complete add, taken where the bit is set).  -> (X, Y, Z, T)."""
+    if canon.device.type == "cpu":
+        return ladder_plain(canon, x, y, z, t)
+    dev, flat, n = _coords(canon, x, y, z, t)
+    outs = [torch.empty_like(flat[1]) for _ in range(4)]
+    if n:
+        with torch.cuda.device(dev):
+            rc = _lib().ark_ladder(_ptrs(flat + outs), n, _stream(dev))
+        _check(rc, "ladder")
+        ladder.launches += 1
+    return tuple(outs)
+
+
+ladder.launches = 0
+
+# scalar x point kernels by name (`scalar_mul` and `mul_by_order` take one)
+SCALAR_MUL_KERNELS = {"windowed": windowed_mul, "ladder": ladder}
+
+
+def _scalar_mul_kernel(kernel: str):
+    if kernel not in SCALAR_MUL_KERNELS:
+        raise ValueError(f"kernel={kernel!r}: expected one of "
+                         f"{', '.join(repr(k) for k in SCALAR_MUL_KERNELS)}")
+    return SCALAR_MUL_KERNELS[kernel]
+
+
 def _flat_point(point, n):
     return [c.limbs.expand((NLIMBS,) + tuple(point.shape)).reshape(NLIMBS, n)
             for c in point._coords()]
 
 
-def scalar_mul(point, scalar):
-    """`CurvePoint.mul`: broadcast, flatten, `windowed_mul`, reshape."""
+def scalar_mul(point, scalar, kernel: str = "windowed"):
+    """`CurvePoint.mul`: broadcast, flatten, run the named kernel
+    (`windowed_mul` or `ladder`), reshape."""
     from ..algebra.curve import CurvePoint
 
+    kern = _scalar_mul_kernel(kernel)
     shape = torch.broadcast_shapes(tuple(point.shape), tuple(scalar.shape))
     n = 1
     for s in shape:
         n *= s
     pt = point.broadcast_to(shape)
     canon = lb.from_mont(SCALAR_FIELD, scalar.broadcast_to(shape).limbs)
-    out = windowed_mul(canon.reshape(NLIMBS, n), *_flat_point(pt, n))
+    out = kern(canon.reshape(NLIMBS, n), *_flat_point(pt, n))
     return CurvePoint.from_coords(out, shape)
 
 
-def mul_by_order(point):
+def mul_by_order(point, kernel: str = "windowed"):
     """l * P (l the prime group order, which no `Scalar` can hold): the
-    prime-subgroup check every received point takes."""
+    prime-subgroup check every received point takes (with `windowed_mul`)."""
     from ..algebra.curve import CurvePoint
 
+    kern = _scalar_mul_kernel(kernel)
     shape = tuple(point.shape)
     n = 1
     for s in shape:
         n *= s
     coords = _flat_point(point, n)
     canon = _const(SCALAR_FIELD.modulus, coords[0]).contiguous()
-    return CurvePoint.from_coords(windowed_mul(canon, *coords), shape)
+    return CurvePoint.from_coords(kern(canon, *coords), shape)
 
 
 # ---------------------------------------------------------------------------

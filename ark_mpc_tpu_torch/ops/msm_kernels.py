@@ -200,10 +200,11 @@ def msm_bucket(points, scalars):
     return CurvePoint.from_coords(bucket_reduce(*buckets), ())
 
 
-# The curve layer's four kernels (all in `csrc/curve_kernels.cu`).
-KERNELS = {"windowed_mul": ck.windowed_mul, "window_sums": ck.window_sums,
+# The curve layer's five kernels (all in `csrc/curve_kernels.cu`).
+KERNELS = {"windowed_mul": ck.windowed_mul, "ladder": ck.ladder,
+           "window_sums": ck.window_sums,
            "bucket_accumulate": bucket_accumulate, "bucket_reduce": bucket_reduce}
-PLAIN = {"windowed_mul": ck.windowed_mul_plain,
+PLAIN = {"windowed_mul": ck.windowed_mul_plain, "ladder": ck.ladder_plain,
          "window_sums": ck.window_sums_plain,
          "bucket_accumulate": bucket_accumulate_plain,
          "bucket_reduce": bucket_reduce_plain}

@@ -26,12 +26,27 @@ Phases (any failure exits non-zero; there is no CPU path):
   9. msm      the public MSM at n = 2^16 through each route (windowed + tree,
               bucket, winsum): routes agree with each other and with Python
               ints; median of 5 CUDA-event timings after a warm-up;
- 10. report   the curve kernels as in phase 6.
+ 10. report   the curve kernels as in phase 6;
+ 11. traced   traced circuits (`fabric.tracer()`): the README example; gate
+              throughput of 100,000 add gates under `NoRecvTransport`; a
+              circuit at n = 2^20 under the trusted dealer (x*y + x at 2^20;
+              bit_xor, inverse, a reused mid-circuit open, pow 5 and a sum on
+              a 2^16 slice) whose rounds must equal its communication depth;
+              a traced prefix product at 2^16 and a traced scalar x point
+              circuit at n = 10,000, all spot-checked against Python ints;
+              then a corrupted MAC that must abort at `verify_deferred`;
+ 12. matmul   `shared_matmul` at 512 x 512 x 512 under the trusted dealer
+              (MAC-checked, spot entries against Python ints), `mont_matmul`
+              alone at 512^3, shared `poly_mul` of two degree-255
+              polynomials with `poly_eval` and `poly_div`, and an
+              `EvaluationDomain(132)` FFT/IFFT round trip of shares.
 
-The launch counts of the field kernels are those of phases 3-5, those of the
-curve kernels those of phases 8-9 (each path's counts are set to 0 just
-before it and read just after).  The last line is
-`{"ok": true, "device": {...}}`.
+Each phase logs its seconds.  The launch counts of the field kernels are
+those of phases 3-5, those of the curve kernels those of phases 8-9 (each
+path's counts are set to 0 just before it and read just after); phases
+11-12 are a third path, whose kernels (`mont_matmul`'s and the fabric's)
+must each launch there too.  The last line is `{"ok": true, "device":
+{...}}`.
 """
 
 from __future__ import annotations
@@ -49,6 +64,8 @@ import torch
 from ark_mpc_tpu_torch import (
     AuthenticationError,
     CurvePoint,
+    MpcFabric,
+    PartyIDBeaverSource,
     PointShare,
     Scalar,
     ScalarShare,
@@ -57,11 +74,17 @@ from ark_mpc_tpu_torch import (
     execute_mock_mpc_dealer,
 )
 from ark_mpc_tpu_torch.algebra import limbs as lb
+from ark_mpc_tpu_torch.algebra import poly
+from ark_mpc_tpu_torch.algebra.domain import EvaluationDomain
 from ark_mpc_tpu_torch.algebra.fields import SCALAR_FIELD as SPEC
 from ark_mpc_tpu_torch.fabric import commitment
+from ark_mpc_tpu_torch.fabric.transport import NoRecvTransport
+from ark_mpc_tpu_torch.gadgets import bit_xor, prefix_product
+from ark_mpc_tpu_torch.models.circuits import shared_matmul
 from ark_mpc_tpu_torch.ops import _build
 from ark_mpc_tpu_torch.ops import curve_kernels as ck
 from ark_mpc_tpu_torch.ops import fp_kernels as fk
+from ark_mpc_tpu_torch.ops import matmul
 from ark_mpc_tpu_torch.ops import msm_kernels as mk
 
 L = SPEC.modulus
@@ -72,6 +95,7 @@ REPLACES = {
     "beaver_round": "ark_mpc_tpu/ops/fp_kernels.py:88",
     "beaver_chain": "ark_mpc_tpu/ops/fp_kernels.py:132",
     "windowed_mul": "ark_mpc_tpu/ops/curve_kernels.py:106",
+    "ladder": "ark_mpc_tpu/ops/curve_kernels.py:196",
     "window_sums": "ark_mpc_tpu/ops/curve_kernels.py:248",
     "bucket_accumulate": "ark_mpc_tpu/ops/msm_kernels.py:133",
     "bucket_reduce": "ark_mpc_tpu/ops/msm_kernels.py:372",
@@ -89,6 +113,13 @@ N_POINTS = 10_000          # circuit_msm_throughput.rs top size
 N_MSM = 1 << 16            # native_msm.rs top size
 MSM_RUNS = 5
 MSM_ROUTES = ("ladder", "bucket", "winsum")
+N_GATES = 100_000          # benchmarks/online_suite.py top size
+N_TRACED = 1 << 20         # the fabric's full width
+N_SLICE = 1 << 16          # the other gates of the traced circuit
+N_TRACED_POINTS = 10_000
+N_MATMUL = 512             # benchmarks/shared_matmul_512.py
+POLY_DEG = 255
+MATMUL_RUNS = 5
 # 32-bit multiply instructions per base-field product: 64 32x32->64
 # products (lo and hi) and the x38 fold of 8 high words; a square needs 36
 # word products (8 * 9 / 2)
@@ -185,7 +216,7 @@ def phase_build() -> str:
     ck._lib()
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
     card = smi("name,power.limit")
     log(f"[1 build] kernels built in {time.time() - t0:.1f} s")
@@ -499,7 +530,7 @@ class CurveOperands:
         self.lanes = ck.default_lanes(n)
 
     def args(self, name: str, buckets=None):
-        if name == "windowed_mul":
+        if name in ("windowed_mul", "ladder"):
             return (self.canon, *self.coords)
         if name == "window_sums":
             return (self.canon, *self.coords)
@@ -510,7 +541,7 @@ class CurveOperands:
 
 def compare_curve_kernels(ops: CurveOperands) -> dict:
     diffs = {}
-    for name in ("windowed_mul", "window_sums", "bucket_accumulate"):
+    for name in ("windowed_mul", "ladder", "window_sums", "bucket_accumulate"):
         diffs[name] = max_diff(mk.KERNELS[name](*ops.args(name)),
                                mk.PLAIN[name](*ops.args(name)))
     buckets = mk.bucket_accumulate(*ops.args("bucket_accumulate"))
@@ -522,11 +553,20 @@ def compare_curve_kernels(ops: CurveOperands) -> dict:
 
 def phase_curve_kernels(dev) -> None:
     for n, seed in ((N_CURVE_CMP, 21), (N_ODD, 22)):
-        diffs = compare_curve_kernels(CurveOperands(n, seed, dev))
+        ops = CurveOperands(n, seed, dev)
+        diffs = compare_curve_kernels(ops)
         log(f"[7 curve] max limb difference kernel vs plain at n={n} "
             f"(64 windows): {diffs}")
         check(all(v == 0 for v in diffs.values()),
               f"curve kernels differ from plain at n={n}")
+        if n == N_CURVE_CMP:
+            lad = CurvePoint.from_coords(ck.ladder(*ops.args("ladder")), (n,))
+            win = CurvePoint.from_coords(ck.windowed_mul(*ops.args("windowed_mul")), (n,))
+            check(bool(lad.equals(win).all()), "ladder and windowed_mul disagree")
+            check(bool(ck.mul_by_order(ops.points, kernel="ladder").is_identity().all()),
+                  "mul_by_order(kernel='ladder') is not the identity on subgroup points")
+            log(f"[7 curve] n={n}: ladder equals windowed_mul projectively; "
+                "mul_by_order(kernel='ladder') is the identity on subgroup points")
 
 
 def points_program(gs, ks, check_idx):
@@ -632,10 +672,30 @@ def phase_msm(dev) -> tuple[CurveOperands, dict]:
         times[route] = {"median_ms": float(np.median(runs)), "runs_ms": runs}
         check(affine(results[route].reshape(1)) == [want],
               f"MSM route {route} differs from Python ints")
-    for route in MSM_ROUTES[1:]:
+    # the ladder kernel's column (not an ARK_MSM_FORCE route, as in the
+    # reference: benchmarks/msm.py's pallas_ladder_ms)
+    def ladder_msm():
+        return ck.scalar_mul(ops.points, ops.k, kernel="ladder").sum()
+
+    results["ladder_kernel"] = ladder_msm()  # warm-up
+    runs = []
+    for _ in range(MSM_RUNS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ladder_msm()
+        b.record()
+        torch.cuda.synchronize()
+        runs.append(a.elapsed_time(b))
+    times["ladder_kernel"] = {"median_ms": float(np.median(runs)), "runs_ms": runs}
+    check(affine(results["ladder_kernel"].reshape(1)) == [want],
+          "MSM by the ladder kernel differs from Python ints")
+    for route in MSM_ROUTES[1:] + ("ladder_kernel",):
         check(bool(results[route].equals(results["ladder"])),
               f"MSM routes ladder and {route} disagree")
-    log(f"[9 msm] n={N_MSM}: routes agree with each other and with Python ints; "
+    log(f"[9 msm] n={N_MSM}: routes agree with each other and with Python ints "
+        "(route 'ladder' runs windowed_mul; 'ladder_kernel' is "
+        "scalar_mul(kernel='ladder').sum()); "
         + "; ".join(f"{r} median {t['median_ms']:.2f} ms "
                     f"({min(t['runs_ms']):.2f}-{max(t['runs_ms']):.2f})"
                     for r, t in times.items()))
@@ -663,7 +723,11 @@ def curve_work(ops: CurveOperands) -> dict:
     below = (nonempty & (digits < top[:, None])).sum(dim=1)
     reduce_adds = int((below + (top - 1).clamp(min=0)).sum())
     window = ((3, DBL_NO_T), (1, DBL), (1, PADD_CACHED))
+    # the ladder: one double and one add per bit below each scalar's top set
+    # bit (the steps above it act on the identity)
+    ladder_steps = sum(max(0, v.bit_length() - 1) for v in ops.k.to_ints())
     return {
+        "ladder": (9 * 64 * n, fe_ops((ladder_steps, DBL), (ladder_steps, PADD))),
         # constant time: every window but the top one (a select into the
         # identity) doubles four times and adds its entry
         "windowed_mul": (9 * 64 * n,
@@ -717,6 +781,323 @@ def phase_curve_report(dev, ops: CurveOperands, launches: dict) -> list:
 
 
 
+# ---------------------------------------------------------------------------
+# traced circuits, shared matmul and polynomials
+# ---------------------------------------------------------------------------
+
+
+def spot(x: Scalar, idx) -> list:
+    return x[torch.tensor(idx, device=x.device)].to_ints()
+
+
+def readme_traced_program(fabric):
+    dev = fabric.device
+    sx = fabric.share_values(Scalar.from_ints([2, 5], device=dev)
+                             if fabric.party_id == 0 else None, sender=0, n=2)
+    sy = fabric.share_values(Scalar.from_ints([3, 7], device=dev)
+                             if fabric.party_id == 1 else None, sender=1, n=2)
+    tr = fabric.tracer()
+    x, y = tr.wrap(sx), tr.wrap(sy)
+    z = (x * y + x).sum()
+    out = z.open()
+    tr.run()            # fused rounds + one deferred MAC check
+    return out.value.to_ints()
+
+
+def gate_throughput(dev) -> float:
+    """`benchmarks/online_suite.py`'s gate throughput: an add-gate chain
+    through the tracer with no peer; -> gates/s (host clock)."""
+    fabric = MpcFabric(0, NoRecvTransport(), PartyIDBeaverSource(0, device=dev),
+                       device=dev)
+    x_sh = fabric.share_public(Scalar.from_ints([1], device=dev))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tr = fabric.tracer()
+    x = tr.wrap(x_sh)
+    v = x
+    for _ in range(N_GATES):
+        v = v + x
+    (out,) = tr.run(outputs=[v])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    check(out.share.to_ints() == [N_GATES + 1], "gate chain result is wrong")
+    return N_GATES / secs
+
+
+# Exchanges of the traced circuit below, level by level, as
+# tests/test_scheduler.py counts them.  Level 1: one Beaver round for x*y,
+# x*y on the slice, the bit_xor product and the pow's first square, and the
+# batched inverse (its masking product and its masked open: 2).  Level 2:
+# the mid-circuit open of the slice's x*y, then one Beaver round for the
+# pow's second square and x^-1 * x.  Level 3: the pow's last product.  Then
+# the terminal open flush and the 3 exchanges of the one deferred MAC check.
+TRACED_ROUNDS = (1 + 2) + (1 + 1) + 1 + 1 + 3
+# the traced prefix product: two blinding products, the blinded open, the
+# unblinding product, the terminal flush and the MAC check
+PREFIX_ROUNDS = 1 + 1 + 1 + 1 + 1 + 3
+
+
+def traced_program(xs: Scalar, ys: Scalar, corrupt: bool = False):
+    """x*y + x at the full width; bit_xor of shared bits, an inverse, a
+    mid-circuit open reused with as_public(), pow 5 and a sum on the first
+    N_SLICE elements; terminal opens and ONE deferred MAC check."""
+    def prog(fabric):
+        dev, n = fabric.device, xs.size
+        sx = fabric.share_values(xs if fabric.party_id == 0 else None,
+                                 sender=0, n=n)
+        sy = fabric.share_values(ys if fabric.party_id == 1 else None,
+                                 sender=1, n=n)
+        m = min(n, N_SLICE)
+        bits_a, bits_b = fabric.random_shared_bits(m), fabric.random_shared_bits(m)
+        if corrupt and fabric.party_id == 1:
+            sx = ScalarShare(sx.share, sx.mac + Scalar.from_ints(1, device=dev))
+        torch.cuda.synchronize()
+        base, t0 = fabric.n_rounds, time.time()
+        tr = fabric.tracer()
+        x, y = tr.wrap(sx), tr.wrap(sy)
+        xm, ym = tr.wrap(sx[:m]), tr.wrap(sy[:m])
+        a, b = tr.wrap(bits_a), tr.wrap(bits_b)
+        z = x * y + x
+        inv = xm.inverse()
+        p = (xm * ym).open()
+        q = ym * p.as_public() + xm
+        handles = {"z": z.open(), "xor": bit_xor(fabric, a, b).open(),
+                   "a": a.open(), "b": b.open(), "inv": inv.open(), "p": p,
+                   "q": q.open(), "pow5": xm.pow(5).open(),
+                   "sum": (inv * xm).sum().open()}
+        tr.run()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        idx = [0, 1, m // 2, m - 1]
+        out = {k: (h.value.to_ints() if k == "sum" else spot(h.value, idx))
+               for k, h in handles.items()}
+        out["z_top"] = spot(handles["z"].value, [n // 2, n - 1])
+        return out, fabric.n_rounds - base, secs
+    return prog
+
+
+def prefix_program(xs: Scalar):
+    def prog(fabric):
+        dev, n = fabric.device, xs.size
+        sx = fabric.share_values(xs if fabric.party_id == 0 else None,
+                                 sender=0, n=n)
+        torch.cuda.synchronize()
+        base, t0 = fabric.n_rounds, time.time()
+        tr = fabric.tracer()
+        h = prefix_product(fabric, tr.wrap(sx)).open()
+        tr.run()
+        torch.cuda.synchronize()
+        return spot(h.value, [0, 1, n // 2, n - 1]), fabric.n_rounds - base, time.time() - t0
+    return prog
+
+
+def traced_points_program(gs, ks, idx):
+    def prog(fabric):
+        dev, n = fabric.device, len(gs)
+        pts = (CurvePoint.generator((n,), device=dev).mul(Scalar.from_ints(gs, device=dev))
+               if fabric.party_id == 0 else None)
+        sp = fabric.share_points(pts, sender=0, n=n)
+        sk = fabric.share_values(Scalar.from_ints(ks, device=dev)
+                                 if fabric.party_id == 1 else None, sender=1, n=n)
+        torch.cuda.synchronize()
+        base, t0 = fabric.n_rounds, time.time()
+        tr = fabric.tracer()
+        p = tr.wrap_points(sp)
+        h = (p.mul(tr.wrap(sk)) + p).open()
+        tr.run()
+        torch.cuda.synchronize()
+        return affine(h.value, idx), fabric.n_rounds - base, time.time() - t0
+    return prog
+
+
+def phase_traced(dev) -> dict:
+    r0, r1 = execute_mock_mpc(readme_traced_program, device=dev)
+    check(r0 == r1 == [2 * 3 + 2 + 5 * 7 + 5], "README traced example is wrong")
+    log(f"[11 traced] README example on {dev}: {r0} / {r1}")
+    gates_per_s = gate_throughput(dev)
+    log(f"[11 traced] gate throughput: {N_GATES} add gates through "
+        f"tr.run(outputs=[v]) under NoRecvTransport: {gates_per_s:.1f} gates/s")
+
+    rng = np.random.default_rng(61)
+    xs = Scalar.random(N_TRACED, rng, device=dev)
+    ys = Scalar.random(N_TRACED, rng, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    (o0, rounds, secs), (o1, _, _) = execute_mock_mpc_dealer(
+        traced_program(xs, ys), seed=8, device=dev)
+    total = time.time() - t0
+    check(o0 == o1, "parties opened different values")
+    m = N_SLICE
+    idx = [0, 1, m // 2, m - 1]
+    xv, yv = spot(xs, idx), spot(ys, idx)
+    pv = [x * y % L for x, y in zip(xv, yv)]
+    check(o0["z"] == [(x * y + x) % L for x, y in zip(xv, yv)], "x*y + x is wrong")
+    top = [N_TRACED // 2, N_TRACED - 1]
+    check(o0["z_top"] == [(x * y + x) % L for x, y in zip(spot(xs, top), spot(ys, top))],
+          "x*y + x is wrong past the slice")
+    check(o0["xor"] == [a ^ b for a, b in zip(o0["a"], o0["b"])], "bit_xor is wrong")
+    check(all(bit in (0, 1) for bit in o0["a"] + o0["b"]), "shared bits are not bits")
+    check(o0["inv"] == [pow(x, -1, L) for x in xv], "inverse is wrong")
+    check(o0["p"] == pv, "mid-circuit open is wrong")
+    check(o0["q"] == [(y * p + x) % L for x, y, p in zip(xv, yv, pv)],
+          "the reused open is wrong")
+    check(o0["pow5"] == [pow(x, 5, L) for x in xv], "pow 5 is wrong")
+    check(o0["sum"] == [m], "sum of x^-1 * x is not the slice width")
+    check(rounds == TRACED_ROUNDS, f"{rounds} rounds, the circuit's depth gives "
+                                   f"{TRACED_ROUNDS}")
+    log(f"[11 traced] circuit at n=2^20 (other gates on a 2^{m.bit_length() - 1} "
+        f"slice): {rounds} rounds (= its communication depth), run {secs:.2f} s and "
+        f"{total:.2f} s with inputs and dealer host time; spot checks equal Python ints")
+
+    (p0, prounds, psecs), (p1, _, _) = execute_mock_mpc_dealer(
+        prefix_program(xs[:m]), seed=9, device=dev)
+    want, acc = [], 1
+    for i, x in enumerate(xs[:m].to_ints()):
+        acc = acc * x % L
+        if i in (0, 1, m // 2, m - 1):
+            want.append(acc)
+    check(p0 == p1 == want, "traced prefix product is wrong")
+    check(prounds == PREFIX_ROUNDS, f"prefix product took {prounds} rounds, "
+                                    f"its depth gives {PREFIX_ROUNDS}")
+    log(f"[11 traced] prefix_product at n=2^16: {prounds} rounds, {psecs:.2f} s; "
+        "spot checks equal Python ints")
+
+    rnd = random.Random(71)
+    gs = [rnd.randrange(1, L) for _ in range(N_TRACED_POINTS)]
+    ks = [rnd.randrange(L) for _ in range(N_TRACED_POINTS)]
+    pidx = [0, N_TRACED_POINTS // 2, N_TRACED_POINTS - 1]
+    (q0, qrounds, qsecs), (q1, _, _) = execute_mock_mpc_dealer(
+        traced_points_program(gs, ks, pidx), seed=10, device=dev)
+    check(q0 == q1 == [ed_mul((ks[i] + 1) * gs[i] % L) for i in pidx],
+          "traced point circuit is wrong")
+    log(f"[11 traced] point circuit (k*P + P) at n={N_TRACED_POINTS}: {qrounds} "
+        f"rounds, {qsecs:.2f} s; spot checks equal Python ints")
+
+    small = Scalar.random(16, rng, device=dev)
+    try:
+        execute_mock_mpc_dealer(traced_program(small, small, corrupt=True),
+                                seed=11, device=dev)
+    except AuthenticationError as err:
+        log(f"[11 traced] corrupted MAC aborted at verify_deferred: "
+            f"AuthenticationError({err})")
+    else:
+        raise RuntimeError("check failed: corrupted MAC was not detected")
+    return {"gates_per_s": gates_per_s, "circuit_2^20_rounds": rounds,
+            "circuit_2^20_run_s": secs, "circuit_2^20_host_s": total,
+            "prefix_2^16_s": psecs, "points_10000_s": qsecs}
+
+
+def matmul_program(a: Scalar, b: Scalar, idx):
+    def prog(fabric):
+        dev, (m, k), n = fabric.device, a.shape, b.shape[1]
+        sa = fabric.share_values(a.reshape(m * k) if fabric.party_id == 0
+                                 else None, sender=0, n=m * k).reshape(m, k)
+        sb = fabric.share_values(b.reshape(k * n) if fabric.party_id == 1
+                                 else None, sender=1, n=k * n).reshape(k, n)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sc = shared_matmul(fabric, sa, sb)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        opened = fabric.open_authenticated(sc.reshape(m * n))  # MAC-checked
+        return spot(opened, [i * n + j for i, j in idx]), secs
+    return prog
+
+
+def poly_program(f_ints, g_ints, h_ints, x_eval, dom: EvaluationDomain):
+    def prog(fabric):
+        dev = fabric.device
+        sf = poly.AuthenticatedDensePoly(fabric.share_values(
+            Scalar.from_ints(f_ints, device=dev) if fabric.party_id == 0 else None,
+            sender=0, n=len(f_ints)))
+        sg = poly.AuthenticatedDensePoly(fabric.share_values(
+            Scalar.from_ints(g_ints, device=dev) if fabric.party_id == 1 else None,
+            sender=1, n=len(g_ints)))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        prod = poly.poly_mul(fabric, sf, sg)
+        ev = prod.eval(Scalar.from_ints(x_eval, device=dev))
+        q = poly.poly_div(fabric, sf, poly.DensePoly.from_ints(h_ints, device=dev))
+        rt = dom.fft_shares(dom.fft_shares(sf.truncate(dom.n).coeffs), forward=False)
+        out = {"prod": poly.poly_open(fabric, prod, defer=True).to_ints(),
+               "eval": fabric.open_authenticated(ev, defer=True).to_ints(),
+               "div": poly.poly_open(fabric, q, defer=True).to_ints(),
+               "fft_round_trip": fabric.open_authenticated(rt, defer=True).to_ints()}
+        fabric.verify_deferred()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+    return prog
+
+
+def poly_ref_mul(a, b):
+    out = [0] * (len(a) + len(b) - 1)
+    for i, x in enumerate(a):
+        for j, y in enumerate(b):
+            out[i + j] += x * y
+    return [v % L for v in out]
+
+
+def phase_matmul(dev) -> dict:
+    rng = np.random.default_rng(81)
+    n = N_MATMUL
+    a = Scalar.random((n, n), rng, device=dev)
+    b = Scalar.random((n, n), rng, device=dev)
+    idx = [(0, 0), (3, 5), (n - 1, n - 1), (100 % n, 200 % n)]
+    (e0, secs0), (e1, _) = execute_mock_mpc_dealer(matmul_program(a, b, idx), seed=12,
+                                                   device=dev)
+    want = [sum(u * v for u, v in zip(a[i].to_ints(), b[:, j].to_ints())) % L
+            for i, j in idx]
+    check(e0 == e1 == want, "shared matmul spot entries differ from Python ints")
+    runs = []
+    for _ in range(MATMUL_RUNS + 1):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        matmul.mont_matmul(SPEC, a.limbs, b.limbs)
+        e.record()
+        torch.cuda.synchronize()
+        runs.append(s.elapsed_time(e))
+    mm_ms = float(np.median(runs[1:]))  # the first call is the warm-up
+    log(f"[12 matmul] shared_matmul {n}^3 under the dealer: MAC check passed, "
+        f"entries {idx} equal Python ints; party 0's shared_matmul call "
+        f"{secs0 * 1e3:.2f} ms host time (dealer triple included); mont_matmul "
+        f"{n}^3 alone median {mm_ms:.3f} ms ({min(runs[1:]):.3f}-{max(runs[1:]):.3f}), "
+        f"route {matmul.ROUTE}")
+
+    r = random.Random(91)
+    f = [r.randrange(L) for _ in range(POLY_DEG + 1)]
+    g = [r.randrange(L) for _ in range(POLY_DEG + 1)]
+    h = [r.randrange(1, L) for _ in range(18)]
+    x_eval = r.randrange(L)
+    dom = EvaluationDomain(132, device=dev)
+    (p0, psecs), (p1, _) = execute_mock_mpc_dealer(poly_program(f, g, h, x_eval, dom),
+                                                   seed=13, device=dev)
+    check(p0 == p1, "parties opened different polynomials")
+    prod = poly_ref_mul(f, g)
+    check(p0["prod"] == prod, "shared poly_mul differs from Python ints")
+    check(p0["eval"] == [sum(c * pow(x_eval, i, L) for i, c in enumerate(prod)) % L],
+          "poly_eval differs from Python ints")
+    rem = [(u - v) % L for u, v in zip(f, poly_ref_mul(p0["div"], h) + [0] * len(f))]
+    check(len(p0["div"]) == len(f) - len(h) + 1 and not any(rem[len(h) - 1:]),
+          "poly_div leaves a remainder of too high a degree")
+    check(p0["fft_round_trip"] == f[:132], "FFT/IFFT round trip of shares failed")
+    log(f"[12 matmul] degree-{POLY_DEG} shared poly_mul, poly_eval, poly_div and an "
+        f"EvaluationDomain(132) FFT/IFFT share round trip equal Python ints "
+        f"({psecs:.2f} s host time)")
+    return {"shared_matmul_512_party0_ms": secs0 * 1e3, "mont_matmul_512_ms": mm_ms,
+            "mont_matmul_runs_ms": runs[1:], "route": matmul.ROUTE,
+            "poly_s": psecs}
+
+
+def timed(label: str, fn, *args):
+    """Run one phase; log its seconds (host clock, after a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    log(f"[{label}] phase took {time.time() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card "
@@ -725,35 +1106,43 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.time()
     card = phase_build()
-    plain_2_16 = phase_kernels(dev)
+    plain_2_16 = timed("2 kernels", phase_kernels, dev)
 
     fk.reset_launches()
-    phase_readme(dev)
-    phase_fabric(dev)
-    ch, headline = phase_chain(dev, card)
-    torch.cuda.synchronize()
+    timed("3 readme", phase_readme, dev)
+    timed("4 fabric", phase_fabric, dev)
+    ch, headline = timed("5 chain", phase_chain, dev, card)
     launches = fk.launch_counts()
     log(f"main-path launches: {launches}")
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was never launched")
 
-    rows = phase_report(dev, ch, launches)
-    phase_curve_kernels(dev)
+    rows = timed("6 report", phase_report, dev, ch, launches)
+    timed("7 curve", phase_curve_kernels, dev)
 
     mk.reset_launches()
-    points = phase_points(dev)
-    msm_ops, msm_times = phase_msm(dev)
-    torch.cuda.synchronize()
+    points = timed("8 points", phase_points, dev)
+    msm_ops, msm_times = timed("9 msm", phase_msm, dev)
     curve_launches = mk.launch_counts()
     log(f"curve-path launches: {curve_launches}")
     check(all(v > 0 for v in curve_launches.values()),
           "a kernel of the curve path was never launched")
-    rows += phase_curve_report(dev, msm_ops, curve_launches)
+    rows += timed("10 report", phase_curve_report, dev, msm_ops, curve_launches)
+
+    fk.reset_launches()
+    mk.reset_launches()
+    traced = timed("11 traced", phase_traced, dev)
+    mats = timed("12 matmul", phase_matmul, dev)
+    circuit_launches = {**fk.launch_counts(), **mk.launch_counts()}
+    log(f"circuit-path launches: {circuit_launches}")
+    check(all(circuit_launches[k] > 0 for k in ("mont_mul", "beaver_round", "windowed_mul")),
+          "a kernel of the circuit path was never launched")
 
     log(json.dumps({"headline": headline}))
     log(json.dumps({"points_n_10000": points}))
     log(json.dumps({"msm_n_2^16": msm_times}))
     log(json.dumps({"times_at_n_2^16": plain_2_16}))
+    log(json.dumps({"traced": traced, "matmul_poly": mats}))
     log(f"total {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -98,6 +98,7 @@ def test_curve_kernels_match_plain(dev, n, monkeypatch):
     canon, co = curve_operands(n, 100 + n, dev)
     before = mk.launch_counts()
     assert same(ck.windowed_mul(canon, *co), ck.windowed_mul_plain(canon, *co))
+    assert same(ck.ladder(canon, *co), ck.ladder_plain(canon, *co))
     monkeypatch.setattr(ck, "WS_LANES", max(1, n // 3))  # several points per lane
     assert same(ck.window_sums(canon, *co), ck.window_sums_plain(canon, *co))
     idx, off = mk.bucket_prologue(canon)
@@ -106,7 +107,35 @@ def test_curve_kernels_match_plain(dev, n, monkeypatch):
     assert same(mk.bucket_reduce(*buckets), mk.bucket_reduce_plain(*buckets))
     torch.cuda.synchronize()
     after = mk.launch_counts()
-    assert [after[k] - before[k] for k in after] == [1, 1, 1, 1]
+    assert [after[k] - before[k] for k in after] == [1, 1, 1, 1, 1]
+
+
+def test_ladder_edge_scalars_and_subgroup_check(dev):
+    """Scalars 0, 1, l - 1 and 2^253 - 1 (every bit the ladder reads), and
+    the ladder's l * P of subgroup points is the identity."""
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    _, co = curve_operands(4, 9, dev)
+    ks = [0, 1, SCALAR_FIELD.modulus - 1, (1 << 253) - 1]
+    canon = torch.from_numpy(lb.ints_to_limb_array(ks).astype(np.int32)).to(dev)
+    assert same(ck.ladder(canon, *co), ck.ladder_plain(canon, *co))
+    from ark_mpc_tpu_torch.algebra.curve import CurvePoint
+
+    pts = CurvePoint.from_coords(co, (4,))
+    assert bool(ck.mul_by_order(pts, kernel="ladder").is_identity().all())
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 7, 3), (2, 1030, 2), (64, 64, 64)])
+def test_mont_matmul_on_the_card(dev, m, k, n):
+    """The float64 route on the card equals the same route on the CPU."""
+    from ark_mpc_tpu_torch.ops.matmul import mont_matmul
+
+    rng = np.random.default_rng(m * k * n)
+    a = Scalar.random((m, k), rng, device="cpu")
+    b = Scalar.random((k, n), rng, device="cpu")
+    want = mont_matmul(SCALAR_FIELD, a.limbs, b.limbs)
+    got = mont_matmul(SCALAR_FIELD, a.limbs.to(dev), b.limbs.to(dev))
+    assert torch.equal(got.cpu(), want)
 
 
 def test_bucket_accumulate_clustered_digits(dev):

@@ -14,6 +14,9 @@ held to those on the card by `tests/test_torch_cuda.py` and
     equality (the reference also adds its identity padding).
 
 `bucket_reduce` is held to the reference in `tests/test_torch_msm_kernels.py`.
+`ladder_plain` is held to the reference's XLA ladder `_scalar_mul` (the
+function of `ladder_pallas`, whose own test is `slow`) in affine ints, and
+to `windowed_mul_plain` projectively.
 """
 
 import random
@@ -24,6 +27,7 @@ import pytest
 import torch
 
 from ark_mpc_tpu.algebra.curve import CurvePoint as RPoint
+from ark_mpc_tpu.algebra.curve import _scalar_mul as ref_scalar_mul
 from ark_mpc_tpu.algebra.scalar import Scalar as RScalar
 from ark_mpc_tpu.ops.msm_kernels import bucket_accumulate_pallas
 from ark_mpc_tpu_torch import convert
@@ -158,5 +162,35 @@ def test_cpu_tensors_take_the_plain_versions():
     rp = ref_points(2, 4)
     canon = torch.from_numpy(lb.ints_to_limb_array([3, 5]).astype(np.int32))
     ck.windowed_mul(canon, *coords(port_of(rp)), windows=1)
+    ck.ladder(canon[:, :1], *(c[:, :1] for c in coords(port_of(rp))))
     assert mk.launch_counts() == before
     assert jax.default_backend() == "cpu"
+
+
+def test_ladder_plain_matches_reference_ladder():
+    """As `tests/test_fp_kernels.py::test_ladder_pallas_interpret`, with the
+    zero scalar; n = 4 (not 3: the port has no block padding to exercise)
+    shares the reference ladder's compile with the tests above."""
+    r = np.random.default_rng(17)
+    ks = [0] + [int(r.integers(1, 2**63)) ** 4 % L for _ in range(2)] + [L - 1]
+    rp = RPoint.generator((4,)).mul(RScalar.from_ints([5, 9, 11, 13]))
+    want = ref_scalar_mul(rp, RScalar.from_ints(ks))
+    got = ck.scalar_mul(port_of(rp), Scalar.from_ints(ks, device="cpu"), kernel="ladder")
+    assert affine(got) == affine(want)
+    windowed = ck.scalar_mul(port_of(rp), Scalar.from_ints(ks, device="cpu"))
+    assert bool(got.equals(windowed).all())
+    canon = torch.from_numpy(lb.ints_to_limb_array(ks).astype(np.int32))
+    for a, b in zip(ck.ladder(canon, *coords(port_of(rp))),
+                    ck.ladder_plain(canon, *coords(port_of(rp)))):
+        assert torch.equal(a, b)
+
+
+def test_ladder_mul_by_order_and_kernel_names():
+    pt = port_of(ref_points(2, 5))
+    assert bool(ck.mul_by_order(pt, kernel="ladder").is_identity().all())
+    k = Scalar.from_ints([1, 2], device="cpu")
+    for bad in ("Ladder", "bucket", ""):
+        with pytest.raises(ValueError, match="kernel"):
+            ck.scalar_mul(pt, k, kernel=bad)
+        with pytest.raises(ValueError, match="kernel"):
+            ck.mul_by_order(pt, kernel=bad)

@@ -24,6 +24,11 @@ def imported_modules(path: pathlib.Path) -> set:
 def test_guard_sees_every_module():
     assert len(FILES) > 15
     assert "torch" in imported_modules(ROOT / "chip_smoke.py")
+    names = {str(p.relative_to(ROOT / "ark_mpc_tpu_torch")) for p in FILES[:-1]}
+    for module in ("fabric/scheduler.py", "gadgets/bits.py", "gadgets/products.py",
+                   "algebra/poly.py", "algebra/domain.py", "ops/matmul.py",
+                   "models/circuits.py", "utils/stats.py"):
+        assert module in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
