@@ -15,8 +15,9 @@
 // entries are 16-bit limbs; thread j reads limb i of element j at i*n + j,
 // so each limb row loads coalesced.  One thread owns one element.
 //
-// Plain C interface (loaded with ctypes): every entry point launches on the
-// given stream, allocates nothing and returns cudaGetLastError().
+// Plain C interface (loaded with ctypes): every launching entry point
+// launches on the given stream, allocates nothing and returns
+// cudaGetLastError(); ark_beaver_chain_config only reads the occupancy.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,11 +67,6 @@ __device__ __forceinline__ void store(int32_t* __restrict__ p, int64_t n,
     p[(2 * k) * n + j] = static_cast<int32_t>(w[k] & 0xFFFFu);
     p[(2 * k + 1) * n + j] = static_cast<int32_t>(w[k] >> 16);
   }
-}
-
-__device__ __forceinline__ void copy(const uint32_t a[NW], uint32_t r[NW]) {
-#pragma unroll
-  for (int k = 0; k < NW; ++k) r[k] = a[k];
 }
 
 // t = a * b as 16 carried words.
@@ -200,18 +196,6 @@ __device__ __forceinline__ void sub_mod(const Field& f, const uint32_t a[NW],
   }
 }
 
-// r += (a + b) loaded from memory at element j, mod m.
-__device__ __forceinline__ void add2_mem(const Field& f, uint32_t r[NW],
-                                         const int32_t* __restrict__ a,
-                                         const int32_t* __restrict__ b,
-                                         int64_t n, int64_t j) {
-  uint32_t u[NW];
-  load(a, n, j, u);
-  add_mod(f, r, u, r);
-  load(b, n, j, u);
-  add_mod(f, r, u, r);
-}
-
 // ---------------------------------------------------------------------------
 // mont_mul: out = x * y * 2^-256 mod m, element-wise over (16, n).
 // ---------------------------------------------------------------------------
@@ -277,18 +261,42 @@ beaver_round_kernel(RoundArgs p, int64_t n, int party, Field f) {
 }
 
 // ---------------------------------------------------------------------------
-// beaver_chain: K dependent two-party rounds x_{r+1} = x_r * y, both
-// parties' shares resident in registers, e / e*a_p / e*a_mac_p hoisted by
-// the caller, plus each round's MAC-check inner products <cf,v>, <cf,mac0>,
-// <cf,mac1> as un-reduced 512-bit sums.
+// beaver_chain: K dependent two-party rounds x_{r+1} = x_r * y with each
+// round's MAC-check inner products <cf,v>, <cf,mac0>, <cf,mac1> as
+// un-reduced 512-bit sums.  e, e*a_p and e*a_mac_p are hoisted by the caller.
 //
-// Fold: each thread forms the 512-bit product cf*t (16 carried words); a
-// warp sums every word's 16-bit halves with redux.sync (32 halves < 2^21,
-// no overflow), and one lane per word adds lo + hi*2^16 into a per-block
-// 64-bit shared accumulator [round][3][16].  A block's sums stay below
-// (elements per block) * 2^32, far inside 64 bits.  The block writes its
-// accumulators to fold[block][round][3][16]; torch sums the blocks and
-// reduces once.
+// By linearity a round needs two reductions (all values canonical
+// Montgomery forms, so the shares stay bit-identical):
+//   d     = (x0 - a0) + (x1 - a1)       each party's message formed apart
+//   s_p   = d*B_p + C_p                 B0 = b0 + e, B1 = b1, C_p = e*a_p + c_p
+//   mac_p = d*M_p + CM_p                M_p = bmac_p + k_p*e, CM_p = e*amac_p + cmac_p
+// The MACs only feed the fold, and
+//   <cf, mac_p> = sum_i d_i*G_p,i + K_p   G_p = cf*M_p (Montgomery product),
+//                                         K_p = sum_i cf_i*CM_p,i (un-reduced),
+// both at the R^2 scale of cf*t: the word sums differ from three reduced
+// MACs' but reduce to the same canonical value.  A round costs 2 Montgomery
+// products and 3 un-reduced wide products (cf*v, d*G0, d*G1); the kernel is
+// bound by those 32-bit multiplies.
+//
+// Persistent blocks (resident blocks x SMs) walk tiles of THREADS elements.
+// For a tile, each thread reads its element's raw inputs once (coalesced limb
+// rows), forms the invariants a0 a1 B0 B1 C0 C1 G0 G1 cf as 32-bit words in
+// dynamic shared memory, word-major ([word][thread]: a warp's reads hit 32
+// distinct banks), adds cf*CM_p into the K slot, and runs the K rounds with
+// x0, x1 in registers reading only shared memory.  A thread touches only its
+// own column, so no barrier sits between tiles.  __launch_bounds__ holds the
+// kernel to 128 registers (no spills), so two 256-thread blocks (16 warps)
+// are resident per SM, each with 72 KiB of invariants.
+//
+// Fold: each thread forms the 512-bit product (16 carried words); a warp
+// sums them through its shared scratch (`fold_add`) and adds the 16 sums
+// (< 2^37) into a per-block 64-bit shared accumulator [rounds + 1][3][16]:
+// row `rounds` holds [0, K0, K1], which the wrapper adds to every round's
+// MAC sums.  A block's sums stay below (elements per block) * 2^32.  The
+// block writes its accumulators to fold[block][rounds + 1][3][16]; torch
+// sums the blocks and reduces once.  (Warp sums by redux.sync on 16-bit
+// halves, each word added by a single-lane atomic, cost far more:
+// tools/chain_fold_probe.py times both folds.)
 // ---------------------------------------------------------------------------
 
 // Input slots of ChainArgs::in.
@@ -298,89 +306,170 @@ enum ChainInput {
   IN_K0, IN_K1, IN_CF, N_CHAIN_IN
 };
 
+// Round-invariant slots in shared memory, NW x THREADS words each.
+enum ChainInvariant {
+  INV_A0, INV_A1, INV_B0, INV_B1, INV_C0, INV_C1, INV_G0, INV_G1, INV_CF, N_INV
+};
+
+constexpr int CHAIN_MIN_BLOCKS = 2;  // resident blocks per SM at 128 registers
+constexpr int SCRATCH_ROW = 33;      // padded fold-scratch row (32 lanes + 1)
+constexpr int SCRATCH_WORDS = FOLD_WORDS * SCRATCH_ROW;  // per warp
+
 struct ChainArgs {
   const int32_t* in[N_CHAIN_IN];  // (16, n) limbs; K0/K1 are (16,)
   int32_t* out0;
   int32_t* out1;
-  unsigned long long* fold;  // (gridDim.x, rounds, 3, 16)
+  unsigned long long* fold;  // (gridDim.x, rounds + 1, 3, 16)
 };
 
-__device__ __forceinline__ void fold_add(unsigned long long* acc,
-                                         const uint32_t cf[NW],
-                                         const uint32_t t[NW], bool valid,
-                                         int lane) {
-  uint32_t p[FOLD_WORDS];
-  mul_wide(cf, t, p);
-#pragma unroll
-  for (int k = 0; k < FOLD_WORDS; ++k) {
-    const uint32_t w = valid ? p[k] : 0u;
-    const uint32_t lo = __reduce_add_sync(0xffffffffu, w & 0xFFFFu);
-    const uint32_t hi = __reduce_add_sync(0xffffffffu, w >> 16);
-    if (lane == k) {
-      atomicAdd(acc + k, static_cast<unsigned long long>(lo) +
-                             (static_cast<unsigned long long>(hi) << 16));
-    }
-  }
+// Dynamic shared memory of one block: accumulators, the warps' fold
+// scratch, then the invariants.
+size_t chain_smem(int rounds) {
+  return static_cast<size_t>(rounds + 1) * 3 * FOLD_WORDS *
+             sizeof(unsigned long long) +
+         static_cast<size_t>(THREADS / 32 * SCRATCH_WORDS + N_INV * NW * THREADS) *
+             sizeof(uint32_t);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void sh_store(uint32_t* inv, int slot, int tid,
+                                         const uint32_t w[NW]) {
+  uint32_t* q = inv + slot * NW * THREADS + tid;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) q[k * THREADS] = w[k];
+}
+
+__device__ __forceinline__ void sh_load(const uint32_t* inv, int slot, int tid,
+                                        uint32_t w[NW]) {
+  const uint32_t* q = inv + slot * NW * THREADS + tid;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) w[k] = q[k * THREADS];
+}
+
+// acc[0..15] += the 16 words of a*b summed over the warp's 32 lanes.  Each
+// lane writes its words down a column of the warp's scratch (rows padded to
+// 33 words, so both the writes and the row reads below hit 32 distinct
+// banks); lane l sums word l % 16 of lanes 16 * (l / 16) ... + 15, one
+// shuffle adds the two halves, and one atomic with 16 active lanes adds the
+// warp's sums into the block's accumulators.
+__device__ __forceinline__ void fold_add(unsigned long long* acc,
+                                         uint32_t* scratch,
+                                         const uint32_t a[NW],
+                                         const uint32_t b[NW], int lane) {
+  uint32_t p[FOLD_WORDS];
+  mul_wide(a, b, p);
+#pragma unroll
+  for (int w = 0; w < FOLD_WORDS; ++w) scratch[w * SCRATCH_ROW + lane] = p[w];
+  __syncwarp();
+  const uint32_t* row = scratch + (lane % FOLD_WORDS) * SCRATCH_ROW +
+                        (lane / FOLD_WORDS) * FOLD_WORDS;
+  unsigned long long sum = 0;
+#pragma unroll
+  for (int i = 0; i < FOLD_WORDS; ++i) sum += row[i];
+  __syncwarp();
+  sum += __shfl_xor_sync(0xffffffffu, sum, FOLD_WORDS);
+  if (lane < FOLD_WORDS) atomicAdd(acc + lane, sum);
+}
+
+__global__ void __launch_bounds__(THREADS, CHAIN_MIN_BLOCKS)
 beaver_chain_kernel(ChainArgs p, int64_t n, int rounds, Field f) {
-  extern __shared__ unsigned long long acc[];  // rounds * 3 * 16
+  extern __shared__ unsigned long long acc[];  // (rounds + 1) * 3 * 16
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int n_acc = rounds * 3 * FOLD_WORDS;
+  const int n_acc = (rounds + 1) * 3 * FOLD_WORDS;
+  uint32_t* scratch =
+      reinterpret_cast<uint32_t*>(acc + n_acc) + (tid / 32) * SCRATCH_WORDS;
+  uint32_t* inv = reinterpret_cast<uint32_t*>(acc + n_acc) +
+                  THREADS / 32 * SCRATCH_WORDS;
+  unsigned long long* kslot = acc + rounds * 3 * FOLD_WORDS;
   for (int i = tid; i < n_acc; i += blockDim.x) acc[i] = 0;
   __syncthreads();
 
-  uint32_t k0[NW], k1[NW];
-  load_vec(p.in[IN_K0], k0);
-  load_vec(p.in[IN_K1], k1);
-
   // The loop bound is uniform over the block, so whole warps take every
-  // redux.sync; lanes past n compute on element 0 and contribute zero.
+  // warp sum; lanes past n compute on element 0 with cf = 0, so every fold
+  // product they form (cf*v, d*G_p with G_p = cf*M_p, cf*CM_p) is 0.
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x; base < n;
        base += stride) {
     const int64_t j0 = base + tid;
     const bool valid = j0 < n;
     const int64_t j = valid ? j0 : 0;
+    {  // the tile's invariants, from each raw input read once
+      uint32_t u[NW], v[NW];
+      load(p.in[IN_CF], n, j, u);
+      if (!valid) {
+#pragma unroll
+        for (int k = 0; k < NW; ++k) u[k] = 0;
+      }
+      sh_store(inv, INV_CF, tid, u);
+      load(p.in[IN_A0], n, j, u);
+      sh_store(inv, INV_A0, tid, u);
+      load(p.in[IN_A1], n, j, u);
+      sh_store(inv, INV_A1, tid, u);
+      load(p.in[IN_B1], n, j, u);
+      sh_store(inv, INV_B1, tid, u);
+#pragma unroll 1
+      for (int q = 0; q < 2; ++q) {
+        load(p.in[IN_EA0 + q], n, j, u);
+        load(p.in[IN_C0 + q], n, j, v);
+        add_mod(f, u, v, u);  // C_q
+        sh_store(inv, INV_C0 + q, tid, u);
+      }
+      uint32_t e[NW];
+      load(p.in[IN_E], n, j, e);
+      load(p.in[IN_B0], n, j, u);
+      add_mod(f, u, e, u);
+      sh_store(inv, INV_B0, tid, u);
+#pragma unroll 1
+      for (int q = 0; q < 2; ++q) {  // M_q = bmac_q + k_q*e, parked in G_q
+        load_vec(p.in[IN_K0 + q], u);
+        mont_mul(f, u, e, u);
+        load(p.in[IN_BM0 + q], n, j, v);
+        add_mod(f, u, v, u);
+        sh_store(inv, INV_G0 + q, tid, u);
+      }
+    }
+#pragma unroll 1
+    for (int q = 0; q < 2; ++q) {  // G_q = cf*M_q; K_q += cf*CM_q
+      uint32_t cf[NW], u[NW], v[NW];
+      sh_load(inv, INV_CF, tid, cf);
+      sh_load(inv, INV_G0 + q, tid, u);
+      mont_mul(f, cf, u, v);
+      sh_store(inv, INV_G0 + q, tid, v);
+      load(p.in[IN_EAM0 + q], n, j, u);
+      load(p.in[IN_CM0 + q], n, j, v);
+      add_mod(f, u, v, u);
+      fold_add(kslot + (1 + q) * FOLD_WORDS, scratch, cf, u, lane);
+    }
     uint32_t x0[NW], x1[NW];
     load(p.in[IN_X0], n, j, x0);
     load(p.in[IN_X1], n, j, x1);
     for (int r = 0; r < rounds; ++r) {
-      uint32_t d[NW], de[NW], u[NW], v[NW], s0[NW], s1[NW], m0[NW], m1[NW];
+      uint32_t d[NW], u[NW];
       // d = (x0 - a0) + (x1 - a1): the opened mask
-      load(p.in[IN_A0], n, j, u);
+      sh_load(inv, INV_A0, tid, u);
       sub_mod(f, x0, u, d);
-      load(p.in[IN_A1], n, j, u);
-      sub_mod(f, x1, u, v);
-      add_mod(f, d, v, d);
-      load(p.in[IN_E], n, j, u);
-      mont_mul(f, d, u, de);
-      // s_p = d*b_p + e*a_p + c_p (+ d*e for party 0)
-      load(p.in[IN_B0], n, j, u);
-      mont_mul(f, d, u, s0);
-      add2_mem(f, s0, p.in[IN_EA0], p.in[IN_C0], n, j);
-      add_mod(f, s0, de, s0);
-      load(p.in[IN_B1], n, j, u);
-      mont_mul(f, d, u, s1);
-      add2_mem(f, s1, p.in[IN_EA1], p.in[IN_C1], n, j);
-      // mac_p = d*bmac_p + k_p*(d*e) + e*amac_p + cmac_p
-      load(p.in[IN_BM0], n, j, u);
-      mont_mul2(f, d, u, k0, de, m0);
-      add2_mem(f, m0, p.in[IN_EAM0], p.in[IN_CM0], n, j);
-      load(p.in[IN_BM1], n, j, u);
-      mont_mul2(f, d, u, k1, de, m1);
-      add2_mem(f, m1, p.in[IN_EAM1], p.in[IN_CM1], n, j);
-      // fold inner products
-      add_mod(f, s0, s1, v);
-      load(p.in[IN_CF], n, j, u);
+      sh_load(inv, INV_A1, tid, u);
+      sub_mod(f, x1, u, u);
+      add_mod(f, d, u, d);
+      // s_p = d*B_p + C_p, the next round's x_p
+      sh_load(inv, INV_B0, tid, u);
+      mont_mul(f, d, u, x0);
+      sh_load(inv, INV_C0, tid, u);
+      add_mod(f, x0, u, x0);
+      sh_load(inv, INV_B1, tid, u);
+      mont_mul(f, d, u, x1);
+      sh_load(inv, INV_C1, tid, u);
+      add_mod(f, x1, u, x1);
+      // fold: cf*(s0 + s1), d*G0, d*G1
       unsigned long long* a = acc + r * 3 * FOLD_WORDS;
-      fold_add(a, u, v, valid, lane);
-      fold_add(a + FOLD_WORDS, u, m0, valid, lane);
-      fold_add(a + 2 * FOLD_WORDS, u, m1, valid, lane);
-      copy(s0, x0);
-      copy(s1, x1);
+      uint32_t c[NW];
+      add_mod(f, x0, x1, u);
+      sh_load(inv, INV_CF, tid, c);
+      fold_add(a, scratch, c, u, lane);
+      sh_load(inv, INV_G0, tid, u);
+      fold_add(a + FOLD_WORDS, scratch, d, u, lane);
+      sh_load(inv, INV_G1, tid, u);
+      fold_add(a + 2 * FOLD_WORDS, scratch, d, u, lane);
     }
     if (valid) {
       store(p.out0, n, j, x0);
@@ -390,6 +479,18 @@ beaver_chain_kernel(ChainArgs p, int64_t n, int rounds, Field f) {
   __syncthreads();
   unsigned long long* dst = p.fold + static_cast<int64_t>(blockIdx.x) * n_acc;
   for (int i = tid; i < n_acc; i += blockDim.x) dst[i] = acc[i];
+}
+
+// Every launch may need more than the default 48 KiB of dynamic shared
+// memory; ask for it, and for the largest shared-memory carveout.
+cudaError_t chain_opt_in(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      beaver_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(beaver_chain_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 inline unsigned int blocks_for(int64_t n) {
@@ -430,6 +531,18 @@ int ark_beaver_round(void* const* ptrs, long long n, int party,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Resident blocks per SM of the chain kernel at `rounds` rounds a launch,
+// and its dynamic shared memory per block.
+int ark_beaver_chain_config(int rounds, int* blocks_per_sm,
+                            long long* smem_bytes) {
+  const size_t smem = chain_smem(rounds);
+  *smem_bytes = static_cast<long long>(smem);
+  cudaError_t err = chain_opt_in(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, beaver_chain_kernel, THREADS, smem));
+}
+
 // ptrs: x0 x1 e a0 a1 b0 b1 bm0 bm1 c0 c1 cm0 cm1 ea0 ea1 eam0 eam1 k0 k1 cf
 //       out0 out1 fold
 int ark_beaver_chain(void* const* ptrs, long long n, int rounds, int grid,
@@ -441,14 +554,9 @@ int ark_beaver_chain(void* const* ptrs, long long n, int rounds, int grid,
   p.out0 = static_cast<int32_t*>(ptrs[20]);
   p.out1 = static_cast<int32_t*>(ptrs[21]);
   p.fold = static_cast<unsigned long long*>(ptrs[22]);
-  const size_t smem =
-      static_cast<size_t>(rounds) * 3 * FOLD_WORDS * sizeof(unsigned long long);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        beaver_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const size_t smem = chain_smem(rounds);
+  cudaError_t err = chain_opt_in(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   beaver_chain_kernel<<<grid, THREADS, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       p, n, rounds, make_field(field));

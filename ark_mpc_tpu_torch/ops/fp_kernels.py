@@ -30,14 +30,26 @@ Source notes (per kernel; bounds are for one H100 SXM):
     (2m^2 < m*2^256).
 
   `beaver_chain` replaces `beaver_chain_pallas` (:132).
-    Bound: operations (7 products + 5 reductions per round for the shares,
-    3 fold products).  Design: both parties' running shares stay in
-    registers for all K rounds; round-invariant operands are re-read from
-    global memory (L1/L2 resident per block) each round; the MAC-check fold
-    is an un-reduced 512-bit inner product summed per warp with redux.sync
-    on 16-bit halves and per block in 64-bit shared accumulators, finished
-    by a plain torch sum over blocks and one Montgomery reduction
-    (`fold_reduce`).
+    Bound: operations.  By linearity a round needs 2 Montgomery products
+    (2 reductions) and 3 un-reduced wide products, 912 32-bit multiplies
+    an element, plus 4 products, 4 reductions and 2 wide products once per
+    element for the invariants.  Identities, with every value canonical:
+      s_p   = d*B_p + C_p,  B0 = b0 + e, B1 = b1, C_p = e*a_p + c_p;
+      mac_p = d*M_p + CM_p, M_p = bmac_p + k_p*e, CM_p = e*amac_p + cmac_p;
+      <cf, mac_p> = sum d*G_p + K_p, G_p = cf*M_p, K_p = sum cf*CM_p,
+    so the shares stay bit-identical and the MACs, never output, reach the
+    fold through G_p and the round-invariant K_p.  Design: persistent
+    blocks of 256 threads (grid = resident blocks x SMs, from the
+    occupancy API); per tile each raw input is read once and the
+    invariants a0 a1 B0 B1 C0 C1 G0 G1 cf go to shared memory word-major
+    (72 KiB a block, conflict-free); the K rounds keep x0, x1 in registers
+    and read only shared memory; `__launch_bounds__(256, 2)` caps the
+    kernel at 128 registers so 16 warps stay resident per SM.  The fold's
+    512-bit products are summed per warp through a padded shared scratch
+    (conflict-free column writes and row reads, one shuffle, one 16-lane
+    atomic) and per block in 64-bit shared accumulators, one extra row
+    holding K_0, K_1; `chain_word_sums` adds that row to every round and
+    `fold_reduce` reduces once.
 """
 
 from __future__ import annotations
@@ -52,12 +64,13 @@ from ..algebra.limbs import NLIMBS, FieldSpec
 from . import _build
 
 THREADS = 256
-# Per-launch round cap: the chain's shared accumulator takes 384 bytes per
-# round, and 512 rounds (192 KiB) stay inside Hopper's 227 KiB per block.
-CHAIN_MAX_ROUNDS = 512
-# Blocks per SM for the chain's grid-stride loop (also sizes its partials).
-CHAIN_BLOCKS_PER_SM = 4
+# Per-launch round cap: a chain block holds 72 KiB of invariants, 16.5 KiB
+# of fold scratch and 384 bytes of accumulators per round (plus one row for
+# K_p); at 64 rounds (112.9 KiB) two blocks still fit an SM's 228 KiB.
+CHAIN_MAX_ROUNDS = 64
 FOLD_WORDS = 16
+# The chain's word sums reach n * 2^33, exact in int64 below this batch.
+CHAIN_MAX_N = 1 << 30
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,7 +80,9 @@ def _lib() -> ctypes.CDLL:
     lib.ark_mont_mul.argtypes = [vp, vp, vp, i64, vp, vp]
     lib.ark_beaver_round.argtypes = [vp, i64, i32, vp, vp]
     lib.ark_beaver_chain.argtypes = [vp, i64, i32, i32, vp, vp]
-    for fn in (lib.ark_mont_mul, lib.ark_beaver_round, lib.ark_beaver_chain):
+    lib.ark_beaver_chain_config.argtypes = [i32, vp, vp]
+    for fn in (lib.ark_mont_mul, lib.ark_beaver_round, lib.ark_beaver_chain,
+               lib.ark_beaver_chain_config):
         fn.restype = ctypes.c_int
     return lib
 
@@ -241,6 +256,45 @@ def fold_reduce(spec: FieldSpec, word_sums: torch.Tensor) -> torch.Tensor:
     return lb.mont_mul(spec, y, lb.const_like(corr, y))
 
 
+def chain_word_sums(acc: torch.Tensor) -> torch.Tensor:
+    """(K + 1, 3, 16) block-summed chain accumulators -> (K, 3, 16) word sums.
+
+    Rows 0..K-1 hold each round's sums of cf*v, d*G_0, d*G_1; row K holds
+    [0, K_0, K_1], the MAC folds' round-invariant part, which every round's
+    MAC sums take."""
+    sums = acc[:-1].clone()
+    sums[:, 1:] += acc[-1, 1:]
+    return sums
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_occupancy(device_index: int, rounds: int) -> tuple[int, int]:
+    """(resident blocks per SM, dynamic shared bytes per block) of the chain
+    kernel at `rounds` rounds a launch."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        rc = _lib().ark_beaver_chain_config(rounds, ctypes.byref(blocks),
+                                            ctypes.byref(smem))
+    _check(rc, "beaver_chain occupancy")
+    if blocks.value < 1:
+        raise RuntimeError(f"beaver_chain: a block of {smem.value} shared bytes "
+                           "does not fit an SM")
+    return blocks.value, smem.value
+
+
+def chain_launch_config(n: int, rounds: int, device) -> dict:
+    """The persistent grid of one chain launch of `rounds` rounds over n
+    elements on a CUDA device: resident blocks per SM x SMs, capped by the
+    number of 256-element tiles."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    blocks, smem = _chain_occupancy(index, rounds)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return {"grid": min(-(-n // THREADS), blocks * sms), "threads": THREADS,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * THREADS // 32,
+            "smem_bytes": smem}
+
+
 def beaver_chain(spec: FieldSpec, rounds: int, x0, x1, e, a0, a1, b0, b1,
                  bm0, bm1, c0, c1, cm0, cm1, ea0, ea1, eam0, eam1, k0, k1, cf):
     """K dependent two-party Beaver rounds x <- x*y with the MAC-check fold.
@@ -262,15 +316,17 @@ def beaver_chain(spec: FieldSpec, rounds: int, x0, x1, e, a0, a1, b0, b1,
     n = ops[0].shape[1]
     if n == 0 or any(t.shape[1] != n for t in ops + [cf_f]):
         raise ValueError("beaver_chain operands must share one non-empty batch")
+    if n >= CHAIN_MAX_N:
+        raise ValueError(f"beaver_chain takes fewer than {CHAIN_MAX_N} elements "
+                         f"(its int64 word sums), got {n}")
     keys = [_vec(k0, dev), _vec(k1, dev)]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = min(-(-n // THREADS), sms * CHAIN_BLOCKS_PER_SM)
     word_sums = torch.empty((rounds, 3, FOLD_WORDS), dtype=torch.int64, device=dev)
     cx0, cx1 = ops[0], ops[1]
     for start in range(0, rounds, CHAIN_MAX_ROUNDS):
         k = min(CHAIN_MAX_ROUNDS, rounds - start)
+        grid = chain_launch_config(n, k, dev)["grid"]
         out0, out1 = torch.empty_like(cx0), torch.empty_like(cx1)
-        partial = torch.empty((grid, k, 3, FOLD_WORDS), dtype=torch.int64,
+        partial = torch.empty((grid, k + 1, 3, FOLD_WORDS), dtype=torch.int64,
                               device=dev)
         ptrs = _ptrs([cx0, cx1] + ops[2:] + keys + [cf_f, out0, out1, partial])
         with torch.cuda.device(dev):
@@ -278,7 +334,7 @@ def beaver_chain(spec: FieldSpec, rounds: int, x0, x1, e, a0, a1, b0, b1,
                                          _stream(dev))
         _check(rc, "beaver_chain")
         beaver_chain.launches += 1
-        word_sums[start:start + k] = partial.sum(dim=0)
+        word_sums[start:start + k] = chain_word_sums(partial.sum(dim=0))
         cx0, cx1 = out0, out1
     return cx0, cx1, fold_reduce(spec, word_sums)
 

@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; there is no CPU path):
   5. chain    the headline: n = 2^22 elements, 64 dependent rounds, one MAC
               check, timed with CUDA events over 5 runs after a warm-up;
   6. report   every kernel timed at its main-path shape beside its plain
-              version on the same inputs, its bound and its launch count;
+              version on the same inputs, its bound and its launch count,
+              and the chain's launch: its persistent grid, resident blocks
+              and warps per SM and shared memory per block;
   7. curve    the four curve kernels against their plain versions at n = 2^12
               and n = 1000 (64 windows), bit for bit;
   8. points   the point protocols through `execute_mock_mpc_dealer` at
@@ -435,8 +437,11 @@ def phase_report(dev, ch: Chain, launches: dict) -> list:
     chain_args = ch.chain_args(e, pre)
     rnd = Operands(N_FABRIC, 13, dev)
     n, k = N_CHAIN, K_CHAIN
-    sms = props.multi_processor_count
-    grid = min(-(-n // fk.THREADS), sms * fk.CHAIN_BLOCKS_PER_SM)
+    cfg = fk.chain_launch_config(n, k, dev)
+    log(f"[6 report] beaver_chain launch at n=2^22 x {k} rounds: grid {cfg['grid']} "
+        f"({cfg['blocks_per_sm']} resident blocks per SM x {props.multi_processor_count} "
+        f"SMs), {cfg['threads']} threads a block, {cfg['warps_per_sm']} resident "
+        f"warps per SM, {cfg['smem_bytes']} bytes of shared memory per block")
     cases = {
         # name: (args, reps, bytes, ops)
         "mont_mul": ((SPEC, e.limbs, ch.a0.share.limbs), 20,
@@ -444,9 +449,11 @@ def phase_report(dev, ch: Chain, launches: dict) -> list:
         "beaver_round": (rnd.beaver_round(0), 20,
                          (8 * 64 + 2 * 64) * N_FABRIC + 64,
                          ops(6, 4) * N_FABRIC),
+        # least work: 2 products + 2 reductions + 3 wide fold products a
+        # round; once per element k_p*e, cf*M_p (4 + 4) and cf*CM_p (2)
         "beaver_chain": (chain_args, 3,
-                         (18 * 64 + 2 * 64) * n + 128 + grid * k * 48 * 8,
-                         ops(7 + 3, 5) * n * k),
+                         (18 * 64 + 2 * 64) * n + 128 + k * 3 * 64,
+                         ops(5, 2) * n * k + ops(6, 4) * n),
     }
     word_sums = torch.randint(0, 1 << 54, (k, 3, fk.FOLD_WORDS), device=dev)
     fold_ms = cuda_ms(lambda: fk.fold_reduce(SPEC, word_sums), reps=10)

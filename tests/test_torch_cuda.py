@@ -58,10 +58,41 @@ def test_kernels_match_plain(dev, spec, n):
     assert [after[k] - before[k] for k in after] == [2, 2, 1]
 
 
+@pytest.mark.parametrize("spec", [SCALAR_FIELD, BN254_FR], ids=lambda s: s.name)
+def test_chain_all_operands_m_minus_1(dev, spec):
+    """Every operand and key at m - 1 (the largest carries, reductions and
+    fold word sums) at n = 4096 + 7, an odd tail past the last full tile."""
+    n = 4096 + 7
+    big = torch.from_numpy(lb.ints_to_limb_array([spec.modulus - 1] * n)
+                           .astype(np.int32)).to(dev)
+    key = big[:, 0].contiguous()
+    args = (spec, 3, *[big.clone() for _ in range(17)], key, key.clone(), big.clone())
+    for g, w in zip(fk.beaver_chain(*args), fk.beaver_chain_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("spec", [SCALAR_FIELD, BN254_FR], ids=lambda s: s.name)
+def test_chain_one_round(dev, spec):
+    arr, keys = operands(spec, 4096 + 7, 18, 17, dev)
+    args = (spec, 1, *arr[:17], *keys, arr[17])
+    for g, w in zip(fk.beaver_chain(*args), fk.beaver_chain_plain(*args)):
+        assert torch.equal(g, w)
+
+
+def test_chain_launch_config(dev):
+    """The persistent grid: resident blocks x SMs, capped by the tiles; at
+    the headline's 64 rounds two blocks (16 warps) are resident per SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = fk.chain_launch_config(1 << 22, 64, dev)
+    assert cfg["blocks_per_sm"] >= 2 and cfg["warps_per_sm"] >= 16
+    assert cfg["grid"] == cfg["blocks_per_sm"] * sms
+    assert fk.chain_launch_config(1000, 64, dev)["grid"] == 4
+
+
 def test_chain_splits_long_runs(dev, monkeypatch):
-    """More rounds than one launch takes: the wrapper chains launches.  130
-    rounds also need more than 48 KiB of shared accumulators, the opt-in
-    path of the launch."""
+    """More rounds than one launch takes: the wrapper chains launches, each
+    recomputing the invariants and adding its own K_p.  129 rounds in one
+    launch need 120 KiB of shared memory: one block per SM."""
     monkeypatch.setattr(fk, "CHAIN_MAX_ROUNDS", 129)
     arr, keys = operands(SCALAR_FIELD, 300, 18, 5, dev)
     args = (SCALAR_FIELD, 130, *arr[:17], *keys, arr[17])

@@ -193,3 +193,68 @@ def test_fold_reduce_matches_python_ints(field):
             total = sum(prods) * r_inv % spec.modulus
             want[:, r, which] = lb.int_to_limbs(total)
     assert_same(fk.fold_reduce(spec, sums), want)
+
+
+def chain_model(spec, rounds, x0, x1, e, a0, a1, b0, b1, bm0, bm1, c0, c1,
+                cm0, cm1, ea0, ea1, eam0, eam1, k0, k1, cf):
+    """The CUDA chain kernel's arithmetic in Python ints, element by element:
+    the invariants B_p, C_p, M_p, G_p, CM_p, two Montgomery products a
+    round, and the block accumulators [K + 1][3][16] of 32-bit word sums
+    (cf*v, d*G_0, d*G_1 per round; [0, K_0, K_1] in the last row), finished
+    by the wrapper's `chain_word_sums` and `fold_reduce`."""
+    m = spec.modulus
+    r_inv = pow(1 << 256, -1, m)
+
+    def mont(a, b):
+        return a * b * r_inv % m
+
+    def add_words(row, p):
+        for w in range(16):
+            row[w] += (p >> (32 * w)) & 0xFFFFFFFF
+
+    acc = [[[0] * 16 for _ in range(3)] for _ in range(rounds + 1)]
+    out0, out1 = [], []
+    for i in range(len(x0)):
+        big_b = ((b0[i] + e[i]) % m, b1[i])
+        big_c = ((ea0[i] + c0[i]) % m, (ea1[i] + c1[i]) % m)
+        g = [mont(cf[i], (bm + mont(k, e[i])) % m)
+             for bm, k in ((bm0[i], k0), (bm1[i], k1))]
+        for q, (eam, cm) in enumerate(((eam0[i], cm0[i]), (eam1[i], cm1[i]))):
+            add_words(acc[rounds][1 + q], cf[i] * ((eam + cm) % m))
+        s0, s1 = x0[i], x1[i]
+        for r in range(rounds):
+            d = ((s0 - a0[i]) % m + (s1 - a1[i]) % m) % m
+            s0 = (mont(d, big_b[0]) + big_c[0]) % m
+            s1 = (mont(d, big_b[1]) + big_c[1]) % m
+            add_words(acc[r][0], cf[i] * ((s0 + s1) % m))
+            add_words(acc[r][1], d * g[0])
+            add_words(acc[r][2], d * g[1])
+        out0.append(s0)
+        out1.append(s1)
+    fold = fk.fold_reduce(spec, fk.chain_word_sums(torch.tensor(acc, dtype=torch.int64)))
+    return out0, out1, fold
+
+
+@pytest.mark.parametrize("operands", ["random", "all_m_minus_1"])
+def test_chain_identities_match_plain(field, operands):
+    """The redesigned kernel's identities (two reductions a round, the MAC
+    folds through G_p and K_p) give `beaver_chain_plain`'s shares and fold
+    bit for bit: n = 300, K = 3, random operands or every operand at m - 1
+    (the largest carries and word sums)."""
+    spec, _ = field
+    n, rounds = 300, 3
+    rng = np.random.default_rng(50)
+    if operands == "random":
+        arrs = [rand_limbs(spec, n, rng) for _ in range(18)]
+        keys = [rand_limbs(spec, (), rng) for _ in range(2)]
+    else:
+        arrs = [lb.ints_to_limb_array([spec.modulus - 1] * n) for _ in range(18)]
+        keys = [lb.int_to_limbs(spec.modulus - 1) for _ in range(2)]
+    ints = [lb.limb_array_to_ints(a) for a in arrs]
+    k0, k1 = (lb.limbs_to_int(k) for k in keys)
+    got0, got1, got_fold = chain_model(spec, rounds, *ints[:17], k0, k1, ints[17])
+    want0, want1, want_fold = fk.beaver_chain_plain(
+        spec, rounds, *map(port, arrs[:17]), *map(port, keys), port(arrs[17]))
+    assert got0 == lb.limb_array_to_ints(want0.numpy())
+    assert got1 == lb.limb_array_to_ints(want1.numpy())
+    assert torch.equal(got_fold, want_fold)

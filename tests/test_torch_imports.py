@@ -1,5 +1,5 @@
-"""Import guard: the port and `chip_smoke.py` import no JAX and nothing of
-the JAX package (only the tests import both)."""
+"""Import guard: the port, `chip_smoke.py` and the scripts in `tools/` import
+no JAX and nothing of the JAX package (only the tests import both)."""
 
 import ast
 import pathlib
@@ -7,7 +7,9 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "ark_mpc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PACKAGE = sorted((ROOT / "ark_mpc_tpu_torch").rglob("*.py"))
+SCRIPTS = [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py"))]
+FILES = PACKAGE + SCRIPTS
 
 
 def imported_modules(path: pathlib.Path) -> set:
@@ -22,9 +24,9 @@ def imported_modules(path: pathlib.Path) -> set:
 
 
 def test_guard_sees_every_module():
-    assert len(FILES) > 15
+    assert len(PACKAGE) > 15 and len(SCRIPTS) > 1
     assert "torch" in imported_modules(ROOT / "chip_smoke.py")
-    names = {str(p.relative_to(ROOT / "ark_mpc_tpu_torch")) for p in FILES[:-1]}
+    names = {str(p.relative_to(ROOT / "ark_mpc_tpu_torch")) for p in PACKAGE}
     for module in ("fabric/scheduler.py", "gadgets/bits.py", "gadgets/products.py",
                    "algebra/poly.py", "algebra/domain.py", "ops/matmul.py",
                    "models/circuits.py", "utils/stats.py"):
