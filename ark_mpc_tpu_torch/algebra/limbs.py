@@ -437,6 +437,26 @@ def limb_array_to_ints(arr) -> list:
             for o in range(0, len(data), 32)]
 
 
+def limbs_below(arr: np.ndarray, modulus: int) -> bool:
+    """Every column of a (16, ...) integer array is 16-bit limbs of a value
+    below `modulus`: the range check of each limb, then a lexicographic
+    compare with the modulus' limbs, most significant first, over the whole
+    batch at once."""
+    arr = np.asarray(arr)
+    if arr.size == 0:
+        return True
+    if (not np.issubdtype(arr.dtype, np.integer) or int(arr.min()) < 0
+            or int(arr.max()) > LIMB_MASK):
+        return False
+    mod = int_to_limbs(modulus)
+    below = np.zeros(arr.shape[1:], dtype=bool)
+    equal = np.ones(arr.shape[1:], dtype=bool)
+    for i in reversed(range(NLIMBS)):
+        below |= equal & (arr[i] < mod[i])
+        equal &= arr[i] == mod[i]
+    return bool(below.all())
+
+
 def pack_ints(spec: FieldSpec, values, mont: bool = True, device=None):
     """Python ints -> limb tensor (16, n). Values taken mod m."""
     arr = ints_to_limb_array([int(v) % spec.modulus for v in values])

@@ -15,7 +15,9 @@ exchange:
   - Party 0 always sends first.
 
 Limbs travel as numpy uint32 arrays, so frames are byte-identical to the
-reference's.  MAC checks can be deferred and verified by a single
+reference's.  Unlike the reference, every field-element array received is
+checked for its shape, 16-bit limbs and values below the modulus before use
+(`_from_wire`).  MAC checks can be deferred and verified by a single
 commit-reveal round (optionally folded to one scalar by a public-coin
 random linear combination).
 """
@@ -77,7 +79,20 @@ class MpcFabric:
         self._deferred_points: list = []  # flattened point check values
         self.n_rounds = 0
 
-    def _from_wire(self, arr: np.ndarray) -> Scalar:
+    def _from_wire(self, arr: np.ndarray, shape) -> Scalar:
+        """The peer's limbs as a Scalar of `shape`.  Raises
+        `AuthenticationError` unless they are a (16, *shape) array of 16-bit
+        limbs, each element below the field's modulus: the field arithmetic
+        takes its inputs in [0, m), so a peer could otherwise shift an opened
+        value by a multiple of m that no MAC check sees."""
+        arr = np.asarray(arr)
+        want = (lb.NLIMBS, *shape)
+        if arr.shape != want:
+            raise AuthenticationError(
+                f"received field elements of shape {arr.shape}, expected {want}")
+        if not lb.limbs_below(arr, self.field.spec.modulus):
+            raise AuthenticationError("received field elements are not canonical "
+                                      "16-bit limbs below the modulus")
         return self.field(torch.from_numpy(arr.astype(np.int32)).to(self.device))
 
     def _timed(self, op: str, n: int = 0):
@@ -103,7 +118,7 @@ class MpcFabric:
     def exchange_scalars(self, s: Scalar) -> Scalar:
         """Exchange Montgomery-form limb arrays."""
         (theirs,) = self._exchange_arrays([_wire(s)])
-        return self._from_wire(theirs)
+        return self._from_wire(theirs, s.shape)
 
     # -- properties --------------------------------------------------------
     def mac_key_share(self) -> Scalar:
@@ -133,7 +148,7 @@ class MpcFabric:
                 raise ValueError("the receiver must pass n")
             mask_share = self.offline.next_counterparty_input_mask_batch(n)
             (raw,) = self.recv_arrays()
-            masked = self._from_wire(raw)
+            masked = self._from_wire(raw, (n,))
             shape = masked.shape
         mask_share = mask_share.reshape(mask_share.size)
         out = mask_share.add_public(masked.reshape(masked.size), self.mac_key,
@@ -152,7 +167,7 @@ class MpcFabric:
         one combine."""
         with self._timed("open", x.size):
             (theirs,) = self._exchange_arrays([_wire(x.share)])
-            return x.share + self._from_wire(theirs)
+            return x.share + self._from_wire(theirs, x.shape)
 
     def open_authenticated(self, x: ScalarShare, defer: bool = False) -> Scalar:
         """Open and check MACs.
@@ -227,7 +242,7 @@ class MpcFabric:
 
             # Verify: peer's commitment opens AND d_mine + d_peer == 0 pairwise.
             peer_d = self.field(lb.to_mont(self.field.spec,
-                                           self._from_wire(peer_d_canon).limbs))
+                                           self._from_wire(peer_d_canon, d.shape).limbs))
             if not commitment.verify(peer_d, peer_blinder, peer_comm):
                 raise AuthenticationError("MAC check commitment failed to verify")
             if not bool((d + peer_d).is_zero().all()):
@@ -246,7 +261,7 @@ class MpcFabric:
             masked = self.field.concatenate([(x.reshape(n) - a).share,
                                              (y.reshape(n) - b).share])
             (theirs,) = self._exchange_arrays([_wire(masked)])
-            opened = masked + self._from_wire(theirs)
+            opened = masked + self._from_wire(theirs, (2 * n,))
             d, e = opened[:n], opened[n:]
             return self._beaver_combine_dispatch(a, b, c, d, e).reshape(*shape)
 

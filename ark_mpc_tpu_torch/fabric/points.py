@@ -38,12 +38,7 @@ def _wire_arrays(pt: CurvePoint):
 
 def _canonical(arr: np.ndarray, modulus: int) -> bool:
     """Every (16, ...) limb column is a 16-bit limb vector below `modulus`."""
-    arr = np.asarray(arr).reshape(lb.NLIMBS, -1)
-    if arr.size == 0:
-        return True
-    if int(arr.max()) > lb.LIMB_MASK:
-        return False
-    return all(v < modulus for v in lb.limb_array_to_ints(arr))
+    return lb.limbs_below(np.asarray(arr).reshape(lb.NLIMBS, -1), modulus)
 
 
 def _points_valid(pt: CurvePoint):
@@ -197,7 +192,7 @@ def beaver_mul_points(fabric, x: ScalarShare, ps: PointShare) -> PointShare:
     masked_point = (pf - b_gen).share
     ms = masked_scalar.limbs.cpu().numpy().astype(np.uint32)
     theirs = fabric._exchange_arrays([ms, *_wire_arrays(masked_point)])
-    d = masked_scalar + fabric._from_wire(theirs[0])
+    d = masked_scalar + fabric._from_wire(theirs[0], (n,))
     e_pt = masked_point + _point_from_wire_checked(fabric, ps.curve,
                                                    theirs[1], theirs[2])
     return _beaver_point_combine(fabric, a, b_gen, c, d, e_pt).reshape(*x.shape)

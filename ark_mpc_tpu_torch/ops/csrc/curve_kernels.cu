@@ -10,10 +10,11 @@
 //
 // Base field p = 2^255 - 19 on eight 32-bit words: a product is a 512-bit
 // schoolbook, the high half folded down x38 (2^256 = 38 mod p), then
-// brought to CANONICAL form, as are sums and differences.  Canonical values
-// are unique, so running the reference's formula sequence (twisted Edwards
-// a = -1, extended coordinates) gives results bit-identical to the plain
-// torch versions.
+// brought to CANONICAL form, as are sums and differences (windowed_mul's
+// quad core keeps values loose and canonicalizes at its store).  Canonical
+// values are unique, so running the reference's formula sequence (twisted
+// Edwards a = -1, extended coordinates) gives results bit-identical to the
+// plain torch versions.
 //
 // Device-memory layout is the reference's: a coordinate is a (16, n) int32
 // tensor of 16-bit limbs, repacked to 32-bit words in registers.
@@ -192,7 +193,29 @@ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
   return d;
 }
 
-__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
+// r + c * 2^256 (c <= 38) folded below 2^256: 2^256 = 38 mod p, and a
+// carry out of the first fold leaves r < 38 * 38, so the second cannot.
+__device__ __forceinline__ void fe_fold38(Fe& r, uint32_t c) {
+  const uint32_t c2 = fe_add_small(r, c * 38u);
+  r.w[0] += 38u * c2;
+}
+
+// A 512-bit t mod p below 2^256: lo + 38 hi < 39 * 2^256, then fold again.
+__device__ __forceinline__ Fe fe_reduce_wide(const uint32_t t[2 * NW]) {
+  Fe r;
+  uint64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const uint64_t s = static_cast<uint64_t>(t[k]) + 38ull * t[k + NW] + c;
+    r.w[k] = static_cast<uint32_t>(s);
+    c = s >> 32;
+  }
+  fe_fold38(r, static_cast<uint32_t>(c));  // c <= 38
+  return r;
+}
+
+// a * b mod p below 2^256, for any a, b < 2^256 (not canonical).
+__device__ __forceinline__ Fe fe_mul_loose(const Fe& a, const Fe& b) {
   uint32_t t[2 * NW];
 #pragma unroll
   for (int k = 0; k < NW; ++k) t[k] = 0;
@@ -207,20 +230,81 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
     }
     t[i + NW] = static_cast<uint32_t>(c);
   }
-  // fold: lo + 38 * hi < 39 * 2^256
-  Fe r;
+  return fe_reduce_wide(t);
+}
+
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
+  return fe_canon(fe_mul_loose(a, b));
+}
+
+// a^2 mod p below 2^256, for any a < 2^256: the 28 cross products once,
+// doubled, plus the 8 squares (36 word products against 64).
+__device__ __forceinline__ Fe fe_sqr_loose(const Fe& a) {
+  uint32_t t[2 * NW];
+#pragma unroll
+  for (int k = 0; k < 2 * NW; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NW - 1; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < NW; ++j) {
+      const uint64_t s = static_cast<uint64_t>(a.w[j]) * a.w[i] + t[i + j] + c;
+      t[i + j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+    t[i + NW] = static_cast<uint32_t>(c);
+  }
+  // double the cross products (their sum is below 2^511)
+#pragma unroll
+  for (int k = 2 * NW - 1; k > 0; --k) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+  t[0] <<= 1;
   uint64_t c = 0;
 #pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    const uint64_t s = static_cast<uint64_t>(t[k]) + 38ull * t[k + NW] + c;
-    r.w[k] = static_cast<uint32_t>(s);
-    c = s >> 32;
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t s = static_cast<uint64_t>(a.w[i]) * a.w[i] + t[2 * i] + c;
+    t[2 * i] = static_cast<uint32_t>(s);
+    const uint64_t u = static_cast<uint64_t>(t[2 * i + 1]) + (s >> 32);
+    t[2 * i + 1] = static_cast<uint32_t>(u);
+    c = u >> 32;
   }
-  // c <= 38: fold again; a carry out leaves r < 2^11, so the last fold of
-  // 38 cannot carry
-  const uint32_t c2 = fe_add_small(r, static_cast<uint32_t>(c) * 38u);
-  r.w[0] += 38u * c2;
-  return fe_canon(r);
+  return fe_reduce_wide(t);
+}
+
+// Loose sums and differences: any a, b < 2^256 in, a value below 2^256
+// congruent mod p out.
+__device__ __forceinline__ Fe fe_add_loose(const Fe& a, const Fe& b) {
+  Fe s;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t v = static_cast<uint64_t>(a.w[i]) + b.w[i] + c;
+    s.w[i] = static_cast<uint32_t>(v);
+    c = v >> 32;
+  }
+  fe_fold38(s, static_cast<uint32_t>(c));
+  return s;
+}
+
+__device__ __forceinline__ Fe fe_sub_loose(const Fe& a, const Fe& b) {
+  Fe d;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t v = static_cast<uint64_t>(a.w[i]) - b.w[i] - borrow;
+    d.w[i] = static_cast<uint32_t>(v);
+    borrow = (v >> 32) & 1u;
+  }
+  // a borrow left d = a - b + 2^256 = a - b + 38 mod p: take 38 off; if that
+  // wraps too (d < 38), d is now above 2^256 - 38 and takes 38 off again
+  uint64_t b2 = 38u & (0u - static_cast<uint32_t>(borrow));
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t v = static_cast<uint64_t>(d.w[i]) - b2;
+    d.w[i] = static_cast<uint32_t>(v);
+    b2 = (v >> 32) & 1u;
+  }
+  d.w[0] -= 38u * static_cast<uint32_t>(b2);
+  return d;
 }
 
 // ---------------------------------------------------------------------------
@@ -331,26 +415,247 @@ __device__ __forceinline__ uint32_t nibble(const Fe& s, int index) {
 }
 
 // ---------------------------------------------------------------------------
-// windowed_mul: out = (s mod 2^(4 windows)) * P, one thread per point
+// The quad field core: four lanes per point.  The Edwards formulas are
+// 4-way parallel (Hisil-Wong-Carter-Dawson 2008): a double is 4 squares,
+// then 4 products; a cached add is 4 products, then 4.  Lane k of a quad
+// computes product k of each stage and the quad shares the four results
+// through a per-warp exchange buffer in shared memory; every lane then runs
+// the stage's sums and differences on the full point itself.  The lane
+// index k is public: it picks operands by selects, never the data.  A
+// double's first stage squares (`fe_sqr_loose`, 36 word products).
+//
+// Values stay loose (below 2^256, congruent mod p: `fe_mul_loose`,
+// `fe_add_loose`, `fe_sub_loose`) and are brought to canonical form once,
+// at the store.  The canonical form is unique, so the outputs are
+// bit-identical to the canonical formulas of the other kernels.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(MUL_THREADS)
+constexpr int QUAD = 4;
+// Exchange buffer of one warp: [half][lane k][quad q] 16-byte chunks, rows
+// padded to 40 words, so a quarter-warp's stores hit 8 different bank
+// groups and the 8 quads' loads of one lane's result fill one wavefront.
+constexpr int XCH_ROW = 40;
+constexpr int XCH_WARP_WORDS = 2 * QUAD * XCH_ROW;
+
+struct Quad {
+  uint32_t* xch;  // this warp's exchange buffer
+  int q;          // quad within the warp, 0..7
+  int k;          // lane within the quad, 0..3
+};
+
+// Value k of four, by selects (k is the lane's index in its quad).
+__device__ __forceinline__ Fe fe_pick(int k, const Fe& v0, const Fe& v1,
+                                      const Fe& v2, const Fe& v3) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    r.w[i] = k == 0 ? v0.w[i] : k == 1 ? v1.w[i] : k == 2 ? v2.w[i] : v3.w[i];
+  }
+  return r;
+}
+
+// v / 2 mod p for canonical v: (v + (v odd ? p : 0)) >> 1 < p.
+__device__ __forceinline__ Fe fe_half(const Fe& v) {
+  const uint32_t m = 0u - (v.w[0] & 1u);
+  Fe s;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t pw = (i == 0) ? 0xFFFFFFEDu : (i == 7 ? 0x7FFFFFFFu : 0xFFFFFFFFu);
+    const uint64_t x = static_cast<uint64_t>(v.w[i]) + (pw & m) + c;
+    s.w[i] = static_cast<uint32_t>(x);
+    c = x >> 32;
+  }
+  Fe r;  // v + p < 2^256: no carry out
+#pragma unroll
+  for (int i = 0; i < NW - 1; ++i) r.w[i] = (s.w[i] >> 1) | (s.w[i + 1] << 31);
+  r.w[NW - 1] = s.w[NW - 1] >> 1;
+  return r;
+}
+
+// Lane k's product r, then all four lanes' products: out[j] is lane j's.
+__device__ __forceinline__ void quad_share(const Quad& Q, const Fe& r, Fe out[QUAD]) {
+  __syncwarp();  // every lane has read the previous stage's results
+  uint4* lo = reinterpret_cast<uint4*>(Q.xch + Q.k * XCH_ROW) + Q.q;
+  uint4* hi = reinterpret_cast<uint4*>(Q.xch + (QUAD + Q.k) * XCH_ROW) + Q.q;
+  *lo = make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]);
+  *hi = make_uint4(r.w[4], r.w[5], r.w[6], r.w[7]);
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < QUAD; ++j) {
+    const uint4 a0 = reinterpret_cast<const uint4*>(Q.xch + j * XCH_ROW)[Q.q];
+    const uint4 a1 = reinterpret_cast<const uint4*>(Q.xch + (QUAD + j) * XCH_ROW)[Q.q];
+    out[j] = Fe{{a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w}};
+  }
+}
+
+// The second stage of a double or an add: X = e f, Y = g h, Z = f g, T = e h.
+__device__ __forceinline__ void quad_finish(const Quad& Q, const Fe& e, const Fe& f,
+                                            const Fe& g, const Fe& h, Pt& p) {
+  Fe r[QUAD];
+  quad_share(Q, fe_mul_loose(fe_pick(Q.k, e, g, f, e), fe_pick(Q.k, f, h, g, h)), r);
+  p = Pt{r[0], r[1], r[2], r[3]};
+}
+
+// p = 2 p (`double_parts`, then `pt_double`); reads X, Y, Z.  The T-less
+// double is the same with T unused: lane 3 would idle otherwise.
+__device__ __forceinline__ void quad_double(const Quad& Q, Pt& p) {
+  const Fe xy = fe_add_loose(p.x, p.y);
+  const Fe op = fe_pick(Q.k, p.x, p.y, p.z, xy);
+  Fe sq[QUAD];  // a = X^2, b = Y^2, zz = Z^2, (X + Y)^2
+  quad_share(Q, fe_sqr_loose(op), sq);
+  const Fe c = fe_add_loose(sq[2], sq[2]);
+  const Fe h = fe_add_loose(sq[0], sq[1]);
+  const Fe g = fe_sub_loose(sq[0], sq[1]);
+  quad_finish(Q, fe_sub_loose(h, sq[3]), fe_add_loose(c, g), g, h, p);
+}
+
+// p += q (`pt_add_cached`), lane k holding coordinate k of the cached q
+// (Y - X, Y + X, 2d T, Z).
+__device__ __forceinline__ void quad_add_cached(const Quad& Q, Pt& p, const Fe& mine) {
+  const Fe op = fe_pick(Q.k, fe_sub_loose(p.y, p.x), fe_add_loose(p.y, p.x), p.t, p.z);
+  Fe r[QUAD];  // a, b, c, zz
+  quad_share(Q, fe_mul_loose(op, mine), r);
+  const Fe dd = fe_add_loose(r[3], r[3]);
+  quad_finish(Q, fe_sub_loose(r[1], r[0]), fe_sub_loose(dd, r[2]), fe_add_loose(dd, r[2]),
+              fe_add_loose(r[1], r[0]), p);
+}
+
+// ---------------------------------------------------------------------------
+// windowed_mul: out = (s mod 2^(4 windows)) * P, one quad per point.
+//
+// Lane k keeps coordinate k of the 16 cached multiples 0..15 of P in
+// shared memory: [entry][half][thread] 16-byte chunks, thread fastest, so a
+// warp's loads of one (entry, half) are conflict-free (512 B a lane, 64 KiB
+// for 128 threads).  The cached add needs exactly lane k's coordinate of
+// the entry, taken by a masked scan over all 16 entries: the loads, their
+// addresses and the branches are the same for every digit (the scalar may
+// be a MAC-key share).  The digit comes from the lane holding its scalar
+// word by a shuffle whose source depends on the window index only.
+// ---------------------------------------------------------------------------
+
+constexpr int WM_THREADS = 128;     // 32 points a block
+constexpr int WM_MIN_BLOCKS = 3;    // 12 resident warps per SM: <= 168 registers
+constexpr int WM_POINTS = WM_THREADS / QUAD;
+constexpr int WM_ENTRIES = 16;
+constexpr size_t WM_TAB_BYTES = static_cast<size_t>(WM_ENTRIES) * 2 * WM_THREADS * 16;
+constexpr size_t WM_SMEM =
+    WM_TAB_BYTES + static_cast<size_t>(WM_THREADS / 32) * XCH_WARP_WORDS * 4;
+
+__device__ __forceinline__ void tab_store(uint4* tab, int e, int t, const Fe& v) {
+  tab[(2 * e) * WM_THREADS + t] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  tab[(2 * e + 1) * WM_THREADS + t] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+}
+
+__device__ __forceinline__ Fe tab_load(const uint4* tab, int e, int t) {
+  const uint4 a = tab[(2 * e) * WM_THREADS + t];
+  const uint4 b = tab[(2 * e + 1) * WM_THREADS + t];
+  return Fe{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+}
+
+// Entry `digit` of this lane's quarter by a masked scan over all 16.
+__device__ __forceinline__ Fe tab_select(const uint4* tab, int t, uint32_t digit) {
+  Fe s = fe_zero();
+#pragma unroll
+  for (int e = 0; e < WM_ENTRIES; ++e) {
+    const uint32_t m = 0u - static_cast<uint32_t>(digit == static_cast<uint32_t>(e));
+    const Fe v = tab_load(tab, e, t);
+#pragma unroll
+    for (int i = 0; i < NW; ++i) s.w[i] |= v.w[i] & m;
+  }
+  return s;
+}
+
+// Lane k's cached coordinate of p, with T in place of 2d T (scaled later).
+__device__ __forceinline__ Fe cached_coord(int k, const Pt& p) {
+  return fe_pick(k, fe_sub_loose(p.y, p.x), fe_add_loose(p.y, p.x), p.t, p.z);
+}
+
+// X, Y, Z of entry e from the quad's table (lanes base .. base + 3):
+// X = (cq - cp) / 2, Y = (cq + cp) / 2, exact on canonical values; Z = cz.
+__device__ __forceinline__ Pt tab_point(const uint4* tab, int base, int e) {
+  const Fe cp = tab_load(tab, e, base);
+  const Fe cq = tab_load(tab, e, base + 1);
+  return Pt{fe_half(fe_canon(fe_sub_loose(cq, cp))),
+            fe_half(fe_canon(fe_add_loose(cq, cp))),
+            tab_load(tab, e, base + 3), fe_zero()};
+}
+
+// The table of `build_table`, four ways: evens by doubling the half entry
+// (read back from the table), odds by adding P's cached entry 1.  Entries
+// 2..15 hold T in lane 2's slot until one pass scales them by 2d.
+__device__ __forceinline__ void quad_build_table(const Quad& Q, uint4* tab, int t,
+                                                 const Pt& P) {
+  const int base = t & ~(QUAD - 1);
+  tab_store(tab, 0, t, fe_pick(Q.k, fe_one(), fe_one(), fe_zero(), fe_one()));
+  tab_store(tab, 1, t, fe_pick(Q.k, fe_sub_loose(P.y, P.x), fe_add_loose(P.y, P.x),
+                               fe_mul_loose(P.t, fe_d2()), P.z));
+  Pt prev = P;
+  for (int e = 2; e < WM_ENTRIES; ++e) {
+    if (e & 1) {
+      quad_add_cached(Q, prev, tab_load(tab, 1, t));
+    } else {
+      __syncwarp();  // entry e / 2 is written
+      prev = tab_point(tab, base, e >> 1);
+      quad_double(Q, prev);
+    }
+    tab_store(tab, e, t, cached_coord(Q.k, prev));
+  }
+  __syncwarp();
+  // lane k scales entries 2 + k, 6 + k, 10 + k, 14 + k
+  for (int e = 2 + Q.k; e < WM_ENTRIES; e += QUAD) {
+    tab_store(tab, e, base + 2, fe_mul_loose(tab_load(tab, e, base + 2), fe_d2()));
+  }
+  __syncwarp();
+}
+
+// Quads past n run on point n - 1 and skip the store: every lane reaches
+// every __syncwarp and shuffle.
+__global__ void __launch_bounds__(WM_THREADS, WM_MIN_BLOCKS)
 windowed_mul_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
                     int64_t n, int windows) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const Fe s = fe_load(canon, n, j);
-  Cached tab[16];
-  build_table(pt_load(p, n, j), tab);
+  extern __shared__ __align__(16) unsigned char wm_smem[];
+  uint4* tab = reinterpret_cast<uint4*>(wm_smem);
+  const int t = threadIdx.x;
+  const Quad Q{reinterpret_cast<uint32_t*>(wm_smem + WM_TAB_BYTES) +
+                   (t >> 5) * XCH_WARP_WORDS,
+               (t & 31) >> 2, t & (QUAD - 1)};
+  const int64_t point = static_cast<int64_t>(blockIdx.x) * WM_POINTS + (t >> 2);
+  const int64_t j = point < n ? point : n - 1;
+  // lane k holds scalar words 2k, 2k + 1: digits 16k .. 16k + 15
+  const uint32_t s0 = static_cast<uint32_t>(__ldg(canon + (4 * Q.k) * n + j)) |
+                      (static_cast<uint32_t>(__ldg(canon + (4 * Q.k + 1) * n + j)) << 16);
+  const uint32_t s1 = static_cast<uint32_t>(__ldg(canon + (4 * Q.k + 2) * n + j)) |
+                      (static_cast<uint32_t>(__ldg(canon + (4 * Q.k + 3) * n + j)) << 16);
+  quad_build_table(Q, tab, t, pt_load(p, n, j));
+  const int src = (t & 31) & ~(QUAD - 1);
   Pt acc = pt_identity();
   for (int i = windows - 1; i >= 0; --i) {
-    pt_double_no_t(acc);
-    pt_double_no_t(acc);
-    pt_double_no_t(acc);
-    acc = pt_double(acc);
-    acc = pt_add_cached(acc, select_entry(tab, nibble(s, i)));
+    quad_double(Q, acc);
+    quad_double(Q, acc);
+    quad_double(Q, acc);
+    quad_double(Q, acc);
+    const uint32_t word = ((i >> 3) & 1) ? s1 : s0;
+    const uint32_t digit = __shfl_sync(0xFFFFFFFFu, (word >> (4 * (i & 7))) & 15u,
+                                       src + (i >> 4));
+    quad_add_cached(Q, acc, tab_select(tab, t, digit));
   }
-  pt_store(o, 0, n, j, acc);
+  if (point < n) {
+    int32_t* dst = Q.k == 0 ? o.c[0] : Q.k == 1 ? o.c[1] : Q.k == 2 ? o.c[2] : o.c[3];
+    fe_store(dst, n, j, fe_canon(fe_pick(Q.k, acc.x, acc.y, acc.z, acc.t)));
+  }
+}
+
+// Every launch may need more than the default 48 KiB of dynamic shared
+// memory; ask for it, and for the largest shared-memory carveout.
+cudaError_t windowed_opt_in() {
+  cudaError_t err = cudaFuncSetAttribute(
+      windowed_mul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(WM_SMEM));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(windowed_mul_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 // ---------------------------------------------------------------------------
@@ -553,9 +858,21 @@ OutCoords out_coords_of(void* const* ptrs) {
 
 extern "C" {
 
-// ptrs: canon x y z t ox oy oz ot (all (16, n))
+// Resident blocks per SM of windowed_mul and its dynamic shared memory per
+// block.
+int ark_windowed_mul_config(int* blocks_per_sm, long long* smem_bytes) {
+  *smem_bytes = static_cast<long long>(WM_SMEM);
+  cudaError_t err = windowed_opt_in();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, windowed_mul_kernel, WM_THREADS, WM_SMEM));
+}
+
+// ptrs: canon x y z t ox oy oz ot (all (16, n)); n >= 1
 int ark_windowed_mul(void* const* ptrs, long long n, int windows, void* stream) {
-  windowed_mul_kernel<<<blocks_for(n, MUL_THREADS), MUL_THREADS, 0,
+  cudaError_t err = windowed_opt_in();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  windowed_mul_kernel<<<blocks_for(n, WM_POINTS), WM_THREADS, WM_SMEM,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ptrs[0]), coords_of(ptrs + 1),
       out_coords_of(ptrs + 5), n, windows);

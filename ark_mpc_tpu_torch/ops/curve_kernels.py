@@ -20,14 +20,27 @@ Source notes (bounds for one H100 SXM; see `chip_smoke.py` for the counts):
 
   `windowed_mul` replaces `windowed_mul_pallas`
   (ark_mpc_tpu/ops/curve_kernels.py:106).
-    Bound: operations (~2,500 base-field products per point against 320
-    bytes moved).  Design: one thread per point; its 16-entry cached table
-    (Y-X, Y+X, 2dT, Z) lives in local memory (2 KiB, L1-resident); each of
-    the 64 windows does 3 T-less doubles, 1 double and 1 cached add.  The
-    entry is taken by a masked scan over all 16 entries, so no address or
-    branch depends on the digit (the scalar may be a MAC-key share).
-    Base-field products are 8x32-bit schoolbooks folded x38, then brought
-    to canonical form.
+    Bound: operations (~2,500 base-field products per point against 576
+    bytes moved).  What held the first port back was memory, not the
+    multiplies: one thread per point kept its 16-entry cached table (2 KiB)
+    and the build's eight extended points in local memory, 4.9 KB of stack
+    a thread at 12 warps per SM, ~1.9 MB an SM, so the table and the spills
+    streamed from L2 and HBM.  Design: four lanes per point (a quad).  The
+    formulas are 4-way parallel, so lane k computes product k of each
+    stage (a window is 10 stages: 4 doubles and a cached add, 2 stages
+    each) and the quad swaps the results through shared memory; every lane
+    runs the sums and differences itself.  Lane k keeps coordinate k
+    (Y-X, Y+X, 2dT or Z) of the 16 cached entries in shared memory, 512
+    bytes a lane and 64 KiB a 128-thread block, 3 blocks (12 warps) an SM,
+    with no local memory; the build recovers X, Y, Z of a half entry from
+    the table instead of keeping extended points.  The entry is a masked
+    scan over all 16 entries of the lane's quarter and the digit a shuffle
+    from the lane holding that scalar word, so no address or branch depends
+    on the digit (the scalar may be a MAC-key share).  Base-field products
+    are 8x32-bit schoolbooks folded x38 (squares: 36 word products), kept
+    loose below 2^256 and brought to canonical form once, at the store.
+    What bounds it now is the integer pipes (the multiplies and their carry
+    additions) at 12 warps per SM, which shared memory caps.
 
   `ladder` replaces `ladder_pallas` (ark_mpc_tpu/ops/curve_kernels.py:196).
     Bound: operations (17 base-field products per bit: a full double and a
@@ -67,6 +80,8 @@ ED_2D = (2 * ED_D) % P
 
 WINDOWS = 64            # 4-bit windows of a 256-bit scalar
 WS_LANES = 16384        # window_sums lanes (accumulator sets) at most
+WM_LANES = 4            # windowed_mul lanes per point (a quad)
+WM_THREADS = 128        # windowed_mul threads a block: 32 points
 SOURCE = "curve_kernels"
 
 
@@ -75,12 +90,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.ark_windowed_mul.argtypes = [vp, i64, i32, vp]
+    lib.ark_windowed_mul_config.argtypes = [vp, vp]
     lib.ark_ladder.argtypes = [vp, i64, vp]
     lib.ark_window_sums.argtypes = [vp, i64, i32, i64, vp]
     lib.ark_bucket_accumulate.argtypes = [vp, i64, i32, i32, vp]
     lib.ark_bucket_reduce.argtypes = [vp, i32, i32, i32, vp]
-    for fn in (lib.ark_windowed_mul, lib.ark_ladder, lib.ark_window_sums,
-               lib.ark_bucket_accumulate, lib.ark_bucket_reduce):
+    for fn in (lib.ark_windowed_mul, lib.ark_windowed_mul_config, lib.ark_ladder,
+               lib.ark_window_sums, lib.ark_bucket_accumulate,
+               lib.ark_bucket_reduce):
         fn.restype = ctypes.c_int
     return lib
 
@@ -316,6 +333,30 @@ def windowed_mul(canon, x, y, z, t, windows: int = WINDOWS):
 
 
 windowed_mul.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _windowed_occupancy(device_index: int) -> tuple[int, int]:
+    """(resident blocks per SM, dynamic shared bytes per block) of
+    `windowed_mul`."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        rc = _lib().ark_windowed_mul_config(ctypes.byref(blocks), ctypes.byref(smem))
+    _check(rc, "windowed_mul occupancy")
+    return blocks.value, smem.value
+
+
+def windowed_launch_config(n: int, device) -> dict:
+    """The launch of `windowed_mul` over n points on a CUDA device: a quad
+    of lanes per point, 32 points a block, one block per 32 points."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    blocks, smem = _windowed_occupancy(index)
+    points = WM_THREADS // WM_LANES
+    return {"lanes_per_point": WM_LANES, "threads": WM_THREADS,
+            "points_per_block": points, "grid": -(-n // points),
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * WM_THREADS // 32,
+            "smem_bytes": smem}
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,9 @@ Phases (any failure exits non-zero; there is no CPU path):
               version on the same inputs, its bound and its launch count,
               and the chain's launch: its persistent grid, resident blocks
               and warps per SM and shared memory per block;
-  7. curve    the four curve kernels against their plain versions at n = 2^12
-              and n = 1000 (64 windows), bit for bit;
+  7. curve    `windowed_mul` against its plain version at the tail sizes
+              n = 1, 3, 33; the five curve kernels against their plain
+              versions at n = 2^12 and n = 1000 (64 windows), bit for bit;
   8. points   the point protocols through `execute_mock_mpc_dealer` at
               n = 10,000 points: `share_points`, a Beaver scalar x point
               product, an authenticated MSM, deferred authenticated opens and
@@ -28,7 +29,10 @@ Phases (any failure exits non-zero; there is no CPU path):
   9. msm      the public MSM at n = 2^16 through each route (windowed + tree,
               bucket, winsum): routes agree with each other and with Python
               ints; median of 5 CUDA-event timings after a warm-up;
- 10. report   the curve kernels as in phase 6;
+ 10. report   the curve kernels as in phase 6, with `windowed_mul`'s launch
+              (lanes per point, threads and points a block, resident blocks
+              and warps per SM, shared memory per block) and its time at
+              n = 1000 beside the one at 2^16;
  11. traced   traced circuits (`fabric.tracer()`): the README example; gate
               throughput of 100,000 add gates under `NoRecvTransport`; a
               circuit at n = 2^20 under the trusted dealer (x*y + x at 2^20;
@@ -111,6 +115,7 @@ N_FABRIC = 1 << 20
 N_CHAIN, K_CHAIN = 1 << 22, 64
 CHAIN_RUNS = 5  # timed runs of the headline after its warm-up
 N_CURVE_CMP = 1 << 12
+WM_TAILS = (1, 3, 33)
 N_POINTS = 10_000          # circuit_msm_throughput.rs top size
 N_MSM = 1 << 16            # native_msm.rs top size
 MSM_RUNS = 5
@@ -559,6 +564,12 @@ def compare_curve_kernels(ops: CurveOperands) -> dict:
 
 
 def phase_curve_kernels(dev) -> None:
+    for n in WM_TAILS:  # a lone quad, a part-filled warp, a part-filled block
+        ops = CurveOperands(n, 20 + n, dev)
+        args = ops.args("windowed_mul")
+        check(max_diff(ck.windowed_mul(*args), ck.windowed_mul_plain(*args)) == 0,
+              f"windowed_mul differs from plain at n={n}")
+    log(f"[7 curve] windowed_mul equals plain at n={', '.join(map(str, WM_TAILS))}")
     for n, seed in ((N_CURVE_CMP, 21), (N_ODD, 22)):
         ops = CurveOperands(n, seed, dev)
         diffs = compare_curve_kernels(ops)
@@ -755,6 +766,16 @@ def curve_work(ops: CurveOperands) -> dict:
 
 def phase_curve_report(dev, ops: CurveOperands, launches: dict) -> list:
     mem_rate, int_rate = device_rates(dev)
+    cfg = ck.windowed_launch_config(ops.n, dev)
+    log(f"[10 report] windowed_mul launch at n={ops.n}: {cfg['lanes_per_point']} "
+        f"lanes per point, {cfg['threads']} threads and {cfg['points_per_block']} "
+        f"points a block, grid {cfg['grid']}, {cfg['blocks_per_sm']} resident "
+        f"blocks ({cfg['warps_per_sm']} warps) per SM, {cfg['smem_bytes']} bytes "
+        "of shared memory per block")
+    check(cfg["warps_per_sm"] >= 12, "windowed_mul keeps fewer than 12 warps per SM")
+    small = CurveOperands(N_ODD, 43, dev)
+    small_ms = cuda_ms(lambda: ck.windowed_mul(*small.args("windowed_mul")), reps=20)
+    log(f"[10 report] windowed_mul at n={N_ODD}: {small_ms:.4f} ms/launch")
     buckets = mk.bucket_accumulate(*ops.args("bucket_accumulate"))
     work = curve_work(ops)
     rows = []

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_wire_faults as wire_faults
+from ark_mpc_tpu_torch import AuthenticationError, execute_mock_mpc_dealer
 from ark_mpc_tpu_torch.algebra import limbs as lb
 from ark_mpc_tpu_torch.algebra.fields import SCALAR_FIELD
 from ark_mpc_tpu_torch.algebra.scalar import Scalar
@@ -181,3 +183,76 @@ def test_bucket_accumulate_clustered_digits(dev):
     buckets = mk.bucket_accumulate(idx, off, *co)
     assert same(buckets, mk.bucket_accumulate_plain(idx, off, *co))
     assert same(mk.bucket_reduce(*buckets), mk.bucket_reduce_plain(*buckets))
+
+
+# ---------------------------------------------------------------------------
+# windowed_mul: four lanes per point, the table in shared memory
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("windows", [1, 17, 64])
+@pytest.mark.parametrize("n", [1, 3, 33, 1000, 4097])
+def test_windowed_mul_tails_and_windows(dev, n, windows):
+    """A lone quad, a part-filled warp and block, and a ragged last block,
+    bit for bit, each call one launch."""
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    canon, co = curve_operands(n, 200 + n, dev)
+    before = ck.windowed_mul.launches
+    got = ck.windowed_mul(canon, *co, windows=windows)
+    assert ck.windowed_mul.launches == before + 1
+    assert same(got, ck.windowed_mul_plain(canon, *co, windows=windows))
+
+
+def test_windowed_mul_edge_scalars_and_subgroup_check(dev):
+    """Scalars 0, 1, l - 1, 2^253 - 1 and l, and the windowed l * P of
+    subgroup points is the identity."""
+    from ark_mpc_tpu_torch.algebra.curve import CurvePoint
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    _, co = curve_operands(5, 19, dev)
+    ks = [0, 1, SCALAR_FIELD.modulus - 1, (1 << 253) - 1, SCALAR_FIELD.modulus]
+    canon = torch.from_numpy(lb.ints_to_limb_array(ks).astype(np.int32)).to(dev)
+    assert same(ck.windowed_mul(canon, *co), ck.windowed_mul_plain(canon, *co))
+    pts = CurvePoint.from_coords(co, (5,))
+    assert bool(ck.mul_by_order(pts).is_identity().all())
+
+
+def test_windowed_mul_empty_batch_launches_nothing(dev):
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    empty = torch.zeros((16, 0), dtype=torch.int32, device=dev)
+    before = ck.windowed_mul.launches
+    outs = ck.windowed_mul(empty, empty, empty, empty, empty)
+    assert ck.windowed_mul.launches == before
+    assert all(tuple(o.shape) == (16, 0) for o in outs)
+
+
+def test_windowed_launch_config(dev):
+    """32 points (128 threads) a block and at least 3 resident blocks, 12
+    warps, per SM."""
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    cfg = ck.windowed_launch_config(1 << 16, dev)
+    assert cfg["lanes_per_point"] == 4 and cfg["threads"] == 128
+    assert cfg["points_per_block"] == 32 and cfg["grid"] == 2048
+    assert cfg["blocks_per_sm"] >= 3 and cfg["warps_per_sm"] >= 12
+    assert ck.windowed_launch_config(33, dev)["grid"] == 2
+
+
+# ---------------------------------------------------------------------------
+# received field elements are checked (the combine is the CUDA beaver_round)
+# ---------------------------------------------------------------------------
+
+
+def test_honest_product_under_the_wire_checks_on_the_card(dev):
+    before = fk.beaver_round.launches
+    got = execute_mock_mpc_dealer(wire_faults.product_program(), device=dev)
+    assert got[0] == got[1] == wire_faults.PRODUCTS
+    assert fk.beaver_round.launches - before == 2
+
+
+@pytest.mark.parametrize("fault", list(wire_faults.FAULTS))
+def test_malformed_received_field_elements_abort_on_the_card(dev, fault):
+    with pytest.raises(AuthenticationError):
+        execute_mock_mpc_dealer(wire_faults.FAULTS[fault], device=dev)

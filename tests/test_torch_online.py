@@ -15,8 +15,10 @@ import torch
 
 import ark_mpc_tpu as ref
 import ark_mpc_tpu_torch as port
+import _torch_wire_faults as wire_faults
 from ark_mpc_tpu.algebra.fields import CURVE25519_ORDER as L
 from ark_mpc_tpu.parallel import step as ref_step
+from ark_mpc_tpu_torch.algebra import limbs as port_lb
 from ark_mpc_tpu_torch.parallel import step as port_step
 
 torch.set_num_threads(1)
@@ -199,6 +201,38 @@ def test_malicious_abort_matches_reference(prog):
         run(port, prog, True)
     with pytest.raises(ref.AuthenticationError):
         run(ref, prog, True)
+
+
+def test_honest_product_under_the_wire_checks():
+    got = run(port, wire_faults.product_program(), True)
+    assert got[0] == got[1] == wire_faults.PRODUCTS
+
+
+@pytest.mark.parametrize("fault", list(wire_faults.FAULTS))
+def test_malformed_received_field_elements_abort(fault):
+    """A peer's field elements shifted by a multiple of m, with a limb
+    above 0xFFFF or of the wrong shape abort the run (the reference takes
+    them: it opens a wrong product with every MAC check passing)."""
+    with pytest.raises(port.AuthenticationError):
+        run(port, wire_faults.FAULTS[fault], True)
+
+
+@pytest.mark.parametrize("modulus", [L, (1 << 255) - 19], ids=["l", "p25519"])
+def test_limbs_below_matches_python_ints(modulus):
+    rng = np.random.default_rng(modulus % 1000)
+    edge = [0, 1, modulus - 1, modulus, modulus + 1, modulus + (1 << 16),
+            modulus - (1 << 240), (1 << 256) - 1, modulus >> 1]
+    words = rng.integers(0, 1 << 16, size=(port_lb.NLIMBS, 64), dtype=np.uint32)
+    randoms = port_lb.limb_array_to_ints(words)
+    for vals in [[v] for v in edge] + [randoms, [v % modulus for v in randoms]]:
+        arr = port_lb.ints_to_limb_array(vals)
+        assert port_lb.limbs_below(arr, modulus) == all(v < modulus for v in vals)
+    ok = port_lb.ints_to_limb_array([1, 2])
+    wide = ok.copy()
+    wide[0, 1] = 1 << 16
+    assert not port_lb.limbs_below(wide, modulus)
+    assert not port_lb.limbs_below(-ok.astype(np.int64), modulus)
+    assert port_lb.limbs_below(ok[:, :0], modulus)
 
 
 @pytest.mark.parametrize("party", [0, 1])
