@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a plain-C shared
 library under `ops/_build/` (listed in `.gitignore`), named by a hash of the
-source and flags so an edited source rebuilds.  Only the sources in this
-package are compiled; nothing is downloaded.
+source and flags so an edited source rebuilds, with the compiler's log
+(ptxas registers and spills) beside it.  Only the sources in this package
+are compiled; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ def _finish(name: str, job) -> None:
     _logs[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -73,7 +75,12 @@ def build(names) -> dict[str, str]:
         for name, job in jobs.items():
             if job is not None:
                 _finish(name, job)
-        return {name: _logs.get(name, "(cached)") for name in names}
+        return {name: _logs.get(name) or _saved_log(name) for name in names}
+
+
+def _saved_log(name: str) -> str:
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else "(cached)"
 
 
 def load(name: str) -> ctypes.CDLL:

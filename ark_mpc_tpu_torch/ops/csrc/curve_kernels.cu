@@ -17,7 +17,9 @@
 // plain torch versions.
 //
 // Device-memory layout is the reference's: a coordinate is a (16, n) int32
-// tensor of 16-bit limbs, repacked to 32-bit words in registers.
+// tensor of 16-bit limbs, repacked to 32-bit words in registers.  Only
+// bucket_accumulate's inputs and partial sums are (rows, 4, 8) words, one
+// 128-byte line a point, which its wrapper packs.
 //
 // Plain C interface (loaded with ctypes): every entry point launches on the
 // given stream, allocates nothing and returns cudaGetLastError().
@@ -723,43 +725,88 @@ window_sums_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
 }
 
 // ---------------------------------------------------------------------------
-// bucket_accumulate: thread (w, d) sums the points idx[w, off[w,d] ..
-// off[w,d+1]) from the identity; bucket 0 stays the identity.
-// pts: (n, 4, 16) int32 limbs, point-major.  out: (16, W, nb) per coordinate.
+// bucket_accumulate: a segmented sum of points in passes of one kernel.
+// Bucket b's entries are begin[b] .. begin[b] + count[b]; entry k is row
+// idx[k] of src (the first pass: the sorted point indices) or row k (later
+// passes: the previous pass's partials).
+//   chunk pass (prefix given): thread t finds its bucket b by binary search
+//     (prefix[b] <= t < prefix[b + 1]) and sums chunk j = t - prefix[b], the
+//     entries begin[b] + j C .. min(+ C, end), from its first point into
+//     row t of dst; threads at or past prefix[buckets] (or past dst's
+//     `rows`) return.
+//   last pass (prefix null): thread b sums all of bucket b's entries (at most
+//     C, by the pass count) into the (16, buckets) limb outputs; an empty
+//     bucket is the identity.
+// src and dst: (rows, 4, 8) 32-bit words, one 128-byte line a point.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ Fe fe_load_row(const int32_t* __restrict__ p) {
-  Fe r;
+struct ChunkArgs {
+  const uint32_t* src;
+  const int32_t* idx;     // null after the first pass
+  const int32_t* begin;   // (buckets,)
+  const int32_t* count;   // (buckets,)
+  const int32_t* prefix;  // (buckets + 1,), null on the last pass
+  uint32_t* dst;          // (rows, 4, 8), null on the last pass
+  OutCoords out;          // (16, buckets) each, the last pass only
+};
+
+__device__ __forceinline__ Pt pt_load_words(const uint32_t* __restrict__ src,
+                                            int64_t row) {
+  const uint4* p = reinterpret_cast<const uint4*>(src + row * (4 * NW));
+  Pt a;
+  uint32_t* aw = reinterpret_cast<uint32_t*>(&a);
 #pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    r.w[k] = static_cast<uint32_t>(__ldg(p + 2 * k)) |
-             (static_cast<uint32_t>(__ldg(p + 2 * k + 1)) << 16);
+  for (int i = 0; i < NW; ++i) {
+    const uint4 v = __ldg(p + i);
+    aw[4 * i] = v.x;
+    aw[4 * i + 1] = v.y;
+    aw[4 * i + 2] = v.z;
+    aw[4 * i + 3] = v.w;
   }
-  return r;
+  return a;
 }
 
-__global__ void __launch_bounds__(BUCKET_THREADS)
-bucket_accumulate_kernel(const int32_t* __restrict__ idx,
-                         const int32_t* __restrict__ off,
-                         const int32_t* __restrict__ pts, OutCoords o,
-                         int64_t n, int windows, int nb) {
+__device__ __forceinline__ void pt_store_words(uint32_t* dst, int64_t row,
+                                               const Pt& a) {
+  uint4* p = reinterpret_cast<uint4*>(dst + row * (4 * NW));
+  const uint32_t* aw = reinterpret_cast<const uint32_t*>(&a);
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+    p[i] = make_uint4(aw[4 * i], aw[4 * i + 1], aw[4 * i + 2], aw[4 * i + 3]);
+}
+
+// At least 4 blocks (16 warps) an SM: ptxas then keeps every value in
+// registers (126, no spills), where left alone it spills to fit 6 blocks.
+__global__ void __launch_bounds__(BUCKET_THREADS, 4)
+bucket_chunk_kernel(ChunkArgs a, int64_t rows, int buckets, int chunk) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<int64_t>(windows) * nb) return;
-  const int w = static_cast<int>(t / nb);
-  const int d = static_cast<int>(t % nb);
-  Pt acc = pt_identity();
-  if (d != 0) {
-    const int32_t* seg = idx + static_cast<int64_t>(w) * n;
-    const int32_t beg = __ldg(off + static_cast<int64_t>(w) * (nb + 1) + d);
-    const int32_t end = __ldg(off + static_cast<int64_t>(w) * (nb + 1) + d + 1);
-    for (int32_t k = beg; k < end; ++k) {
-      const int32_t* q = pts + static_cast<int64_t>(__ldg(seg + k)) * (4 * NLIMBS);
-      const Pt P{fe_load_row(q), fe_load_row(q + NLIMBS),
-                 fe_load_row(q + 2 * NLIMBS), fe_load_row(q + 3 * NLIMBS)};
-      acc = pt_add(acc, P);
+  int b;
+  int64_t first, end;
+  if (a.prefix != nullptr) {
+    if (t >= rows || t >= __ldg(a.prefix + buckets)) return;
+    int lo = 0, hi = buckets;  // prefix[lo] <= t < prefix[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(a.prefix + mid) <= t) lo = mid; else hi = mid;
     }
+    b = lo;
+    const int64_t seg_end = static_cast<int64_t>(__ldg(a.begin + b)) + __ldg(a.count + b);
+    first = __ldg(a.begin + b) + (t - __ldg(a.prefix + b)) * chunk;
+    end = first + chunk < seg_end ? first + chunk : seg_end;
+  } else {
+    if (t >= buckets) return;
+    b = static_cast<int>(t);
+    first = __ldg(a.begin + b);
+    end = first + __ldg(a.count + b);
   }
-  pt_store(o, 0, static_cast<int64_t>(windows) * nb, t, acc);
+  Pt acc = pt_identity();
+  if (first < end) {
+    acc = pt_load_words(a.src, a.idx ? __ldg(a.idx + first) : first);
+    for (int64_t k = first + 1; k < end; ++k)
+      acc = pt_add(acc, pt_load_words(a.src, a.idx ? __ldg(a.idx + k) : k));
+  }
+  if (a.prefix != nullptr) pt_store_words(a.dst, t, acc);
+  else pt_store(a.out, 0, buckets, b, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -898,15 +945,30 @@ int ark_window_sums(void* const* ptrs, long long n, int windows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: idx (W, n), offsets (W, nb + 1), pts (n, 4, 16); ox oy oz ot (16, W, nb)
-int ark_bucket_accumulate(void* const* ptrs, long long n, int windows, int nb,
-                          void* stream) {
-  const int64_t threads = static_cast<int64_t>(windows) * nb;
-  bucket_accumulate_kernel<<<blocks_for(threads, BUCKET_THREADS), BUCKET_THREADS,
-                             0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ptrs[0]), static_cast<const int32_t*>(ptrs[1]),
-      static_cast<const int32_t*>(ptrs[2]), out_coords_of(ptrs + 3), n, windows,
-      nb);
+// Resident blocks per SM of bucket_chunk_kernel (BUCKET_THREADS a block).
+int ark_bucket_accumulate_config(int* blocks_per_sm, int* threads) {
+  *threads = BUCKET_THREADS;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, bucket_chunk_kernel, BUCKET_THREADS, 0));
+}
+
+// One pass of bucket_accumulate over `threads` threads: on a chunk pass a
+// bound on the chunks and dst's rows (the kernel reads the chunk count from
+// prefix[buckets]), on the last pass the bucket count.
+// ptrs: src (rows, 4, 8) words; idx or null; begin, count (buckets,);
+//       prefix (buckets + 1,) or null; dst (threads, 4, 8) or null;
+//       ox oy oz ot (16, buckets) (read on the last pass only)
+int ark_bucket_chunk(void* const* ptrs, long long threads, int buckets, int chunk,
+                     void* stream) {
+  const ChunkArgs a{static_cast<const uint32_t*>(ptrs[0]),
+                    static_cast<const int32_t*>(ptrs[1]),
+                    static_cast<const int32_t*>(ptrs[2]),
+                    static_cast<const int32_t*>(ptrs[3]),
+                    static_cast<const int32_t*>(ptrs[4]),
+                    static_cast<uint32_t*>(ptrs[5]), out_coords_of(ptrs + 6)};
+  bucket_chunk_kernel<<<blocks_for(threads, BUCKET_THREADS), BUCKET_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a, threads, buckets,
+                                                             chunk);
   return static_cast<int>(cudaGetLastError());
 }
 

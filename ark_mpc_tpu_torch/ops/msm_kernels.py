@@ -7,18 +7,29 @@ window's point indices by digit, and the bucket offsets.  Then
 
   `bucket_accumulate` replaces `bucket_accumulate_pallas`
   (ark_mpc_tpu/ops/msm_kernels.py:133).
-    B[w, d] = sum of the points whose window-w digit is d, for d >= 1,
-    added in sorted (stable, so index) order from the identity by the
-    complete unified addition; B[w, 0] is the identity (weight 0).
+    B[w, d] = sum of the points whose window-w digit is d, for d >= 1, by
+    the complete unified addition; B[w, 0] is the identity (weight 0).
     The TPU cannot scatter, so the reference lays indices out on a rank
     grid with virtual top rows; here a sorted index list per window and
-    its offsets (a few MB) replace the grid, and one thread per
-    (window, bucket) walks its segment.  Points are read point-major
-    (256 contiguous bytes each, L2-resident at 2^16 points).
+    its offsets (a few MB) replace the grid.
     Bound: operations (~9 products per point and window).  Load balance:
-    l < 2^253 leaves the top window digits 0..16 only, so those buckets
-    run ~16x deeper than the rest.
-
+    l < 2^253 leaves the top window digits 0..16 only, so at 2^16 points
+    its 15 live buckets hold ~4,096 points each against ~256 elsewhere;
+    one thread per bucket (the first port) left 8,192 threads on fewer
+    than half the SMs, and 15 of them adding ~4,096 points in a row.
+    Design: a segmented sum in passes of one kernel.  Each pass cuts every
+    bucket's entries into chunks of CHUNK consecutive entries, one thread a
+    chunk (~262k threads at 2^16), found by a binary search over the
+    chunks' prefix sum; a chunk starts from its first point, so a bucket
+    of c points costs c - 1 adds in all.  Pass 1 gathers points through
+    `idx`; each later pass sums the previous pass's partials, contiguous
+    per bucket, until the last pass (a thread a bucket, at most CHUNK
+    entries) writes the (16, W, nb) limbs.  The pass count comes from n
+    (`bucket_passes`: no host sync); a pass over finished buckets copies.
+    Points and partials are (rows, 4, 8) words, a 128-byte line each (8
+    MiB at 2^16, L2-resident).  The chunk prefix sums are plain torch on
+    the (W, nb) counts (`bucket_plan`), shared with the plain version,
+    which sums the same chunks in the same order.
   `bucket_reduce` replaces `bucket_reduce_pallas` (:372).
     sum_w 2^(c w) sum_d d B[w, d]: one block per window runs the lane
     suffix scan (Hillis-Steele, identity shifted in) and the lane tree
@@ -29,6 +40,9 @@ window's point indices by digit, and the bucket offsets.  Then
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -43,6 +57,8 @@ C_BITS = 8
 N_BUCKETS = 1 << C_BITS
 N_WINDOWS = 256 // C_BITS
 MAX_REDUCE_BUCKETS = 256  # one block of threads, one bucket each
+CHUNK = 8  # entries a thread sums in each pass of bucket_accumulate (by the probe)
+NW = NLIMBS // 2  # 32-bit words per field element
 
 
 def scalar_digits(canon: torch.Tensor) -> torch.Tensor:
@@ -76,29 +92,125 @@ def _segments(idx, offsets):
 # ---------------------------------------------------------------------------
 
 
+def bucket_passes(n: int) -> int:
+    """Passes of `bucket_accumulate` over n points: the fewest p >= 1 with
+    CHUNK^p >= n, so that every bucket (at most n entries) comes to the
+    last pass with at most CHUNK partials."""
+    p = 1
+    while CHUNK ** p < n:
+        p += 1
+    return p
+
+
+def _pass_threads(entries: int, buckets: int, passes: int) -> list:
+    """Threads of each pass, known without a host sync: a chunk pass's
+    bound on its chunks, sum_b ceil(c_b / C) <= (sum_b c_b) // C + buckets;
+    the last pass, a thread a bucket."""
+    threads = []
+    for _ in range(passes - 1):
+        entries = entries // CHUNK + buckets
+        threads.append(entries)
+    return threads + [buckets]
+
+
+@functools.lru_cache(maxsize=16)
+def _plan_constants(W: int, n: int, passes: int, chunk: int, device):
+    """(window starts w * n as (W, 1), chunk^k and chunk^k - 1 for k = 1 ..
+    passes - 1 as (passes - 1, 1)): made once per shape, not on every call."""
+    base = torch.arange(W, dtype=torch.int32, device=device)[:, None] * n
+    div = torch.tensor([[chunk ** k] for k in range(1, passes)], dtype=torch.int32)
+    return base, div.to(device), (div - 1).to(device)
+
+
+def bucket_plan(offsets: torch.Tensor, n: int) -> list:
+    """-> one (begin, count, prefix, threads) per pass, over the W * nb
+    buckets flattened window-major (int32 tensors on offsets' device).
+
+    Pass 1 reads entries begin[b] .. begin[b] + count[b] of the flattened
+    idx (window w's row starts at w * n; bucket 0 counts 0).  A chunk pass
+    cuts bucket b into ceil(count[b] / CHUNK) chunks, whose sums are rows
+    prefix[b] .. prefix[b + 1] of its output; the next pass reads those
+    rows as its entries, so pass k + 1 counts ceil(c_b / CHUNK^k) for all k
+    at once.  The last pass has prefix None and sums each bucket's entries.
+    `threads` is `_pass_threads`'s bound on a pass's rows."""
+    W, nb = offsets.shape[0], offsets.shape[1] - 1
+    buckets = W * nb
+    if W * n >= 2**31:
+        raise ValueError(f"bucket_accumulate takes fewer than 2^31 entries, got {W * n}")
+    off = offsets.to(torch.int32)
+    threads = _pass_threads(W * n, buckets, bucket_passes(n))
+    base, div, div_m1 = _plan_constants(W, n, len(threads), CHUNK, off.device)
+    begin = (off[:, :-1] + base).reshape(buckets)
+    count = torch.diff(off, dim=1)
+    count[:, 0] = 0
+    count = count.reshape(buckets)
+    if len(threads) == 1:
+        return [(begin, count, None, threads[0])]
+    chunks = (count + div_m1) // div  # (passes - 1, buckets)
+    prefix = torch.nn.functional.pad(torch.cumsum(chunks, 1, dtype=torch.int32), (1, 0))
+    begins = [begin] + list(prefix[:, :-1])
+    counts = [count] + list(chunks)
+    return ([(begins[k], counts[k], prefix[k], rows) for k, rows in enumerate(threads[:-1])]
+            + [(begins[-1], counts[-1], None, threads[-1])])
+
+
+def _pass_plain(src, rows, begin, count, prefix):
+    """One pass in plain torch, rank by rank over all chunks.  src: (4, 16,
+    m) coordinates; entry k is column rows[k] of src (column k where rows
+    is None) -> (4, 16, chunks), or (4, 16, buckets) on the last pass."""
+    if prefix is None:
+        first, length = begin.long(), count.long()
+    else:
+        prefix = prefix.long()
+        t = torch.arange(int(prefix[-1]), device=src.device)
+        b = torch.searchsorted(prefix, t, right=True) - 1
+        first = begin.long()[b] + (t - prefix[b]) * CHUNK
+        length = (begin.long()[b] + count.long()[b] - first).clamp(max=CHUNK)
+
+    cols = None if rows is None else rows.long()
+
+    def entry(k):
+        return src[:, :, k if cols is None else cols[k]]
+
+    one = torch.zeros((NLIMBS, 1), dtype=lb.LIMB_DTYPE, device=src.device)
+    ident = torch.stack(identity_coords(one)).to(torch.int64)
+    acc = ident.expand(4, NLIMBS, first.numel()).clone()
+    live = (length > 0).nonzero(as_tuple=True)[0]
+    acc[:, :, live] = entry(first[live]).to(torch.int64)
+    for r in range(1, int(length.max()) if length.numel() else 0):
+        live = (length > r).nonzero(as_tuple=True)[0]
+        acc[:, :, live] = torch.stack(_padd(*acc[:, :, live], *entry(first[live] + r)))
+    return torch.stack(to_canonical(*acc))
+
+
 def bucket_accumulate_plain(idx, offsets, x, y, z, t):
-    """Plain torch form of `bucket_accumulate`: rank by rank, every bucket
-    that still has points adds its next one."""
+    """Plain torch form of `bucket_accumulate`: the same passes, chunks and
+    order of additions."""
     W, nb = _segments(idx, offsets)
-    off = offsets.long()
-    start = off[:, :-1]
-    counts = off[:, 1:] - start
-    counts[:, 0] = 0
-    acc = [a.to(torch.int64).reshape(NLIMBS, 1, 1).expand(NLIMBS, W, nb).contiguous()
-           for a in identity_coords(x[:, :1])]
-    pts = (x, y, z, t)
-    for r in range(int(counts.max().item()) if counts.numel() else 0):
-        wi, di = (counts > r).nonzero(as_tuple=True)
-        pidx = idx.long()[wi, start[wi, di] + r]
-        new = _padd(*(a[:, wi, di] for a in acc), *(c[:, pidx] for c in pts))
-        for a, v in zip(acc, new):
-            a[:, wi, di] = v
-    return to_canonical(*acc)
+    n = x.shape[1]
+    src, rows = torch.stack([x, y, z, t]), idx.reshape(-1)
+    for begin, count, prefix, _ in bucket_plan(offsets, n):
+        src, rows = _pass_plain(src, rows, begin, count, prefix), None
+    return tuple(src.reshape(4, NLIMBS, W, nb))
 
 
-def bucket_accumulate(idx, offsets, x, y, z, t):
+def _point_words(coords) -> torch.Tensor:
+    """Four (16, n) limb tensors -> (n, 4, 8) 32-bit words (int32): the
+    limbs as little-endian 16-bit halves, in one copy."""
+    limbs = torch.stack(coords).permute(2, 0, 1)
+    halves = torch.empty(limbs.shape, dtype=torch.int16, device=limbs.device)
+    return halves.copy_(limbs).view(torch.int32)
+
+
+def _null_or_ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def bucket_accumulate(idx, offsets, x, y, z, t, marks=None):
     """Bucket sums of the sorted segments: idx (W, n), offsets (W, nb + 1),
-    points four (16, n) -> four (16, W, nb) with bucket 0 the identity."""
+    points four (16, n) -> four (16, W, nb) with bucket 0 the identity.
+    `marks`: optional CUDA events, one more than the passes, recorded
+    before each pass and after the last (to time the passes)."""
     if idx.device.type == "cpu":
         return bucket_accumulate_plain(idx, offsets, x, y, z, t)
     W, nb = _segments(idx, offsets)
@@ -107,17 +219,49 @@ def bucket_accumulate(idx, offsets, x, y, z, t):
     n = coords[0].shape[1]
     if idx.shape[1] != n:
         raise ValueError("idx and points differ in batch size")
-    pts = torch.stack(coords).permute(2, 0, 1).contiguous()  # (n, 4, 16)
-    ix = idx.to(device=dev, dtype=torch.int32).contiguous()
-    off = offsets.to(device=dev, dtype=torch.int32).contiguous()
-    outs = [torch.empty((NLIMBS, W, nb), dtype=lb.LIMB_DTYPE, device=dev)
-            for _ in range(4)]
+    plan = bucket_plan(offsets.to(dev), n)
+    if marks is not None and len(marks) != len(plan) + 1:
+        raise ValueError(f"marks takes {len(plan) + 1} events, got {len(marks)}")
+    rows = idx.to(device=dev, dtype=torch.int32).contiguous().reshape(-1)
+    src = _point_words(coords)
+    outs = list(torch.empty((4, NLIMBS, W, nb), dtype=lb.LIMB_DTYPE, device=dev))
+    # one scratch for every chunk pass's partials
+    scratch = torch.empty((sum(p[3] for p in plan[:-1]), 4, NW), dtype=torch.int32,
+                          device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().ark_bucket_accumulate(_ptrs([ix, off, pts] + outs), n, W,
-                                          nb, _stream(dev))
-    _check(rc, "bucket_accumulate")
-    bucket_accumulate.launches += 1
+        stream = _stream(dev)
+        used = 0
+        for k, (begin, count, prefix, threads) in enumerate(plan):
+            dst = None if prefix is None else scratch[used:used + threads]
+            used += threads if prefix is not None else 0
+            ptrs = [src, rows, begin, count, prefix, dst] + outs
+            if marks is not None:
+                marks[k].record()
+            rc = _lib().ark_bucket_chunk(
+                (ctypes.c_void_p * len(ptrs))(*map(_null_or_ptr, ptrs)), threads,
+                W * nb, CHUNK, stream)
+            _check(rc, "bucket_accumulate")
+            bucket_accumulate.launches += 1
+            src, rows = dst, None
+        if marks is not None:
+            marks[-1].record()
     return tuple(outs)
+
+
+def bucket_launch_config(n: int, device) -> dict:
+    """`bucket_accumulate`'s launch at n points, W x nb buckets: chunk size,
+    passes, threads a block, resident blocks and warps per SM, and each
+    pass's grid (blocks)."""
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        _check(_lib().ark_bucket_accumulate_config(ctypes.byref(blocks),
+                                                    ctypes.byref(threads)),
+               "bucket_accumulate_config")
+    grids = [-(-k // threads.value) for k in
+             _pass_threads(N_WINDOWS * n, N_WINDOWS * N_BUCKETS, bucket_passes(n))]
+    return {"chunk": CHUNK, "passes": len(grids), "threads": threads.value,
+            "blocks_per_sm": blocks.value,
+            "warps_per_sm": blocks.value * threads.value // 32, "grids": grids}
 
 
 bucket_accumulate.launches = 0

@@ -32,7 +32,9 @@ Phases (any failure exits non-zero; there is no CPU path):
  10. report   the curve kernels as in phase 6, with `windowed_mul`'s launch
               (lanes per point, threads and points a block, resident blocks
               and warps per SM, shared memory per block) and its time at
-              n = 1000 beside the one at 2^16;
+              n = 1000 beside the one at 2^16, and `bucket_accumulate`'s
+              passes (chunk size, pass count, grids, resident warps per SM,
+              ptxas of its kernel, the time of each pass);
  11. traced   traced circuits (`fabric.tracer()`): the README example; gate
               throughput of 100,000 add gates under `NoRecvTransport`; a
               circuit at n = 2^20 under the trusted dealer (x*y + x at 2^20;
@@ -49,7 +51,8 @@ Phases (any failure exits non-zero; there is no CPU path):
 
 Each phase logs its seconds.  The launch counts of the field kernels are
 those of phases 3-5, those of the curve kernels those of phases 8-9 (each
-path's counts are set to 0 just before it and read just after); phases
+path's counts are set to 0 just before it and read just after;
+`bucket_accumulate` counts one launch a pass); phases
 11-12 are a third path, whose kernels (`mont_matmul`'s and the fabric's)
 must each launch there too.  The last line is `{"ok": true, "device":
 {...}}`.
@@ -216,7 +219,7 @@ def compare_kernels(ops: Operands, rounds: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_build() -> str:
+def phase_build() -> tuple[str, dict]:
     t0 = time.time()
     logs = _build.build(["fp_kernels", ck.SOURCE])  # one nvcc each, in parallel
     fk._lib()
@@ -228,7 +231,18 @@ def phase_build() -> str:
     card = smi("name,power.limit")
     log(f"[1 build] kernels built in {time.time() - t0:.1f} s")
     log(f"card: {card}")
-    return card
+    return card, logs
+
+
+def ptxas_of(log_text: str, kernel: str) -> str:
+    """ptxas's registers, stack frame and spills for one kernel."""
+    lines = log_text.splitlines()
+    at = next((i for i, line in enumerate(lines)
+               if "Compiling entry" in line and kernel in line), None)
+    if at is None:
+        return "no ptxas log (a build from before logs were kept)"
+    return " | ".join(line.split(":", 1)[-1].strip() for line in lines[at + 1:at + 4]
+                      if "stack frame" in line or "registers" in line)
 
 
 def phase_kernels(dev) -> dict:
@@ -764,7 +778,30 @@ def curve_work(ops: CurveOperands) -> dict:
     }
 
 
-def phase_curve_report(dev, ops: CurveOperands, launches: dict) -> list:
+def bucket_report(dev, ops: CurveOperands, ptxas_log: str) -> None:
+    """`bucket_accumulate`'s launch at the main-path shape: chunk size,
+    passes, grids, resident warps, ptxas of its one kernel (every pass
+    runs it) and the time of each pass (mean of 5 calls)."""
+    cfg = mk.bucket_launch_config(ops.n, dev)
+    args = ops.args("bucket_accumulate")
+    mk.bucket_accumulate(*args)  # warm-up
+    pass_ms = [0.0] * cfg["passes"]
+    for _ in range(5):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(cfg["passes"] + 1)]
+        mk.bucket_accumulate(*args, marks=marks)
+        torch.cuda.synchronize()
+        for k in range(cfg["passes"]):
+            pass_ms[k] += marks[k].elapsed_time(marks[k + 1]) / 5
+    log(f"[10 report] bucket_accumulate launch at n={ops.n} x {mk.N_WINDOWS} windows "
+        f"x {mk.N_BUCKETS} buckets: chunk C={cfg['chunk']}, {cfg['passes']} passes "
+        f"of bucket_chunk_kernel, grids {cfg['grids']} blocks of {cfg['threads']} "
+        f"threads, {cfg['blocks_per_sm']} resident blocks ({cfg['warps_per_sm']} "
+        f"warps) per SM; ptxas bucket_chunk_kernel: "
+        f"{ptxas_of(ptxas_log, 'bucket_chunk_kernel')}; ms a pass "
+        f"{[round(v, 4) for v in pass_ms]} (sum {sum(pass_ms):.4f})")
+
+
+def phase_curve_report(dev, ops: CurveOperands, launches: dict, ptxas_log: str) -> list:
     mem_rate, int_rate = device_rates(dev)
     cfg = ck.windowed_launch_config(ops.n, dev)
     log(f"[10 report] windowed_mul launch at n={ops.n}: {cfg['lanes_per_point']} "
@@ -776,6 +813,7 @@ def phase_curve_report(dev, ops: CurveOperands, launches: dict) -> list:
     small = CurveOperands(N_ODD, 43, dev)
     small_ms = cuda_ms(lambda: ck.windowed_mul(*small.args("windowed_mul")), reps=20)
     log(f"[10 report] windowed_mul at n={N_ODD}: {small_ms:.4f} ms/launch")
+    bucket_report(dev, ops, ptxas_log)
     buckets = mk.bucket_accumulate(*ops.args("bucket_accumulate"))
     work = curve_work(ops)
     rows = []
@@ -802,7 +840,7 @@ def phase_curve_report(dev, ops: CurveOperands, launches: dict) -> list:
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": None,
         })
-        log(f"[10 report] {name}: {ms:.4f} ms/launch at n={ops.n}, plain "
+        log(f"[10 report] {name}: {ms:.4f} ms a call at n={ops.n}, plain "
             f"{rows[-1]['plain_ms']:.2f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
             f"({rows[-1]['bound_by']}); max limb difference vs plain {err}")
     return rows
@@ -1133,7 +1171,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     t_start = time.time()
-    card = phase_build()
+    card, build_logs = phase_build()
     plain_2_16 = timed("2 kernels", phase_kernels, dev)
 
     fk.reset_launches()
@@ -1155,7 +1193,8 @@ def main() -> int:
     log(f"curve-path launches: {curve_launches}")
     check(all(v > 0 for v in curve_launches.values()),
           "a kernel of the curve path was never launched")
-    rows += timed("10 report", phase_curve_report, dev, msm_ops, curve_launches)
+    rows += timed("10 report", phase_curve_report, dev, msm_ops, curve_launches,
+                  build_logs[ck.SOURCE])
 
     fk.reset_launches()
     mk.reset_launches()

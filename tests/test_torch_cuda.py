@@ -140,7 +140,8 @@ def test_curve_kernels_match_plain(dev, n, monkeypatch):
     assert same(mk.bucket_reduce(*buckets), mk.bucket_reduce_plain(*buckets))
     torch.cuda.synchronize()
     after = mk.launch_counts()
-    assert [after[k] - before[k] for k in after] == [1, 1, 1, 1, 1]
+    # bucket_accumulate launches its kernel once a pass
+    assert [after[k] - before[k] for k in after] == [1, 1, 1, mk.bucket_passes(n), 1]
 
 
 def test_ladder_edge_scalars_and_subgroup_check(dev):
@@ -183,6 +184,58 @@ def test_bucket_accumulate_clustered_digits(dev):
     buckets = mk.bucket_accumulate(idx, off, *co)
     assert same(buckets, mk.bucket_accumulate_plain(idx, off, *co))
     assert same(mk.bucket_reduce(*buckets), mk.bucket_reduce_plain(*buckets))
+
+
+def bucket_operands(n, layout, seed, dev):
+    """Points on the card and the prologue of scalars whose 8-bit digits
+    follow `layout`: "top" (window 31's digits all in 1..15, the deep
+    buckets of real scalars), "cluster" (every scalar equal: each window's
+    points in one bucket, the most passes) or "chunk" (buckets of exactly
+    CHUNK and CHUNK + 1 points)."""
+    from ark_mpc_tpu_torch.algebra.curve import CurvePoint
+    from ark_mpc_tpu_torch.ops import msm_kernels as mk
+
+    rng = np.random.default_rng(seed)
+    pts = CurvePoint.generator((n,), device=dev).mul(Scalar.random(n, rng, device=dev))
+    if layout == "top":
+        digits = rng.integers(0, 256, (32, n))
+        digits[31] = rng.integers(1, 16, n)
+    elif layout == "cluster":
+        digits = np.repeat(rng.integers(0, 256, (32, 1)), n, 1)
+    else:
+        seq = np.concatenate([np.full(mk.CHUNK + (d & 1), d) for d in range(1, 256)])
+        digits = np.stack([rng.permutation(np.resize(seq, n)) for _ in range(32)])
+    canon = torch.from_numpy((digits[0::2] | (digits[1::2] << 8)).astype(np.int32))
+    idx, off = mk.bucket_prologue(canon.to(dev))
+    return (idx, off, *[c.limbs.contiguous() for c in pts._coords()])
+
+
+@pytest.mark.parametrize("layout", ["top", "cluster", "chunk"])
+@pytest.mark.parametrize("n", [1, 17, 4097, 1 << 16])
+def test_bucket_accumulate_chunked_passes(dev, n, layout):
+    """The chunked passes equal the plain version bit for bit, one launch a
+    pass."""
+    from ark_mpc_tpu_torch.ops import msm_kernels as mk
+
+    args = bucket_operands(n, layout, n, dev)
+    if layout == "cluster":
+        assert int((args[1][:, 1:] - args[1][:, :-1]).max()) == n
+    before = mk.bucket_accumulate.launches
+    got = mk.bucket_accumulate(*args)
+    assert mk.bucket_accumulate.launches - before == mk.bucket_passes(n)
+    assert same(got, mk.bucket_accumulate_plain(*args))
+
+
+def test_bucket_launch_config(dev):
+    """Pass 1 over every chunk of the 2^21 entries at 2^16, the last pass a
+    thread a bucket, 16 resident warps per SM."""
+    from ark_mpc_tpu_torch.ops import msm_kernels as mk
+
+    cfg = mk.bucket_launch_config(1 << 16, dev)
+    assert cfg["chunk"] == mk.CHUNK and cfg["passes"] == mk.bucket_passes(1 << 16)
+    assert cfg["grids"][0] * cfg["threads"] >= 32 * (1 << 16) // mk.CHUNK
+    assert cfg["grids"][-1] * cfg["threads"] == 32 * 256
+    assert cfg["warps_per_sm"] >= 16
 
 
 # ---------------------------------------------------------------------------
