@@ -10,11 +10,11 @@
 //
 // Base field p = 2^255 - 19 on eight 32-bit words: a product is a 512-bit
 // schoolbook, the high half folded down x38 (2^256 = 38 mod p), then
-// brought to CANONICAL form, as are sums and differences (windowed_mul's
-// quad core keeps values loose and canonicalizes at its store).  Canonical
-// values are unique, so running the reference's formula sequence (twisted
-// Edwards a = -1, extended coordinates) gives results bit-identical to the
-// plain torch versions.
+// brought to CANONICAL form, as are sums and differences (the quad core of
+// windowed_mul and window_sums keeps values loose and canonicalizes at its
+// store).  Canonical values are unique, so running the reference's formula
+// sequence (twisted Edwards a = -1, extended coordinates) gives results
+// bit-identical to the plain torch versions.
 //
 // Device-memory layout is the reference's: a coordinate is a (16, n) int32
 // tensor of 16-bit limbs, repacked to 32-bit words in registers.  Only
@@ -40,10 +40,6 @@ struct Fe {
 struct Pt {
   Fe x, y, z, t;
 };
-struct Cached {  // (Y - X, Y + X, 2d T, Z)
-  Fe p, q, r, z;
-};
-
 // 2d, d = -121665/121666 mod p
 __device__ __forceinline__ Fe fe_d2() {
   return Fe{{0x26b2f159u, 0xebd69b94u, 0x8283b156u, 0x00e0149au, 0xeef3d130u,
@@ -82,18 +78,6 @@ __device__ __forceinline__ Fe fe_load_cg(const int32_t* p, int64_t stride,
     const uint32_t lo = static_cast<uint32_t>(__ldcg(p + (2 * k) * stride + j));
     const uint32_t hi = static_cast<uint32_t>(__ldcg(p + (2 * k + 1) * stride + j));
     r.w[k] = lo | (hi << 16);
-  }
-  return r;
-}
-
-// A thread's own accumulator, written earlier in this launch (no __ldg).
-__device__ __forceinline__ Fe fe_load_own(const int32_t* p, int64_t stride,
-                                          int64_t j) {
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    r.w[k] = static_cast<uint32_t>(p[(2 * k) * stride + j]) |
-             (static_cast<uint32_t>(p[(2 * k + 1) * stride + j]) << 16);
   }
   return r;
 }
@@ -310,8 +294,8 @@ __device__ __forceinline__ Fe fe_sub_loose(const Fe& a, const Fe& b) {
 }
 
 // ---------------------------------------------------------------------------
-// Edwards formulas: the reference's _double, _double_no_t, _padd,
-// _padd_cached (ark_mpc_tpu/ops/curve_kernels.py:45-99)
+// Edwards formulas: the reference's _double, _double_no_t and _padd
+// (ark_mpc_tpu/ops/curve_kernels.py:45-99)
 // ---------------------------------------------------------------------------
 
 struct DoubleParts {
@@ -362,58 +346,6 @@ __device__ __forceinline__ Pt pt_add(const Pt& p, const Pt& q) {
   const Fe c = fe_mul(fe_mul(p.t, q.t), fe_d2());
   const Fe zz = fe_mul(p.z, q.z);
   return finish_add(a, b, c, zz);
-}
-
-__device__ __forceinline__ Pt pt_add_cached(const Pt& p, const Cached& q) {
-  const Fe a = fe_mul(fe_sub(p.y, p.x), q.p);
-  const Fe b = fe_mul(fe_add(p.y, p.x), q.q);
-  const Fe c = fe_mul(p.t, q.r);
-  const Fe zz = fe_mul(p.z, q.z);
-  return finish_add(a, b, c, zz);
-}
-
-__device__ __forceinline__ Cached to_cached(const Pt& p) {
-  return Cached{fe_sub(p.y, p.x), fe_add(p.y, p.x), fe_mul(p.t, fe_d2()), p.z};
-}
-
-// The 16 multiples 0..15 of P in cached form: evens by doubling the half
-// entry, odds by adding P (the reference's table order).
-__device__ __forceinline__ void build_table(const Pt& P, Cached tab[16]) {
-  Pt ext[8];
-  ext[0] = pt_identity();
-  ext[1] = P;
-  tab[0] = to_cached(ext[0]);
-  tab[1] = to_cached(P);
-  Pt prev = P;
-  for (int k = 2; k < 16; ++k) {
-    const Pt cur = (k & 1) ? pt_add(prev, P) : pt_double(ext[k >> 1]);
-    if (k < 8) ext[k] = cur;
-    tab[k] = to_cached(cur);
-    prev = cur;
-  }
-}
-
-// Entry `digit` of the table by a masked scan over all 16 entries: no
-// address or branch depends on the digit.
-__device__ __forceinline__ Cached select_entry(const Cached tab[16],
-                                               uint32_t digit) {
-  Cached s;
-  uint32_t* sw = reinterpret_cast<uint32_t*>(&s);
-#pragma unroll
-  for (int i = 0; i < 4 * NW; ++i) sw[i] = 0;
-  for (int k = 0; k < 16; ++k) {
-    const uint32_t m = 0u - static_cast<uint32_t>(digit == static_cast<uint32_t>(k));
-    const uint32_t* tw = reinterpret_cast<const uint32_t*>(&tab[k]);
-#pragma unroll
-    for (int i = 0; i < 4 * NW; ++i) sw[i] |= tw[i] & m;
-  }
-  return s;
-}
-
-// 4-bit digit `index` (least significant first) of a scalar's 8 words.
-__device__ __forceinline__ uint32_t nibble(const Fe& s, int index) {
-  const int off = 4 * index;
-  return (s.w[off >> 5] >> (off & 31)) & 15u;
 }
 
 // ---------------------------------------------------------------------------
@@ -512,8 +444,8 @@ __device__ __forceinline__ void quad_double(const Quad& Q, Pt& p) {
   quad_finish(Q, fe_sub_loose(h, sq[3]), fe_add_loose(c, g), g, h, p);
 }
 
-// p += q (`pt_add_cached`), lane k holding coordinate k of the cached q
-// (Y - X, Y + X, 2d T, Z).
+// p += q (the plain `_padd_cached`), lane k holding coordinate k of the
+// cached q (Y - X, Y + X, 2d T, Z).
 __device__ __forceinline__ void quad_add_cached(const Quad& Q, Pt& p, const Fe& mine) {
   const Fe op = fe_pick(Q.k, fe_sub_loose(p.y, p.x), fe_add_loose(p.y, p.x), p.t, p.z);
   Fe r[QUAD];  // a, b, c, zz
@@ -544,28 +476,34 @@ constexpr size_t WM_TAB_BYTES = static_cast<size_t>(WM_ENTRIES) * 2 * WM_THREADS
 constexpr size_t WM_SMEM =
     WM_TAB_BYTES + static_cast<size_t>(WM_THREADS / 32) * XCH_WARP_WORDS * 4;
 
-__device__ __forceinline__ void tab_store(uint4* tab, int e, int t, const Fe& v) {
-  tab[(2 * e) * WM_THREADS + t] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
-  tab[(2 * e + 1) * WM_THREADS + t] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+// Tables in shared memory: [entry][half][slot] 16-byte chunks, slot
+// fastest, SLOTS slots a row; slot 4p + k holds coordinate k of point p's
+// entries (windowed_mul: slot = thread).
+template <int SLOTS>
+__device__ __forceinline__ void tab_store(uint4* tab, int e, int s, const Fe& v) {
+  tab[(2 * e) * SLOTS + s] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  tab[(2 * e + 1) * SLOTS + s] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
 }
 
-__device__ __forceinline__ Fe tab_load(const uint4* tab, int e, int t) {
-  const uint4 a = tab[(2 * e) * WM_THREADS + t];
-  const uint4 b = tab[(2 * e + 1) * WM_THREADS + t];
+template <int SLOTS>
+__device__ __forceinline__ Fe tab_load(const uint4* tab, int e, int s) {
+  const uint4 a = tab[(2 * e) * SLOTS + s];
+  const uint4 b = tab[(2 * e + 1) * SLOTS + s];
   return Fe{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
 }
 
-// Entry `digit` of this lane's quarter by a masked scan over all 16.
-__device__ __forceinline__ Fe tab_select(const uint4* tab, int t, uint32_t digit) {
-  Fe s = fe_zero();
+// Entry `digit` of slot s's coordinate by a masked scan over all 16.
+template <int SLOTS>
+__device__ __forceinline__ Fe tab_select(const uint4* tab, int s, uint32_t digit) {
+  Fe r = fe_zero();
 #pragma unroll
   for (int e = 0; e < WM_ENTRIES; ++e) {
     const uint32_t m = 0u - static_cast<uint32_t>(digit == static_cast<uint32_t>(e));
-    const Fe v = tab_load(tab, e, t);
+    const Fe v = tab_load<SLOTS>(tab, e, s);
 #pragma unroll
-    for (int i = 0; i < NW; ++i) s.w[i] |= v.w[i] & m;
+    for (int i = 0; i < NW; ++i) r.w[i] |= v.w[i] & m;
   }
-  return s;
+  return r;
 }
 
 // Lane k's cached coordinate of p, with T in place of 2d T (scaled later).
@@ -573,40 +511,44 @@ __device__ __forceinline__ Fe cached_coord(int k, const Pt& p) {
   return fe_pick(k, fe_sub_loose(p.y, p.x), fe_add_loose(p.y, p.x), p.t, p.z);
 }
 
-// X, Y, Z of entry e from the quad's table (lanes base .. base + 3):
+// X, Y, Z of entry e from the quad's table (slots base .. base + 3):
 // X = (cq - cp) / 2, Y = (cq + cp) / 2, exact on canonical values; Z = cz.
+template <int SLOTS>
 __device__ __forceinline__ Pt tab_point(const uint4* tab, int base, int e) {
-  const Fe cp = tab_load(tab, e, base);
-  const Fe cq = tab_load(tab, e, base + 1);
+  const Fe cp = tab_load<SLOTS>(tab, e, base);
+  const Fe cq = tab_load<SLOTS>(tab, e, base + 1);
   return Pt{fe_half(fe_canon(fe_sub_loose(cq, cp))),
             fe_half(fe_canon(fe_add_loose(cq, cp))),
-            tab_load(tab, e, base + 3), fe_zero()};
+            tab_load<SLOTS>(tab, e, base + 3), fe_zero()};
 }
 
-// The table of `build_table`, four ways: evens by doubling the half entry
-// (read back from the table), odds by adding P's cached entry 1.  Entries
-// 2..15 hold T in lane 2's slot until one pass scales them by 2d.
-__device__ __forceinline__ void quad_build_table(const Quad& Q, uint4* tab, int t,
+// The 16 multiples 0..15 of P in cached form (Y - X, Y + X, 2d T, Z), four
+// ways, into slots s - k .. s - k + 3, in the reference's order: evens by
+// doubling the half entry (read back from the table), odds by adding P's
+// cached entry 1.  Entries 2..15 hold T in lane 2's slot until
+// one pass scales them by 2d.
+template <int SLOTS>
+__device__ __forceinline__ void quad_build_table(const Quad& Q, uint4* tab, int s,
                                                  const Pt& P) {
-  const int base = t & ~(QUAD - 1);
-  tab_store(tab, 0, t, fe_pick(Q.k, fe_one(), fe_one(), fe_zero(), fe_one()));
-  tab_store(tab, 1, t, fe_pick(Q.k, fe_sub_loose(P.y, P.x), fe_add_loose(P.y, P.x),
-                               fe_mul_loose(P.t, fe_d2()), P.z));
+  const int base = s & ~(QUAD - 1);
+  tab_store<SLOTS>(tab, 0, s, fe_pick(Q.k, fe_one(), fe_one(), fe_zero(), fe_one()));
+  tab_store<SLOTS>(tab, 1, s, fe_pick(Q.k, fe_sub_loose(P.y, P.x), fe_add_loose(P.y, P.x),
+                                      fe_mul_loose(P.t, fe_d2()), P.z));
   Pt prev = P;
   for (int e = 2; e < WM_ENTRIES; ++e) {
     if (e & 1) {
-      quad_add_cached(Q, prev, tab_load(tab, 1, t));
+      quad_add_cached(Q, prev, tab_load<SLOTS>(tab, 1, s));
     } else {
       __syncwarp();  // entry e / 2 is written
-      prev = tab_point(tab, base, e >> 1);
+      prev = tab_point<SLOTS>(tab, base, e >> 1);
       quad_double(Q, prev);
     }
-    tab_store(tab, e, t, cached_coord(Q.k, prev));
+    tab_store<SLOTS>(tab, e, s, cached_coord(Q.k, prev));
   }
   __syncwarp();
   // lane k scales entries 2 + k, 6 + k, 10 + k, 14 + k
   for (int e = 2 + Q.k; e < WM_ENTRIES; e += QUAD) {
-    tab_store(tab, e, base + 2, fe_mul_loose(tab_load(tab, e, base + 2), fe_d2()));
+    tab_store<SLOTS>(tab, e, base + 2, fe_mul_loose(tab_load<SLOTS>(tab, e, base + 2), fe_d2()));
   }
   __syncwarp();
 }
@@ -629,7 +571,7 @@ windowed_mul_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
                       (static_cast<uint32_t>(__ldg(canon + (4 * Q.k + 1) * n + j)) << 16);
   const uint32_t s1 = static_cast<uint32_t>(__ldg(canon + (4 * Q.k + 2) * n + j)) |
                       (static_cast<uint32_t>(__ldg(canon + (4 * Q.k + 3) * n + j)) << 16);
-  quad_build_table(Q, tab, t, pt_load(p, n, j));
+  quad_build_table<WM_THREADS>(Q, tab, t, pt_load(p, n, j));
   const int src = (t & 31) & ~(QUAD - 1);
   Pt acc = pt_identity();
   for (int i = windows - 1; i >= 0; --i) {
@@ -640,7 +582,7 @@ windowed_mul_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
     const uint32_t word = ((i >> 3) & 1) ? s1 : s0;
     const uint32_t digit = __shfl_sync(0xFFFFFFFFu, (word >> (4 * (i & 7))) & 15u,
                                        src + (i >> 4));
-    quad_add_cached(Q, acc, tab_select(tab, t, digit));
+    quad_add_cached(Q, acc, tab_select<WM_THREADS>(tab, t, digit));
   }
   if (point < n) {
     int32_t* dst = Q.k == 0 ? o.c[0] : Q.k == 1 ? o.c[1] : Q.k == 2 ? o.c[2] : o.c[3];
@@ -698,30 +640,98 @@ ladder_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
 }
 
 // ---------------------------------------------------------------------------
-// window_sums: lane j of window w accumulates digit_w(s_i) * P_i over
-// i = j, j + L, ... into out[w][.][j] (out: (windows, 16, L) per coordinate)
+// window_sums: block j is lane j, the points lo = j * per .. min(lo + per,
+// n) - 1 in order, and out[w][.][j] = their sum of digit_w(s_i) * P_i from
+// the identity (out: (windows, 16, L) per coordinate).
+//
+// Quad q keeps the accumulators of windows q, q + WS_QUADS, ... in
+// registers for the whole lane.  The block walks the lane in tiles of
+// WS_TILE points: quad p builds point p's cached table in shared memory
+// (slot 4p + k holds coordinate k of its 16 entries), the tile's scalars
+// go to shared memory, and then every quad adds, point by point, its
+// window's entry of that point's table.  Lane k of every quad reads the
+// same chunk (a broadcast); the entry is a masked scan over all 16 and the
+// digit a shared word picked by the window index, so no address or branch
+// depends on the digit (the scalar may be a MAC-key share).  Windows at or
+// past `windows` run along and skip the store.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(MUL_THREADS)
+constexpr int WS_THREADS = 256;   // 64 quads: one a window
+constexpr int WS_MIN_BLOCKS = 1;
+constexpr int WS_TILE = 64;       // points a tile
+constexpr int WS_QUADS = WS_THREADS / QUAD;
+constexpr int WS_WINDOWS = 64;
+constexpr int WS_PER_QUAD = WS_WINDOWS / WS_QUADS;  // accumulators a thread
+constexpr int WS_SLOTS = WS_TILE * QUAD;
+constexpr size_t WS_TAB_BYTES = static_cast<size_t>(WM_ENTRIES) * 2 * WS_SLOTS * 16;
+constexpr size_t WS_SCALAR_BYTES = static_cast<size_t>(WS_TILE) * NW * 4;
+constexpr size_t WS_SMEM = WS_TAB_BYTES + WS_SCALAR_BYTES +
+                           static_cast<size_t>(WS_THREADS / 32) * XCH_WARP_WORDS * 4;
+static_assert(WS_QUADS * WS_PER_QUAD == WS_WINDOWS, "every window has one quad");
+static_assert(WS_TILE % 8 == 0 && WS_TILE <= WS_QUADS, "whole warps build the tables");
+
+__global__ void __launch_bounds__(WS_THREADS, WS_MIN_BLOCKS)
 window_sums_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
-                   int64_t n, int windows, int64_t lanes) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const int64_t wstride = static_cast<int64_t>(NLIMBS) * lanes;
-  const Pt ident = pt_identity();
-  for (int w = 0; w < windows; ++w) pt_store(o, w * wstride, lanes, lane, ident);
-  for (int64_t i = lane; i < n; i += lanes) {
-    const Fe s = fe_load(canon, n, i);
-    Cached tab[16];
-    build_table(pt_load(p, n, i), tab);
-    for (int w = 0; w < windows; ++w) {
-      const int64_t base = w * wstride;
-      Pt a{fe_load_own(o.c[0] + base, lanes, lane), fe_load_own(o.c[1] + base, lanes, lane),
-           fe_load_own(o.c[2] + base, lanes, lane), fe_load_own(o.c[3] + base, lanes, lane)};
-      a = pt_add_cached(a, select_entry(tab, nibble(s, w)));
-      pt_store(o, base, lanes, lane, a);
+                   int64_t n, int windows, int64_t per) {
+  extern __shared__ __align__(16) unsigned char ws_smem[];
+  uint4* tab = reinterpret_cast<uint4*>(ws_smem);
+  uint32_t* scalars = reinterpret_cast<uint32_t*>(ws_smem + WS_TAB_BYTES);
+  const int t = threadIdx.x;
+  const int quad = t >> 2;
+  const Quad Q{reinterpret_cast<uint32_t*>(ws_smem + WS_TAB_BYTES + WS_SCALAR_BYTES) +
+                   (t >> 5) * XCH_WARP_WORDS,
+               (t & 31) >> 2, t & (QUAD - 1)};
+  const int64_t lanes = gridDim.x;
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * per;
+  const int64_t hi = lo + per < n ? lo + per : n;
+  Pt acc[WS_PER_QUAD];
+#pragma unroll
+  for (int r = 0; r < WS_PER_QUAD; ++r) acc[r] = pt_identity();
+  for (int64_t first = lo; first < hi; first += WS_TILE) {
+    const int m = hi - first < WS_TILE ? static_cast<int>(hi - first) : WS_TILE;
+    __syncthreads();  // the previous tile is read
+    // scalar word wd of tile point i at scalars[i * NW + wd]; points past
+    // the tile's end repeat its last point, and their tables go unread
+    for (int c = t; c < WS_TILE * NW; c += WS_THREADS) {
+      const int i = c % WS_TILE, wd = c / WS_TILE;
+      const int64_t j = first + (i < m ? i : m - 1);
+      scalars[i * NW + wd] = static_cast<uint32_t>(__ldg(canon + (2 * wd) * n + j)) |
+                             (static_cast<uint32_t>(__ldg(canon + (2 * wd + 1) * n + j)) << 16);
+    }
+    if (quad < WS_TILE) {
+      quad_build_table<WS_SLOTS>(Q, tab, t, pt_load(p, n, first + (quad < m ? quad : m - 1)));
+    }
+    __syncthreads();  // the tile's tables and scalars are written
+    for (int i = 0; i < m; ++i) {
+#pragma unroll
+      for (int r = 0; r < WS_PER_QUAD; ++r) {
+        const int w = quad + r * WS_QUADS;
+        const uint32_t digit = (scalars[i * NW + (w >> 3)] >> (4 * (w & 7))) & 15u;
+        quad_add_cached(Q, acc[r], tab_select<WS_SLOTS>(tab, QUAD * i + Q.k, digit));
+      }
     }
   }
+#pragma unroll
+  for (int r = 0; r < WS_PER_QUAD; ++r) {
+    const int w = quad + r * WS_QUADS;
+    if (w < windows) {
+      int32_t* dst = Q.k == 0 ? o.c[0] : Q.k == 1 ? o.c[1] : Q.k == 2 ? o.c[2] : o.c[3];
+      fe_store(dst + static_cast<int64_t>(w) * NLIMBS * lanes, lanes, blockIdx.x,
+               fe_canon(fe_pick(Q.k, acc[r].x, acc[r].y, acc[r].z, acc[r].t)));
+    }
+  }
+}
+
+// Every launch may need more than the default 48 KiB of dynamic shared
+// memory; ask for it, and for the largest shared-memory carveout.
+cudaError_t window_sums_opt_in() {
+  cudaError_t err = cudaFuncSetAttribute(
+      window_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(WS_SMEM));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(window_sums_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 // ---------------------------------------------------------------------------
@@ -935,13 +945,29 @@ int ark_ladder(void* const* ptrs, long long n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// window_sums' threads and tile, resident blocks per SM and dynamic shared
+// memory per block.
+int ark_window_sums_config(int* threads, int* tile, int* blocks_per_sm,
+                           long long* smem_bytes) {
+  *threads = WS_THREADS;
+  *tile = WS_TILE;
+  *smem_bytes = static_cast<long long>(WS_SMEM);
+  cudaError_t err = window_sums_opt_in();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, window_sums_kernel, WS_THREADS, WS_SMEM));
+}
+
+// One block a lane of `per` points (the last lane takes the rest); n >= 1.
 // ptrs: canon x y z t (16, n); ox oy oz ot (windows, 16, lanes)
-int ark_window_sums(void* const* ptrs, long long n, int windows,
-                    long long lanes, void* stream) {
-  window_sums_kernel<<<blocks_for(lanes, MUL_THREADS), MUL_THREADS, 0,
+int ark_window_sums(void* const* ptrs, long long n, int windows, long long lanes,
+                    long long per, void* stream) {
+  cudaError_t err = window_sums_opt_in();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  window_sums_kernel<<<static_cast<unsigned int>(lanes), WS_THREADS, WS_SMEM,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ptrs[0]), coords_of(ptrs + 1),
-      out_coords_of(ptrs + 5), n, windows, lanes);
+      out_coords_of(ptrs + 5), n, windows, per);
   return static_cast<int>(cudaGetLastError());
 }
 

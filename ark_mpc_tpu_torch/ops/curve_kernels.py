@@ -53,12 +53,29 @@ Source notes (bounds for one H100 SXM; see `chip_smoke.py` for the counts):
     check and every MSM route take `windowed_mul`.
 
   `window_sums` replaces `window_sums_pallas` (:248).
-    Bound: operations (~650 products per point).  The TPU carried its 64
-    window accumulators through a sequential grid; CUDA blocks run in no
-    order, so here each thread is a lane that owns 64 accumulators in the
-    output (coalesced across lanes) and walks points lane, lane + L, ...;
-    `msm_windowsum` then sums the lanes (plain torch tree, batched over
-    windows) and runs the 64-step Horner in plain torch.
+    Bound: operations (~610 products per point: a table, then one cached
+    add a window).  The TPU carried its 64 window accumulators through a
+    sequential grid; CUDA blocks run in no order.  The first port made
+    each of up to 16,384 threads a lane with its 64 accumulators in device
+    memory (a read and a write of each per point, 268 MB of output at
+    2^16) and the 16-entry table in local memory (5.5 KB of stack): 128
+    blocks of 4 warps on 132 SMs, 27x its bound.  Design: the loops turned
+    inside out, on `windowed_mul`'s quad core.  A lane is a block over a
+    contiguous range of points (`lane_points(n)` points a lane, at least
+    WS_LANE_POINTS, at most WS_MAX_LANES lanes: 256 lanes of 256 points at
+    2^16, so the partition is a function of n alone and the plain version
+    repeats it).  A quad (4 threads) is a window: 64 quads, 256 threads,
+    each holding its window's accumulator in registers for the whole lane.
+    The block walks its lane in tiles of 64 points: quad p builds point
+    p's cached table in shared memory (2 KiB a point, 128 KiB a tile), the
+    tile's scalars go to shared memory, and every quad adds its window's
+    entry of each point's table in turn, the entry a masked scan over all
+    16 (all quads read the same chunks: broadcasts) and the digit a shared
+    word picked by the window index, so no address or branch depends on the
+    digit.  Values stay loose and are made canonical at the store of the
+    (windows, 16, L) outputs (4 MB at 2^16).  `msm_windowsum` sums the
+    lanes (plain torch tree, batched over windows; ~8 levels) and runs the
+    Horner sum_w 16^w S_w on the card as one `bucket_reduce` launch.
 """
 
 from __future__ import annotations
@@ -79,7 +96,8 @@ ED_D = (-121665 * pow(121666, -1, P)) % P
 ED_2D = (2 * ED_D) % P
 
 WINDOWS = 64            # 4-bit windows of a 256-bit scalar
-WS_LANES = 16384        # window_sums lanes (accumulator sets) at most
+WS_MAX_LANES = 256      # window_sums lanes (one block each) at most
+WS_LANE_POINTS = 64     # window_sums points a lane at least
 WM_LANES = 4            # windowed_mul lanes per point (a quad)
 WM_THREADS = 128        # windowed_mul threads a block: 32 points
 SOURCE = "curve_kernels"
@@ -92,12 +110,14 @@ def _lib() -> ctypes.CDLL:
     lib.ark_windowed_mul.argtypes = [vp, i64, i32, vp]
     lib.ark_windowed_mul_config.argtypes = [vp, vp]
     lib.ark_ladder.argtypes = [vp, i64, vp]
-    lib.ark_window_sums.argtypes = [vp, i64, i32, i64, vp]
+    lib.ark_window_sums.argtypes = [vp, i64, i32, i64, i64, vp]
+    lib.ark_window_sums_config.argtypes = [vp, vp, vp, vp]
     lib.ark_bucket_accumulate_config.argtypes = [vp, vp]
     lib.ark_bucket_chunk.argtypes = [vp, i64, i32, i32, vp]
     lib.ark_bucket_reduce.argtypes = [vp, i32, i32, i32, vp]
     for fn in (lib.ark_windowed_mul, lib.ark_windowed_mul_config, lib.ark_ladder,
-               lib.ark_window_sums, lib.ark_bucket_accumulate_config,
+               lib.ark_window_sums, lib.ark_window_sums_config,
+               lib.ark_bucket_accumulate_config,
                lib.ark_bucket_chunk, lib.ark_bucket_reduce):
         fn.restype = ctypes.c_int
     return lib
@@ -447,21 +467,32 @@ def mul_by_order(point, kernel: str = "windowed"):
 # ---------------------------------------------------------------------------
 
 
+def lane_points(n: int) -> int:
+    """Points a `window_sums` lane takes at n points (the last lane the
+    rest): at least WS_LANE_POINTS, and enough for at most WS_MAX_LANES
+    lanes."""
+    return max(WS_LANE_POINTS, -(-n // WS_MAX_LANES))
+
+
 def default_lanes(n: int) -> int:
-    return max(1, min(n, WS_LANES))
+    """`window_sums` lanes at n points: every lane holds at least one."""
+    return max(1, -(-n // lane_points(n)))
 
 
 def window_sums_plain(canon, x, y, z, t, windows: int = WINDOWS):
-    """Plain torch form of `window_sums`."""
+    """Plain torch form of `window_sums`: step r adds point lo_j + r of
+    every lane j that has one, all windows at once."""
     n = canon.shape[1]
-    L = default_lanes(n)
+    L, per = default_lanes(n), lane_points(n)
+    tab = _table(x, y, z, t)
+    digits = _nibbles(canon)[:windows]
     acc = [a.to(torch.int64).unsqueeze(1).expand(NLIMBS, windows, L).contiguous()
            for a in identity_coords(x[:, :1].expand(NLIMBS, L))]
-    for lo in range(0, n, L):
-        m = min(L, n - lo)
-        part = [a[:, lo:lo + m] for a in (x, y, z, t)]
-        tab = _table(*part)
-        sel = _select(tab, _nibbles(canon[:, lo:lo + m])[:windows])
+    starts = torch.arange(L, device=canon.device) * per
+    for r in range(min(per, n)):
+        m = min(L, -(-(n - r) // per))  # lanes 0 .. m - 1 have a point r
+        cols = starts[:m] + r
+        sel = _select(tab[..., cols], digits[:, cols])
         new = _padd_cached(*(a[:, :, :m] for a in acc), *sel)
         for a, v in zip(acc, new):
             a[:, :, :m] = v
@@ -469,11 +500,12 @@ def window_sums_plain(canon, x, y, z, t, windows: int = WINDOWS):
 
 
 def window_sums(canon, x, y, z, t, windows: int = WINDOWS):
-    """Per-window, per-lane partial MSM sums: lane j of window w holds
-    sum over points i = j, j + L, ... (in that order, from the identity) of
-    digit_w(s_i) * P_i, by cached adds of table entries, with
-    L = `default_lanes(n)`.  `windows < 64` takes the low windows only.
-    -> four (windows, 16, L) tensors."""
+    """Per-window, per-lane partial MSM sums: lane j of window w holds the
+    sum over its points i = j * per .. min((j + 1) * per, n) - 1 (in that
+    order, from the identity) of digit_w(s_i) * P_i, by cached adds of
+    table entries, with per = `lane_points(n)` and L = `default_lanes(n)`
+    lanes.  `windows < 64` takes the low windows only.  -> four
+    (windows, 16, L) tensors."""
     _check_windows(windows)
     if canon.device.type == "cpu":
         return window_sums_plain(canon, x, y, z, t, windows)
@@ -485,7 +517,7 @@ def window_sums(canon, x, y, z, t, windows: int = WINDOWS):
             for _ in range(4)]
     with torch.cuda.device(dev):
         rc = _lib().ark_window_sums(_ptrs(flat + outs), n, windows, L,
-                                    _stream(dev))
+                                    lane_points(n), _stream(dev))
     _check(rc, "window_sums")
     window_sums.launches += 1
     return tuple(outs)
@@ -494,21 +526,56 @@ def window_sums(canon, x, y, z, t, windows: int = WINDOWS):
 window_sums.launches = 0
 
 
-def msm_windowsum(points, scalars, windows: int = WINDOWS):
-    """MSM through `window_sums`: the lane partials summed by a tree
-    (batched over windows), then Horner most significant window first,
-    16 * acc + S_w, in plain torch."""
+@functools.lru_cache(maxsize=None)
+def _window_sums_occupancy(device_index: int) -> tuple[int, int, int, int]:
+    """(threads a block, tile points, resident blocks per SM, dynamic shared
+    bytes per block) of `window_sums`."""
+    vals = [ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)]
+    with torch.cuda.device(device_index):
+        rc = _lib().ark_window_sums_config(*map(ctypes.byref, vals))
+    _check(rc, "window_sums occupancy")
+    return tuple(v.value for v in vals)
+
+
+def window_sums_launch_config(n: int, device) -> dict:
+    """The launch of `window_sums` over n points on a CUDA device: a block
+    a lane, a quad a window, tables built a tile at a time."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    threads, tile, blocks, smem = _window_sums_occupancy(index)
+    return {"threads": threads, "tile": tile, "lanes": default_lanes(n),
+            "lane_points": lane_points(n), "grid": default_lanes(n),
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "smem_bytes": smem}
+
+
+def msm_windowsum(points, scalars, windows: int = WINDOWS, marks=None):
+    """MSM through `window_sums`: the lane partials summed by a plain torch
+    tree (batched over windows), then the Horner sum_w 16^w S_w on the card
+    by one `bucket_reduce` launch over (16, windows, 2) buckets, bucket 1
+    holding S_w (bucket 0 has weight 0).  `marks`: optional four CUDA
+    events, recorded before the kernel, the tree and the Horner and after
+    the Horner (to time the parts)."""
     from ..algebra.curve import CurvePoint
+    from .msm_kernels import bucket_reduce
+
+    if marks is not None and len(marks) != 4:
+        raise ValueError(f"marks takes 4 events, got {len(marks)}")
+
+    def record(k):
+        if marks is not None:
+            marks[k].record()
 
     n = scalars.size
     canon = lb.from_mont(SCALAR_FIELD, scalars.reshape(n).limbs)
-    sums = window_sums(canon, *_flat_point(points.broadcast_to((n,)), n),
-                       windows=windows)
+    coords = _flat_point(points.broadcast_to((n,)), n)
+    record(0)
+    sums = window_sums(canon, *coords, windows=windows)
+    record(1)
     S = CurvePoint.from_coords([a.permute(1, 0, 2) for a in sums],
                                (windows, sums[0].shape[2])).sum(axis=1)
-    acc = CurvePoint.identity((), device=canon.device)
-    for j in range(windows):
-        for _ in range(4):
-            acc = acc.double()
-        acc = acc + S[windows - 1 - j]
-    return acc
+    record(2)
+    out = bucket_reduce(*(torch.stack([c.limbs, c.limbs], 2) for c in S._coords()),
+                        c_bits=4)
+    record(3)
+    return CurvePoint.from_coords(out, ())

@@ -18,9 +18,12 @@ Phases (any failure exits non-zero; there is no CPU path):
               version on the same inputs, its bound and its launch count,
               and the chain's launch: its persistent grid, resident blocks
               and warps per SM and shared memory per block;
-  7. curve    `windowed_mul` against its plain version at the tail sizes
-              n = 1, 3, 33; the five curve kernels against their plain
-              versions at n = 2^12 and n = 1000 (64 windows), bit for bit;
+  7. curve    `windowed_mul` and `window_sums` against their plain versions
+              at the tail sizes n = 1, 3, 33 (`window_sums` 1, 31, 33); the
+              five curve kernels against their plain versions at n = 2^12
+              and n = 1000 (64 windows), and `bucket_reduce` at the
+              window-sum MSM's Horner shape (16, 64, 2) with 4-bit windows,
+              bit for bit;
   8. points   the point protocols through `execute_mock_mpc_dealer` at
               n = 10,000 points: `share_points`, a Beaver scalar x point
               product, an authenticated MSM, deferred authenticated opens and
@@ -28,13 +31,18 @@ Phases (any failure exits non-zero; there is no CPU path):
               corrupted point MAC and an order-2 input point must abort;
   9. msm      the public MSM at n = 2^16 through each route (windowed + tree,
               bucket, winsum): routes agree with each other and with Python
-              ints; median of 5 CUDA-event timings after a warm-up;
+              ints; median of 5 CUDA-event timings after a warm-up; the
+              winsum route's parts (the `window_sums` kernel, the plain lane
+              tree, the `bucket_reduce` Horner) by CUDA events, median of 5;
  10. report   the curve kernels as in phase 6, with `windowed_mul`'s launch
               (lanes per point, threads and points a block, resident blocks
               and warps per SM, shared memory per block) and its time at
-              n = 1000 beside the one at 2^16, and `bucket_accumulate`'s
-              passes (chunk size, pass count, grids, resident warps per SM,
-              ptxas of its kernel, the time of each pass);
+              n = 1000 beside the one at 2^16, `window_sums`' launch
+              (threads, tile, lanes, grid, resident blocks and warps per SM,
+              shared memory per block, ptxas of its kernel), and
+              `bucket_accumulate`'s passes (chunk size, pass count, grids,
+              resident warps per SM, ptxas of its kernel, the time of each
+              pass);
  11. traced   traced circuits (`fabric.tracer()`): the README example; gate
               throughput of 100,000 add gates under `NoRecvTransport`; a
               circuit at n = 2^20 under the trusted dealer (x*y + x at 2^20;
@@ -52,7 +60,8 @@ Phases (any failure exits non-zero; there is no CPU path):
 Each phase logs its seconds.  The launch counts of the field kernels are
 those of phases 3-5, those of the curve kernels those of phases 8-9 (each
 path's counts are set to 0 just before it and read just after;
-`bucket_accumulate` counts one launch a pass); phases
+`bucket_accumulate` counts one launch a pass, and `bucket_reduce` launches
+on the bucket and the winsum routes); phases
 11-12 are a third path, whose kernels (`mont_matmul`'s and the fabric's)
 must each launch there too.  The last line is `{"ok": true, "device":
 {...}}`.
@@ -86,6 +95,7 @@ from ark_mpc_tpu_torch.algebra import limbs as lb
 from ark_mpc_tpu_torch.algebra import poly
 from ark_mpc_tpu_torch.algebra.domain import EvaluationDomain
 from ark_mpc_tpu_torch.algebra.fields import SCALAR_FIELD as SPEC
+from ark_mpc_tpu_torch.algebra.limbs import NLIMBS
 from ark_mpc_tpu_torch.fabric import commitment
 from ark_mpc_tpu_torch.fabric.transport import NoRecvTransport
 from ark_mpc_tpu_torch.gadgets import bit_xor, prefix_product
@@ -119,6 +129,7 @@ N_CHAIN, K_CHAIN = 1 << 22, 64
 CHAIN_RUNS = 5  # timed runs of the headline after its warm-up
 N_CURVE_CMP = 1 << 12
 WM_TAILS = (1, 3, 33)
+WS_TAILS = (1, 31, 33)     # a lone point; 31 and 33 either side of a tile of 32
 N_POINTS = 10_000          # circuit_msm_throughput.rs top size
 N_MSM = 1 << 16            # native_msm.rs top size
 MSM_RUNS = 5
@@ -584,6 +595,19 @@ def phase_curve_kernels(dev) -> None:
         check(max_diff(ck.windowed_mul(*args), ck.windowed_mul_plain(*args)) == 0,
               f"windowed_mul differs from plain at n={n}")
     log(f"[7 curve] windowed_mul equals plain at n={', '.join(map(str, WM_TAILS))}")
+    for n in WS_TAILS:
+        ops = CurveOperands(n, 30 + n, dev)
+        args = ops.args("window_sums")
+        check(max_diff(ck.window_sums(*args), ck.window_sums_plain(*args)) == 0,
+              f"window_sums differs from plain at n={n}")
+    log(f"[7 curve] window_sums equals plain at n={', '.join(map(str, WS_TAILS))}")
+    horner = [c.reshape(NLIMBS, ck.WINDOWS, 2)
+              for c in CurveOperands(2 * ck.WINDOWS, 29, dev).coords]
+    check(max_diff(mk.bucket_reduce(*horner, c_bits=4),
+                   mk.bucket_reduce_plain(*horner, c_bits=4)) == 0,
+          "bucket_reduce differs from plain at (16, 64, 2), c_bits=4")
+    log("[7 curve] bucket_reduce equals plain at the winsum Horner's (16, 64, 2), "
+        "c_bits=4")
     for n, seed in ((N_CURVE_CMP, 21), (N_ODD, 22)):
         ops = CurveOperands(n, seed, dev)
         diffs = compare_curve_kernels(ops)
@@ -731,7 +755,25 @@ def phase_msm(dev) -> tuple[CurveOperands, dict]:
         + "; ".join(f"{r} median {t['median_ms']:.2f} ms "
                     f"({min(t['runs_ms']):.2f}-{max(t['runs_ms']):.2f})"
                     for r, t in times.items()))
+    times["winsum_parts_ms"] = winsum_parts(ops, results["ladder"])
     return ops, times
+
+
+def winsum_parts(ops: CurveOperands, want) -> dict:
+    """The winsum route's kernel, lane tree and Horner by CUDA events
+    (median of MSM_RUNS calls)."""
+    parts = {"window_sums": [], "lane_tree": [], "bucket_reduce_horner": []}
+    for _ in range(MSM_RUNS):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        got = ck.msm_windowsum(ops.points, ops.k, marks=marks)
+        torch.cuda.synchronize()
+        for k, name in enumerate(parts):
+            parts[name].append(marks[k].elapsed_time(marks[k + 1]))
+        check(bool(got.equals(want)), "msm_windowsum differs from the ladder route")
+    medians = {name: float(np.median(v)) for name, v in parts.items()}
+    log(f"[9 msm] winsum route parts at n={ops.n} ({ck.default_lanes(ops.n)} lanes), "
+        "median of 5: " + "; ".join(f"{k} {v:.4f} ms" for k, v in medians.items()))
+    return medians
 
 
 def fe_ops(*terms) -> int:
@@ -813,6 +855,14 @@ def phase_curve_report(dev, ops: CurveOperands, launches: dict, ptxas_log: str) 
     small = CurveOperands(N_ODD, 43, dev)
     small_ms = cuda_ms(lambda: ck.windowed_mul(*small.args("windowed_mul")), reps=20)
     log(f"[10 report] windowed_mul at n={N_ODD}: {small_ms:.4f} ms/launch")
+    ws = ck.window_sums_launch_config(ops.n, dev)
+    log(f"[10 report] window_sums launch at n={ops.n} x {ck.WINDOWS} windows: "
+        f"{ws['threads']} threads (a quad a window), tile T={ws['tile']} points, "
+        f"L={ws['lanes']} lanes of {ws['lane_points']} points, grid {ws['grid']}, "
+        f"{ws['blocks_per_sm']} resident blocks ({ws['warps_per_sm']} warps) per SM, "
+        f"{ws['smem_bytes']} bytes of shared memory per block; ptxas "
+        f"window_sums_kernel: {ptxas_of(ptxas_log, 'window_sums_kernel')}")
+    check(ws["grid"] == ops.lanes, "window_sums launches a grid other than its lanes")
     bucket_report(dev, ops, ptxas_log)
     buckets = mk.bucket_accumulate(*ops.args("bucket_accumulate"))
     work = curve_work(ops)

@@ -132,7 +132,7 @@ def test_curve_kernels_match_plain(dev, n, monkeypatch):
     before = mk.launch_counts()
     assert same(ck.windowed_mul(canon, *co), ck.windowed_mul_plain(canon, *co))
     assert same(ck.ladder(canon, *co), ck.ladder_plain(canon, *co))
-    monkeypatch.setattr(ck, "WS_LANES", max(1, n // 3))  # several points per lane
+    monkeypatch.setattr(ck, "WS_MAX_LANES", 3)  # a few lanes of many tiles each
     assert same(ck.window_sums(canon, *co), ck.window_sums_plain(canon, *co))
     idx, off = mk.bucket_prologue(canon)
     buckets = mk.bucket_accumulate(idx, off, *co)
@@ -291,6 +291,70 @@ def test_windowed_launch_config(dev):
     assert cfg["points_per_block"] == 32 and cfg["grid"] == 2048
     assert cfg["blocks_per_sm"] >= 3 and cfg["warps_per_sm"] >= 12
     assert ck.windowed_launch_config(33, dev)["grid"] == 2
+
+
+# ---------------------------------------------------------------------------
+# window_sums: a block a lane, a quad a window, tables in shared memory
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("windows", [1, 17, 64])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 4097])
+def test_window_sums_tails_and_windows(dev, n, windows):
+    """A lone point, a part-filled tile and a ragged last lane, bit for
+    bit, each call one launch."""
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    canon, co = curve_operands(n, 300 + n, dev)
+    before = ck.window_sums.launches
+    got = ck.window_sums(canon, *co, windows=windows)
+    assert ck.window_sums.launches == before + 1
+    assert all(tuple(g.shape) == (windows, 16, ck.default_lanes(n)) for g in got)
+    assert same(got, ck.window_sums_plain(canon, *co, windows=windows))
+
+
+def test_window_sums_launch_config(dev):
+    """256 lanes (blocks) of 256 points at 2^16; at least one block of the
+    tile's tables resident per SM."""
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    cfg = ck.window_sums_launch_config(1 << 16, dev)
+    assert cfg["lanes"] == cfg["grid"] == 256 and cfg["lane_points"] == 256
+    assert cfg["threads"] % 32 == 0 and cfg["blocks_per_sm"] >= 1
+    assert cfg["smem_bytes"] > 16 * 64 * cfg["tile"]  # 2 KiB of table a point
+    assert ck.window_sums_launch_config(65, dev)["grid"] == 2
+
+
+@pytest.mark.parametrize("windows", [1, 5, 64])
+def test_bucket_reduce_two_buckets(dev, windows):
+    """The window-sum MSM's Horner: 2 buckets a window, 4-bit windows."""
+    from ark_mpc_tpu_torch.ops import msm_kernels as mk
+
+    _, co = curve_operands(2 * windows, 400 + windows, dev)
+    buckets = [c.reshape(16, windows, 2) for c in co]
+    before = mk.bucket_reduce.launches
+    assert same(mk.bucket_reduce(*buckets, c_bits=4),
+                mk.bucket_reduce_plain(*buckets, c_bits=4))
+    assert mk.bucket_reduce.launches == before + 1
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1 << 16])
+def test_msm_windowsum_matches_ladder_route(dev, n):
+    """The winsum route (one window_sums and one bucket_reduce launch)
+    equals the windowed route projectively."""
+    from ark_mpc_tpu_torch.algebra.curve import CurvePoint
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+    from ark_mpc_tpu_torch.ops import msm_kernels as mk
+
+    rng = np.random.default_rng(n)
+    pts = CurvePoint.generator((n,), device=dev).mul(Scalar.random(n, rng, device=dev))
+    k = Scalar.random(n, rng, device=dev)
+    before = mk.launch_counts()
+    got = ck.msm_windowsum(pts, k)
+    after = mk.launch_counts()
+    assert after["window_sums"] - before["window_sums"] == 1
+    assert after["bucket_reduce"] - before["bucket_reduce"] == 1
+    assert bool(got.equals(pts.mul(k).sum()))
 
 
 # ---------------------------------------------------------------------------

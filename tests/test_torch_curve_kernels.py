@@ -8,6 +8,12 @@ held to those on the card by `tests/test_torch_cuda.py` and
     `CurvePoint.mul` on small scalars, and `msm_windowsum` against
     `CurvePoint.mul(...).sum()` (the reference kernel has no test of its
     own): affine ints, exactly;
+  - `window_sums` lane by lane against Python-int sums of the reference's
+    digit multiples d * P_i (`CurvePoint.mul`), at the edges of its lane
+    partition, and window by window (over all lanes, whatever the
+    partition) against the reference's `CurvePoint.sum()` of them;
+  - `bucket_reduce` with two buckets a window and 4-bit windows (the
+    window-sum MSM's Horner) against Python ints;
   - `bucket_accumulate` against `bucket_accumulate_pallas` in interpret
     mode on the tiny grid of `tests/test_msm_bucket_fast.py`, with the
     port's sorted-index input built from the same points: projective
@@ -19,6 +25,7 @@ function of `ladder_pallas`, whose own test is `slow`) in affine ints, and
 to `windowed_mul_plain` projectively.
 """
 
+import functools
 import random
 
 import jax
@@ -61,6 +68,30 @@ def coords(pt):
     return [c.limbs for c in pt._coords()]
 
 
+P25519 = (1 << 255) - 19
+ED_D = (-121665 * pow(121666, -1, P25519)) % P25519
+GEN = (15112221349535400772501151409588531511454012693041857206046113283949847762202,
+       46316835694926478169428394003475163141307993866256225615783033603165251855960)
+
+
+def ed_add(p1, p2):
+    """Python-int Edwards addition in affine coordinates."""
+    (x1, y1), (x2, y2) = p1, p2
+    t = ED_D * x1 * x2 % P25519 * y1 % P25519 * y2 % P25519
+    return ((x1 * y2 + x2 * y1) * pow(1 + t, -1, P25519) % P25519,
+            (y1 * y2 + x1 * x2) * pow(1 - t, -1, P25519) % P25519)
+
+
+def ed_mul(k: int, pt=GEN):
+    acc = (0, 1)
+    while k:
+        if k & 1:
+            acc = ed_add(acc, pt)
+        pt = ed_add(pt, pt)
+        k >>= 1
+    return acc
+
+
 def test_windowed_mul_few_windows_matches_reference():
     n, windows = 4, 8
     rp = ref_points(n, 1)
@@ -81,8 +112,8 @@ def test_windowed_mul_few_windows_matches_reference():
 
 @pytest.mark.parametrize("lanes", [None, 2])
 def test_msm_windowsum_matches_reference(lanes, monkeypatch):
-    if lanes:
-        monkeypatch.setattr(ck, "WS_LANES", lanes)
+    if lanes:  # two points a lane: two lanes
+        monkeypatch.setattr(ck, "WS_LANE_POINTS", 2)
     n = 4
     rp = ref_points(n, 1)
     ks = [rng.randrange(L) for _ in range(n)]
@@ -92,23 +123,91 @@ def test_msm_windowsum_matches_reference(lanes, monkeypatch):
     assert affine(got.reshape(1)) == affine(want.reshape(1))
 
 
-def test_window_sums_lanes(monkeypatch):
-    """Lane j of window w sums digit_w(s_i) P_i over i = j, j + L, ..."""
-    n, lanes, windows = 5, 2, 3
-    monkeypatch.setattr(ck, "WS_LANES", lanes)
-    rp = ref_points(n, 3)
-    pt = port_of(rp)
-    ks = [rng.randrange(1 << 12) for _ in range(n)]
+# window_sums: lanes of WS_LANE_POINTS = 64 points below 64 * 256 points
+N_WS = 136
+
+
+@functools.lru_cache(maxsize=None)
+def window_sums_case():
+    """N_WS reference points P_i, scalars k_i (0 and l - 1 among them), and
+    d * P_i for every digit d by the reference's `CurvePoint.mul` (one (16,
+    N_WS) batch): the reference products, and their affine ints
+    multiples[d][i]."""
+    r = random.Random(81)
+    rp = ref_points(N_WS, 8)
+    ks = [r.randrange(L) for _ in range(N_WS)]
+    ks[1], ks[2] = 0, L - 1
+    digits = np.array([[d] * N_WS for d in range(16)], dtype=object)
+    prods = rp.mul(RScalar.from_ints(digits))
+    flat = affine(prods.reshape(16 * N_WS))
+    multiples = [flat[d * N_WS:(d + 1) * N_WS] for d in range(16)]
+    return rp, ks, prods, multiples
+
+
+def digit(k: int, w: int) -> int:
+    return (k >> (4 * w)) & 15
+
+
+@pytest.mark.parametrize("windows", [1, 3, 64])
+@pytest.mark.parametrize("n", [1, 63, 65, N_WS])
+def test_window_sums_lanes(n, windows):
+    """Lane j of window w sums digit_w(s_i) P_i over its own points
+    i = j * per .. min((j + 1) * per, n) - 1: one lane at n = 1 and 63,
+    a lane of 64 and one of 1 at 65, two of 64 and a ragged 8 at 136."""
+    rp, ks, _, multiples = window_sums_case()
+    ks = ks[:n]
+    per, lanes = ck.lane_points(n), ck.default_lanes(n)
+    assert (per, lanes) == {1: (64, 1), 63: (64, 1), 65: (64, 2), N_WS: (64, 3)}[n]
     canon = torch.from_numpy(lb.ints_to_limb_array(ks).astype(np.int32))
-    sums = ck.window_sums(canon, *coords(pt), windows=windows)
-    assert sums[0].shape == (windows, 16, lanes)
-    S = CurvePoint.from_coords([a.permute(1, 0, 2) for a in sums], (windows, lanes))
+    sums = ck.window_sums(canon, *coords(port_of(rp[:n])), windows=windows)
+    assert all(tuple(a.shape) == (windows, 16, lanes) for a in sums)
+    got = affine(CurvePoint.from_coords([a.permute(1, 0, 2) for a in sums],
+                                        (windows, lanes)).reshape(windows * lanes))
+    want = []
     for w in range(windows):
         for j in range(lanes):
-            idx = list(range(j, n, lanes))
-            digits = [(ks[i] >> (4 * w)) & 15 for i in idx]
-            want = pt[torch.tensor(idx)].mul(Scalar.from_ints(digits, device="cpu")).sum()
-            assert affine(S[w, j:j + 1]) == affine(want.reshape(1))
+            acc = (0, 1)
+            for i in range(j * per, min((j + 1) * per, n)):
+                acc = ed_add(acc, multiples[digit(ks[i], w)][i])
+            want.append(acc)
+    assert got == want
+
+
+@pytest.mark.parametrize("lane_points", [None, 7])
+def test_window_sums_totals_match_reference(lane_points, monkeypatch):
+    """Whatever the partition (3 lanes, or 20 lanes of 7 points), each
+    window's lanes sum to the reference's sum over all points of
+    digit_w(k_i) * P_i."""
+    if lane_points:
+        monkeypatch.setattr(ck, "WS_LANE_POINTS", lane_points)
+    rp, ks, prods, _ = window_sums_case()
+    canon = torch.from_numpy(lb.ints_to_limb_array(ks).astype(np.int32))
+    sums = ck.window_sums(canon, *coords(port_of(rp)))
+    lanes = sums[0].shape[2]
+    assert lanes == (20 if lane_points else 3)
+    got = CurvePoint.from_coords([a.permute(1, 0, 2) for a in sums],
+                                 (ck.WINDOWS, lanes)).sum(axis=1)
+    d = np.array([[digit(k, w) for k in ks] for w in range(ck.WINDOWS)])
+    i = np.broadcast_to(np.arange(N_WS), d.shape)
+    want = prods[d, i].sum(axis=1)  # (64,) reference sums
+    assert affine(got) == affine(want)
+
+
+@pytest.mark.parametrize("windows", [1, 5, 64])
+def test_bucket_reduce_two_buckets_is_horner(windows):
+    """The window-sum MSM's Horner: bucket_reduce over (16, W, 2) with
+    bucket 1 = S_w and c_bits = 4 is sum_w 16^w S_w; bucket 0 (weight 0)
+    is dropped whatever it holds."""
+    r = random.Random(windows)
+    s = [r.randrange(L) for _ in range(windows)]
+    junk = [r.randrange(1, L) for _ in range(windows)]
+    gen = CurvePoint.generator((windows,), device="cpu")
+    S = gen.mul(Scalar.from_ints(s, device="cpu"))
+    B0 = gen.mul(Scalar.from_ints(junk, device="cpu"))
+    buckets = [torch.stack([b.limbs, c.limbs], 2) for b, c in zip(B0._coords(), S._coords())]
+    got = CurvePoint.from_coords(mk.bucket_reduce(*buckets, c_bits=4), ())
+    want = ed_mul(sum(16 ** w * v for w, v in enumerate(s)) % L)
+    assert affine(got.reshape(1)) == [want]
 
 
 def test_bucket_accumulate_matches_reference_kernel():
