@@ -11,8 +11,9 @@
 // Base field p = 2^255 - 19 on eight 32-bit words: a product is a 512-bit
 // schoolbook, the high half folded down x38 (2^256 = 38 mod p), then
 // brought to CANONICAL form, as are sums and differences (the quad core of
-// windowed_mul and window_sums keeps values loose and canonicalizes at its
-// store).  Canonical values are unique, so running the reference's formula
+// windowed_mul and window_sums, and the ladder, keep values loose and
+// canonicalize at their store; the ladder's products run on PTX carry
+// chains).  Canonical values are unique, so running the reference's formula
 // sequence (twisted Edwards a = -1, extended coordinates) gives results
 // bit-identical to the plain torch versions.
 //
@@ -31,7 +32,6 @@ namespace {
 
 constexpr int NW = 8;        // 32-bit words per field element
 constexpr int NLIMBS = 16;   // 16-bit limbs per field element in memory
-constexpr int MUL_THREADS = 128;
 constexpr int BUCKET_THREADS = 128;
 
 struct Fe {
@@ -291,6 +291,141 @@ __device__ __forceinline__ Fe fe_sub_loose(const Fe& a, const Fe& b) {
   }
   d.w[0] -= 38u * static_cast<uint32_t>(b2);
   return d;
+}
+
+// ---------------------------------------------------------------------------
+// Products on PTX carry chains (the ladder's): each primitive below is one
+// PTX instruction; .cc sets the carry flag and madc/addc add it in, so the
+// carries ride on the multiply-adds instead of 64-bit sums.  The asm
+// statements are volatile, which keeps them in program order: the flag
+// lives between them.
+// ---------------------------------------------------------------------------
+
+#define ARK_PTX3(name, op)                                                    \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b, uint32_t c) { \
+    uint32_t r;                                                               \
+    asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));   \
+    return r;                                                                 \
+  }
+#define ARK_PTX2(name, op)                                                    \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b) {          \
+    uint32_t r;                                                               \
+    asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));               \
+    return r;                                                                 \
+  }
+ARK_PTX3(mad_lo_cc, "mad.lo.cc.u32")
+ARK_PTX3(mad_hi_cc, "mad.hi.cc.u32")
+ARK_PTX3(madc_lo_cc, "madc.lo.cc.u32")
+ARK_PTX3(madc_hi_cc, "madc.hi.cc.u32")
+ARK_PTX3(madc_hi, "madc.hi.u32")
+ARK_PTX2(add_cc, "add.cc.u32")
+ARK_PTX2(addc_cc, "addc.cc.u32")
+ARK_PTX2(addc, "addc.u32")
+#undef ARK_PTX3
+#undef ARK_PTX2
+
+// One chain of a schoolbook row: acc[j .. j + 1] += a[j] * b for j =
+// first, first + 2, .. <= last (pairs that do not overlap).  If the top word
+// acc[last + 1] held a value (`capture`), the chain's carry goes into
+// acc[last + 2], zero before; otherwise the top word was zero and no carry
+// leaves it (a high half is at most 2^32 - 2).
+__device__ __forceinline__ void chain_cc(uint32_t* acc, const uint32_t* a, uint32_t b,
+                                         int first, int last, bool capture) {
+  acc[first] = mad_lo_cc(a[first], b, acc[first]);
+#pragma unroll
+  for (int j = first; j < last; j += 2) {
+    acc[j + 1] = madc_hi_cc(a[j], b, acc[j + 1]);
+    acc[j + 2] = madc_lo_cc(a[j + 2], b, acc[j + 2]);
+  }
+  if (capture) {
+    acc[last + 1] = madc_hi_cc(a[last], b, acc[last + 1]);
+    acc[last + 2] = addc(0u, 0u);
+  } else {
+    acc[last + 1] = madc_hi(a[last], b, acc[last + 1]);
+  }
+}
+
+// Row i of a schoolbook into e and o by absolute word: the products a[j] b
+// (j in first .. 7) whose low word i + j is even go to e, the others to o.
+// So every (lo, hi) pair starts at an even word of e or an odd word of o in
+// every row, and each product is one 64-bit multiply-add into an aligned
+// register pair (the pairing shifting by a word a row cost ~600 register
+// moves a ladder step).  Row i's e chain ends at word i + 7 if i is even,
+// i + 8 if odd, its o chain the other way round: an even row's e chain and
+// an odd row's o chain end where the row before ended the same array, and
+// capture their carry one word up; the other chains end on a word no row
+// reached.
+__device__ __forceinline__ void row_cc(uint32_t* e, uint32_t* o, const uint32_t* a,
+                                       uint32_t b, int i, int first) {
+  const int odd = i & 1;
+  const int fe = first + ((first ^ i) & 1), le = odd ? NW - 1 : NW - 2;  // j = i mod 2
+  const int fo = first + ((first ^ i ^ 1) & 1), lo = odd ? NW - 2 : NW - 1;
+  if (fe <= le) chain_cc(e + i, a, b, fe, le, !odd && i > 0);
+  if (fo <= lo) chain_cc(o + i, a, b, fo, lo, odd);
+}
+
+// t = e + o over words 1 .. 15 (e[0] alone); the sum fits 512 bits.
+__device__ __forceinline__ void merge_cc(uint32_t t[2 * NW], const uint32_t e[2 * NW],
+                                         const uint32_t o[2 * NW]) {
+  t[0] = e[0];
+  t[1] = add_cc(e[1], o[1]);
+#pragma unroll
+  for (int k = 2; k < 2 * NW - 1; ++k) t[k] = addc_cc(e[k], o[k]);
+  t[2 * NW - 1] = addc(e[2 * NW - 1], o[2 * NW - 1]);
+}
+
+// r = t_lo + 38 t_hi (< 39 * 2^256, = t mod p): the low halves of 38 t[8 + k]
+// on one chain with t[k], the high halves one word up on a second, the top
+// word (<= 38) then folded in again.
+__device__ __forceinline__ Fe reduce_cc(const uint32_t t[2 * NW]) {
+  Fe r;
+  r.w[0] = mad_lo_cc(t[NW], 38u, t[0]);
+#pragma unroll
+  for (int k = 1; k < NW; ++k) r.w[k] = madc_lo_cc(t[NW + k], 38u, t[k]);
+  uint32_t top = addc(0u, 0u);
+  r.w[1] = mad_hi_cc(t[NW], 38u, r.w[1]);
+#pragma unroll
+  for (int k = 1; k < NW - 1; ++k) r.w[k + 1] = madc_hi_cc(t[NW + k], 38u, r.w[k + 1]);
+  top = madc_hi(t[2 * NW - 1], 38u, top);
+  fe_fold38(r, top);
+  return r;
+}
+
+// a * b mod p below 2^256, for any a, b < 2^256 (not canonical): rows
+// a[j] b[i] on two chains each (`row_cc`), then t = e + o and the fold.
+__device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b) {
+  uint32_t e[2 * NW], o[2 * NW], t[2 * NW];
+#pragma unroll
+  for (int k = 0; k < 2 * NW; ++k) e[k] = o[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) row_cc(e, o, a.w, b.w[i], i, 0);
+  merge_cc(t, e, o);
+  return reduce_cc(t);
+}
+
+// a^2 mod p below 2^256, for any a < 2^256: the cross products a[j] a[i],
+// j > i, in fe_mul_cc's rows, merged and doubled, then the squares a[i]^2
+// at words 2i, 2i + 1 on one chain.
+__device__ __forceinline__ Fe fe_sqr_cc(const Fe& a) {
+  uint32_t e[2 * NW], o[2 * NW], t[2 * NW];
+#pragma unroll
+  for (int k = 0; k < 2 * NW; ++k) e[k] = o[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NW - 1; ++i) row_cc(e, o, a.w, a.w[i], i, i + 1);
+  merge_cc(t, e, o);  // the cross products: below 2^511
+#pragma unroll
+  for (int k = 2 * NW - 1; k > 0; --k) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+  t[0] <<= 1;
+  t[0] = mad_lo_cc(a.w[0], a.w[0], t[0]);
+  t[1] = madc_hi_cc(a.w[0], a.w[0], t[1]);
+#pragma unroll
+  for (int i = 1; i < NW - 1; ++i) {
+    t[2 * i] = madc_lo_cc(a.w[i], a.w[i], t[2 * i]);
+    t[2 * i + 1] = madc_hi_cc(a.w[i], a.w[i], t[2 * i + 1]);
+  }
+  t[2 * NW - 2] = madc_lo_cc(a.w[NW - 1], a.w[NW - 1], t[2 * NW - 2]);
+  t[2 * NW - 1] = madc_hi(a.w[NW - 1], a.w[NW - 1], t[2 * NW - 1]);
+  return reduce_cc(t);
 }
 
 // ---------------------------------------------------------------------------
@@ -607,7 +742,20 @@ cudaError_t windowed_opt_in() {
 // acc = bit ? acc + P : acc, one thread per point.  The sum is always
 // computed and taken by a masked word select: no branch or address depends
 // on the scalar (it may be a MAC-key share).
+//
+// Values stay loose (below 2^256, congruent mod p) with the products on
+// carry chains (fe_mul_cc, fe_sqr_cc), and are made canonical once, at the
+// store.  P's cached form (Y - X, Y + X, 2d T, Z) is made once and kept in
+// the thread's column of shared memory, so a step is the full double and
+// an 8-product cached add, and the registers hold the accumulator and the
+// step's temporaries only.
 // ---------------------------------------------------------------------------
+
+constexpr int LADDER_THREADS = 128;
+// 4 resident blocks (16 warps) per SM: at most 128 registers a thread, and
+// the 512 blocks of 2^16 points fit the 528 slots of one wave
+constexpr int LADDER_MIN_BLOCKS = 4;
+constexpr int LADDER_POINTS = LADDER_THREADS;  // points a block
 
 __device__ __forceinline__ Fe fe_select(const Fe& a, const Fe& b, uint32_t m) {
   Fe r;
@@ -616,27 +764,96 @@ __device__ __forceinline__ Fe fe_select(const Fe& a, const Fe& b, uint32_t m) {
   return r;
 }
 
-__global__ void __launch_bounds__(MUL_THREADS)
+// A 16-byte load from a shared address; volatile (and a compiler memory
+// barrier), so the ladder rereads P every step instead of keeping it in
+// registers.
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// A point's 32 words in a column of shared memory: chunk c at col[c *
+// LADDER_THREADS] (16-byte chunks, thread fastest: a warp's accesses of one
+// chunk are conflict-free).
+__device__ __forceinline__ void column_store(uint4* col, const Pt& q) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&q);
+#pragma unroll
+  for (int c = 0; c < NW; ++c)
+    col[c * LADDER_THREADS] = make_uint4(w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]);
+}
+
+__device__ __forceinline__ Pt column_load(uint32_t addr) {
+  Pt q;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&q);
+#pragma unroll
+  for (int c = 0; c < NW; ++c) {
+    const uint4 v = lds128(addr + c * LADDER_THREADS * 16);
+    w[4 * c] = v.x;
+    w[4 * c + 1] = v.y;
+    w[4 * c + 2] = v.z;
+    w[4 * c + 3] = v.w;
+  }
+  return q;
+}
+
+// p = 2 p (`double_parts`, then `pt_double`), loose.
+__device__ __forceinline__ void ladder_double(Pt& p) {
+  const Fe a = fe_sqr_cc(p.x);
+  const Fe b = fe_sqr_cc(p.y);
+  const Fe zz = fe_sqr_cc(p.z);
+  const Fe s = fe_sqr_cc(fe_add_loose(p.x, p.y));
+  const Fe h = fe_add_loose(a, b);
+  const Fe g = fe_sub_loose(a, b);
+  const Fe e = fe_sub_loose(h, s);
+  const Fe f = fe_add_loose(fe_add_loose(zz, zz), g);
+  p = Pt{fe_mul_cc(e, f), fe_mul_cc(g, h), fe_mul_cc(f, g), fe_mul_cc(e, h)};
+}
+
+// p = m ? p + q : p (all ones or zero m), q cached (Y - X, Y + X, 2d T, Z)
+// in its x, y, z, t: the plain `_padd_cached`, each coordinate of the sum
+// taken by a masked word select as it is made.
+__device__ __forceinline__ void ladder_add(Pt& p, const Pt& q, uint32_t m) {
+  const Fe a = fe_mul_cc(fe_sub_loose(p.y, p.x), q.x);
+  const Fe b = fe_mul_cc(fe_add_loose(p.y, p.x), q.y);
+  const Fe c = fe_mul_cc(p.t, q.z);
+  const Fe zz = fe_mul_cc(p.z, q.t);
+  const Fe dd = fe_add_loose(zz, zz);
+  const Fe e = fe_sub_loose(b, a);
+  const Fe f = fe_sub_loose(dd, c);
+  const Fe g = fe_add_loose(dd, c);
+  const Fe h = fe_add_loose(b, a);
+  p.x = fe_select(fe_mul_cc(e, f), p.x, m);
+  p.y = fe_select(fe_mul_cc(g, h), p.y, m);
+  p.z = fe_select(fe_mul_cc(f, g), p.z, m);
+  p.t = fe_select(fe_mul_cc(e, h), p.t, m);
+}
+
+__global__ void __launch_bounds__(LADDER_THREADS, LADDER_MIN_BLOCKS)
 ladder_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
               int64_t n) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  __shared__ uint4 cache[NW * LADDER_THREADS];
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * LADDER_POINTS + threadIdx.x;
   if (j >= n) return;
-  const Fe s = fe_load(canon, n, j);
   const Pt P = pt_load(p, n, j);
+  column_store(cache + threadIdx.x, Pt{fe_sub_loose(P.y, P.x), fe_add_loose(P.y, P.x),
+                                       fe_mul_cc(P.t, fe_d2()), P.z});
+  const uint32_t col = static_cast<uint32_t>(__cvta_generic_to_shared(cache + threadIdx.x));
   Pt acc = pt_identity();
+#pragma unroll 1
   for (int k = NW - 1; k >= 0; --k) {
-    uint32_t word = 0;  // s.w[k] without a register-array index
-#pragma unroll
-    for (int q = 0; q < NW; ++q) word |= (q == k) ? s.w[q] : 0u;
+    const uint32_t word = static_cast<uint32_t>(__ldg(canon + (2 * k) * n + j)) |
+                          (static_cast<uint32_t>(__ldg(canon + (2 * k + 1) * n + j)) << 16);
+#pragma unroll 1
     for (int b = 31; b >= 0; --b) {
-      acc = pt_double(acc);
-      const Pt sum = pt_add(acc, P);
-      const uint32_t m = 0u - ((word >> b) & 1u);
-      acc = Pt{fe_select(sum.x, acc.x, m), fe_select(sum.y, acc.y, m),
-               fe_select(sum.z, acc.z, m), fe_select(sum.t, acc.t, m)};
+      ladder_double(acc);
+      ladder_add(acc, column_load(col), 0u - ((word >> b) & 1u));
     }
   }
-  pt_store(o, 0, n, j, acc);
+  pt_store(o, 0, n, j, Pt{fe_canon(acc.x), fe_canon(acc.y), fe_canon(acc.z), fe_canon(acc.t)});
 }
 
 // ---------------------------------------------------------------------------
@@ -936,9 +1153,17 @@ int ark_windowed_mul(void* const* ptrs, long long n, int windows, void* stream) 
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: canon x y z t ox oy oz ot (all (16, n))
+// ladder's threads and points a block, and its resident blocks per SM.
+int ark_ladder_config(int* threads, int* points_per_block, int* blocks_per_sm) {
+  *threads = LADDER_THREADS;
+  *points_per_block = LADDER_POINTS;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, ladder_kernel, LADDER_THREADS, 0));
+}
+
+// ptrs: canon x y z t ox oy oz ot (all (16, n)); n >= 1
 int ark_ladder(void* const* ptrs, long long n, void* stream) {
-  ladder_kernel<<<blocks_for(n, MUL_THREADS), MUL_THREADS, 0,
+  ladder_kernel<<<blocks_for(n, LADDER_POINTS), LADDER_THREADS, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ptrs[0]), coords_of(ptrs + 1),
       out_coords_of(ptrs + 5), n);

@@ -43,11 +43,27 @@ Source notes (bounds for one H100 SXM; see `chip_smoke.py` for the counts):
     additions) at 12 warps per SM, which shared memory caps.
 
   `ladder` replaces `ladder_pallas` (ark_mpc_tpu/ops/curve_kernels.py:196).
-    Bound: operations (17 base-field products per bit: a full double and a
-    complete add).  Design: one thread per point, no table: for bit
-    255 .. 0 of the canonical scalar, acc = 2 acc, then the sum acc + P is
-    always computed and taken by a masked word select, so nothing branches
-    on the scalar.  Reached through `scalar_mul(..., kernel="ladder")` and
+    Bound: operations (16 base-field products per bit: a full double, 4 of
+    them squares, and a cached add).  The first port ran one thread a point
+    with canonical arithmetic at every product and sum, the complete add
+    (9 products: 2d T every bit) and 168 registers: 3 blocks of 128 threads
+    an SM, so the 512 blocks of 2^16 points took 1.29 waves, the second
+    running 4 warps an SM.  Design: still one thread per point, no table:
+    for bit 255 .. 0 of the canonical scalar, acc = 2 acc, then the sum
+    acc + P is always computed and taken by a masked word select, so
+    nothing branches on the scalar.  P's cached form (Y-X, Y+X, 2dT, Z) is
+    made once and kept in the thread's column of shared memory (reread each
+    step), so the add takes 8 products; values stay loose below 2^256 and
+    are made canonical once, at the store; products and squares run on PTX
+    carry chains (`fe_mul_cc`, `fe_sqr_cc`: a row's products split by the
+    parity of their low word onto two chains of multiply-adds that carry
+    through the flag, so each product's two words are one 64-bit
+    multiply-add into an aligned register pair).  At most 128 registers
+    (`__launch_bounds__(128, 4)`): 4 blocks, 16 warps, an SM, and 2^16
+    points in one wave of 528 block slots.  What bounds it now is the
+    integer multiply pipe, whose issue slots the loose sums, the selects
+    and the carry captures share.
+    Reached through `scalar_mul(..., kernel="ladder")` and
     `mul_by_order(..., kernel="ladder")`, as the reference reaches its
     kernel through `kernel=ladder_pallas`; `CurvePoint.mul`, the subgroup
     check and every MSM route take `windowed_mul`.
@@ -110,13 +126,14 @@ def _lib() -> ctypes.CDLL:
     lib.ark_windowed_mul.argtypes = [vp, i64, i32, vp]
     lib.ark_windowed_mul_config.argtypes = [vp, vp]
     lib.ark_ladder.argtypes = [vp, i64, vp]
+    lib.ark_ladder_config.argtypes = [vp, vp, vp]
     lib.ark_window_sums.argtypes = [vp, i64, i32, i64, i64, vp]
     lib.ark_window_sums_config.argtypes = [vp, vp, vp, vp]
     lib.ark_bucket_accumulate_config.argtypes = [vp, vp]
     lib.ark_bucket_chunk.argtypes = [vp, i64, i32, i32, vp]
     lib.ark_bucket_reduce.argtypes = [vp, i32, i32, i32, vp]
     for fn in (lib.ark_windowed_mul, lib.ark_windowed_mul_config, lib.ark_ladder,
-               lib.ark_window_sums, lib.ark_window_sums_config,
+               lib.ark_ladder_config, lib.ark_window_sums, lib.ark_window_sums_config,
                lib.ark_bucket_accumulate_config,
                lib.ark_bucket_chunk, lib.ark_bucket_reduce):
         fn.restype = ctypes.c_int
@@ -414,6 +431,30 @@ def ladder(canon, x, y, z, t):
 
 
 ladder.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _ladder_occupancy(device_index: int) -> tuple[int, int, int]:
+    """(threads a block, points a block, resident blocks per SM) of
+    `ladder`."""
+    vals = [ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)]
+    with torch.cuda.device(device_index):
+        rc = _lib().ark_ladder_config(*map(ctypes.byref, vals))
+    _check(rc, "ladder occupancy")
+    return tuple(v.value for v in vals)
+
+
+def ladder_launch_config(n: int, device) -> dict:
+    """The launch of `ladder` over n points on a CUDA device: its grid,
+    resident blocks and warps per SM, and the waves the grid takes."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    threads, points, blocks = _ladder_occupancy(index)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    grid = -(-n // points)
+    return {"threads": threads, "points_per_block": points, "grid": grid,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "waves": grid / (blocks * sms)}
 
 # scalar x point kernels by name (`scalar_mul` and `mul_by_order` take one)
 SCALAR_MUL_KERNELS = {"windowed": windowed_mul, "ladder": ladder}

@@ -32,6 +32,8 @@ Phases (any failure exits non-zero; there is no CPU path):
   9. msm      the public MSM at n = 2^16 through each route (windowed + tree,
               bucket, winsum): routes agree with each other and with Python
               ints; median of 5 CUDA-event timings after a warm-up; the
+              ladder kernel's column (`scalar_mul(kernel="ladder").sum()`)
+              by parts (CUDA events) beside the host's enqueue time; the
               winsum route's parts (the `window_sums` kernel, the plain lane
               tree, the `bucket_reduce` Horner) by CUDA events, median of 5;
  10. report   the curve kernels as in phase 6, with `windowed_mul`'s launch
@@ -39,7 +41,9 @@ Phases (any failure exits non-zero; there is no CPU path):
               and warps per SM, shared memory per block) and its time at
               n = 1000 beside the one at 2^16, `window_sums`' launch
               (threads, tile, lanes, grid, resident blocks and warps per SM,
-              shared memory per block, ptxas of its kernel), and
+              shared memory per block, ptxas of its kernel), `ladder`'s
+              launch (threads and points a block, grid, resident blocks and
+              warps per SM, waves at 2^16, ptxas of its kernel), and
               `bucket_accumulate`'s passes (chunk size, pass count, grids,
               resident warps per SM, ptxas of its kernel, the time of each
               pass);
@@ -729,21 +733,32 @@ def phase_msm(dev) -> tuple[CurveOperands, dict]:
         check(affine(results[route].reshape(1)) == [want],
               f"MSM route {route} differs from Python ints")
     # the ladder kernel's column (not an ARK_MSM_FORCE route, as in the
-    # reference: benchmarks/msm.py's pallas_ladder_ms)
-    def ladder_msm():
-        return ck.scalar_mul(ops.points, ops.k, kernel="ladder").sum()
+    # reference: benchmarks/msm.py's pallas_ladder_ms); its parts by CUDA
+    # events (scalar_mul with the kernel, then the plain tree sum) and the
+    # host's time to enqueue the whole column
+    def ladder_msm(mark=None):
+        prod = ck.scalar_mul(ops.points, ops.k, kernel="ladder")
+        if mark is not None:
+            mark.record()
+        return prod.sum()
 
     results["ladder_kernel"] = ladder_msm()  # warm-up
-    runs = []
+    runs, parts = [], {"scalar_mul": [], "tree_sum": [], "host_enqueue": []}
     for _ in range(MSM_RUNS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+        a, m, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         a.record()
-        ladder_msm()
+        ladder_msm(m)
         b.record()
+        parts["host_enqueue"].append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         runs.append(a.elapsed_time(b))
-    times["ladder_kernel"] = {"median_ms": float(np.median(runs)), "runs_ms": runs}
+        parts["scalar_mul"].append(a.elapsed_time(m))
+        parts["tree_sum"].append(m.elapsed_time(b))
+    times["ladder_kernel"] = {"median_ms": float(np.median(runs)), "runs_ms": runs,
+                              **{f"{k}_median_ms": float(np.median(v))
+                                 for k, v in parts.items()}}
     check(affine(results["ladder_kernel"].reshape(1)) == [want],
           "MSM by the ladder kernel differs from Python ints")
     for route in MSM_ROUTES[1:] + ("ladder_kernel",):
@@ -755,6 +770,11 @@ def phase_msm(dev) -> tuple[CurveOperands, dict]:
         + "; ".join(f"{r} median {t['median_ms']:.2f} ms "
                     f"({min(t['runs_ms']):.2f}-{max(t['runs_ms']):.2f})"
                     for r, t in times.items()))
+    lk = times["ladder_kernel"]
+    log(f"[9 msm] ladder_kernel column parts, median of {MSM_RUNS}: scalar_mul "
+        f"(the ladder kernel) {lk['scalar_mul_median_ms']:.4f} ms, then the plain "
+        f"tree sum {lk['tree_sum_median_ms']:.4f} ms (CUDA events); the host "
+        f"enqueued the column in {lk['host_enqueue_median_ms']:.4f} ms")
     times["winsum_parts_ms"] = winsum_parts(ops, results["ladder"])
     return ops, times
 
@@ -797,11 +817,13 @@ def curve_work(ops: CurveOperands) -> dict:
     below = (nonempty & (digits < top[:, None])).sum(dim=1)
     reduce_adds = int((below + (top - 1).clamp(min=0)).sum())
     window = ((3, DBL_NO_T), (1, DBL), (1, PADD_CACHED))
-    # the ladder: one double and one add per bit below each scalar's top set
-    # bit (the steps above it act on the identity)
+    # the ladder: one double and one cached add per bit below each scalar's
+    # top set bit (the steps above it act on the identity), and P's cached
+    # form (2d T) once a point
     ladder_steps = sum(max(0, v.bit_length() - 1) for v in ops.k.to_ints())
     return {
-        "ladder": (9 * 64 * n, fe_ops((ladder_steps, DBL), (ladder_steps, PADD))),
+        "ladder": (9 * 64 * n, fe_ops((ladder_steps, DBL), (ladder_steps, PADD_CACHED),
+                                      (n, PRODUCT))),
         # constant time: every window but the top one (a select into the
         # identity) doubles four times and adds its entry
         "windowed_mul": (9 * 64 * n,
@@ -863,6 +885,13 @@ def phase_curve_report(dev, ops: CurveOperands, launches: dict, ptxas_log: str) 
         f"{ws['smem_bytes']} bytes of shared memory per block; ptxas "
         f"window_sums_kernel: {ptxas_of(ptxas_log, 'window_sums_kernel')}")
     check(ws["grid"] == ops.lanes, "window_sums launches a grid other than its lanes")
+    lad = ck.ladder_launch_config(ops.n, dev)
+    log(f"[10 report] ladder launch at n={ops.n}: {lad['threads']} threads and "
+        f"{lad['points_per_block']} points a block, grid {lad['grid']}, "
+        f"{lad['blocks_per_sm']} resident blocks ({lad['warps_per_sm']} warps) per SM, "
+        f"{lad['waves']:.4f} waves; ptxas ladder_kernel: "
+        f"{ptxas_of(ptxas_log, 'ladder_kernel')}")
+    check(lad["warps_per_sm"] >= 16, "ladder keeps fewer than 16 warps per SM")
     bucket_report(dev, ops, ptxas_log)
     buckets = mk.bucket_accumulate(*ops.args("bucket_accumulate"))
     work = curve_work(ops)

@@ -145,18 +145,60 @@ def test_curve_kernels_match_plain(dev, n, monkeypatch):
 
 
 def test_ladder_edge_scalars_and_subgroup_check(dev):
-    """Scalars 0, 1, l - 1 and 2^253 - 1 (every bit the ladder reads), and
-    the ladder's l * P of subgroup points is the identity."""
+    """Scalars 0, 1, 2, l - 1, 2^253 - 1 (every bit the ladder reads) and l,
+    and the ladder's l * P of subgroup points is the identity."""
     from ark_mpc_tpu_torch.ops import curve_kernels as ck
 
-    _, co = curve_operands(4, 9, dev)
-    ks = [0, 1, SCALAR_FIELD.modulus - 1, (1 << 253) - 1]
+    _, co = curve_operands(6, 9, dev)
+    ks = [0, 1, 2, SCALAR_FIELD.modulus - 1, (1 << 253) - 1, SCALAR_FIELD.modulus]
     canon = torch.from_numpy(lb.ints_to_limb_array(ks).astype(np.int32)).to(dev)
     assert same(ck.ladder(canon, *co), ck.ladder_plain(canon, *co))
     from ark_mpc_tpu_torch.algebra.curve import CurvePoint
 
-    pts = CurvePoint.from_coords(co, (4,))
+    pts = CurvePoint.from_coords(co, (6,))
     assert bool(ck.mul_by_order(pts, kernel="ladder").is_identity().all())
+
+
+# ---------------------------------------------------------------------------
+# ladder: one thread a point, loose values, P cached in shared memory,
+# products on carry chains
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 4097])
+def test_ladder_block_and_wave_edges(dev, n):
+    """A lone point, part-filled warps, either side of a 128-thread block
+    and a ragged last block, bit for bit, each call one launch."""
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    canon, co = curve_operands(n, 500 + n, dev)
+    before = ck.ladder.launches
+    got = ck.ladder(canon, *co)
+    assert ck.ladder.launches == before + 1
+    assert same(got, ck.ladder_plain(canon, *co))
+
+
+def test_ladder_empty_batch_launches_nothing(dev):
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    empty = torch.zeros((16, 0), dtype=torch.int32, device=dev)
+    before = ck.ladder.launches
+    outs = ck.ladder(empty, empty, empty, empty, empty)
+    assert ck.ladder.launches == before
+    assert all(tuple(o.shape) == (16, 0) for o in outs)
+
+
+def test_ladder_launch_config(dev):
+    """128 threads (points) a block and 4 resident blocks, 16 warps, per
+    SM: on 132 SMs the 512 blocks of 2^16 points take one wave."""
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = ck.ladder_launch_config(1 << 16, dev)
+    assert cfg["threads"] == cfg["points_per_block"] == 128 and cfg["grid"] == 512
+    assert cfg["blocks_per_sm"] >= 4 and cfg["warps_per_sm"] >= 16
+    assert cfg["waves"] == 512 / (cfg["blocks_per_sm"] * sms)
+    assert ck.ladder_launch_config(129, dev)["grid"] == 2
 
 
 @pytest.mark.parametrize("m,k,n", [(5, 7, 3), (2, 1030, 2), (64, 64, 64)])

@@ -293,3 +293,217 @@ def test_ladder_mul_by_order_and_kernel_names():
             ck.scalar_mul(pt, k, kernel=bad)
         with pytest.raises(ValueError, match="kernel"):
             ck.mul_by_order(pt, kernel=bad)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA ladder's arithmetic in Python ints (the kernel runs on the card
+# only): P's cached form made once, each step the full double, then the
+# cached add, then the select, every value loose (below 2^256, congruent
+# mod p) until the canonical store; products on PTX carry chains, modelled
+# word by word with the carry flag.
+# ---------------------------------------------------------------------------
+
+M32 = (1 << 32) - 1
+W256 = 1 << 256
+ED_2D = 2 * ED_D % P25519
+
+
+class Ptx:
+    """PTX's 32-bit carry-chain instructions: `cin` reads the carry flag
+    (madc, addc), `cout` sets it (.cc); a form without .cc must not carry
+    out, since the hardware would drop the carry."""
+
+    def __init__(self):
+        self.cf = 0
+
+    def _out(self, v, cout):
+        if cout:
+            self.cf = v >> 32
+        else:
+            assert v >> 32 == 0, "a carry leaves a chain's top word"
+        return v & M32
+
+    def mad_lo(self, a, b, c, cin, cout=True):
+        return self._out((a * b & M32) + c + (self.cf if cin else 0), cout)
+
+    def mad_hi(self, a, b, c, cin, cout=True):
+        return self._out((a * b >> 32) + c + (self.cf if cin else 0), cout)
+
+    def add(self, a, b, cin, cout=True):
+        return self._out(a + b + (self.cf if cin else 0), cout)
+
+
+def words(v, n=8):
+    return [(v >> (32 * k)) & M32 for k in range(n)]
+
+
+def from_words(ws):
+    return sum(w << (32 * k) for k, w in enumerate(ws))
+
+
+def fold38(r, c):
+    """`fe_fold38`: r + c 2^256 (c <= 38) below 2^256; the second fold
+    lands in word 0 without a carry."""
+    assert r < W256 and c <= 38
+    v = r + 38 * c
+    c2, v = v >> 256, v % W256
+    assert (v & M32) + 38 * c2 <= M32
+    return v + 38 * c2
+
+
+def chain_cc(x, acc, i, a, b, first, last, capture):
+    """`chain_cc(acc + i, a, b, first, last, capture)`."""
+    acc[i + first] = x.mad_lo(a[first], b, acc[i + first], cin=False)
+    for j in range(first, last, 2):
+        acc[i + j + 1] = x.mad_hi(a[j], b, acc[i + j + 1], cin=True)
+        acc[i + j + 2] = x.mad_lo(a[j + 2], b, acc[i + j + 2], cin=True)
+    acc[i + last + 1] = x.mad_hi(a[last], b, acc[i + last + 1], cin=True, cout=capture)
+    if capture:
+        assert acc[i + last + 2] == 0
+        acc[i + last + 2] = x.add(0, 0, cin=True, cout=False)
+
+
+def row_cc(x, e, o, a, b, i, first):
+    """`row_cc`: the products a[j] b, j >= first, with i + j even into e,
+    the others into o; an even row's e chain and an odd row's o chain
+    capture their carry."""
+    odd = i & 1
+    fe, le = first + ((first ^ i) & 1), 7 if odd else 6
+    fo, lo = first + ((first ^ i ^ 1) & 1), 6 if odd else 7
+    if fe <= le:
+        chain_cc(x, e, i, a, b, fe, le, not odd and i > 0)
+    if fo <= lo:
+        chain_cc(x, o, i, a, b, fo, lo, bool(odd))
+
+
+def merge_cc(x, e, o):
+    t = [e[0], x.add(e[1], o[1], cin=False)]
+    t += [x.add(e[k], o[k], cin=True) for k in range(2, 15)]
+    return t + [x.add(e[15], o[15], cin=True, cout=False)]
+
+
+def reduce_cc(x, t):
+    r = [x.mad_lo(t[8], 38, t[0], cin=False)]
+    r += [x.mad_lo(t[8 + k], 38, t[k], cin=True) for k in range(1, 8)]
+    top = x.add(0, 0, cin=True, cout=False)
+    r[1] = x.mad_hi(t[8], 38, r[1], cin=False)
+    for k in range(1, 7):
+        r[k + 1] = x.mad_hi(t[8 + k], 38, r[k + 1], cin=True)
+    top = x.mad_hi(t[15], 38, top, cin=True, cout=False)
+    return fold38(from_words(r), top)
+
+
+def fe_mul_cc(a, b):
+    x, aw, bw = Ptx(), words(a), words(b)
+    e, o = [0] * 16, [0] * 16
+    for i in range(8):
+        row_cc(x, e, o, aw, bw[i], i, 0)
+    return reduce_cc(x, merge_cc(x, e, o))
+
+
+def fe_sqr_cc(a):
+    x, aw = Ptx(), words(a)
+    e, o = [0] * 16, [0] * 16
+    for i in range(7):
+        row_cc(x, e, o, aw, aw[i], i, i + 1)
+    cross = from_words(merge_cc(x, e, o))
+    assert cross < 1 << 511
+    t = words(cross << 1, 16)
+    t[0] = x.mad_lo(aw[0], aw[0], t[0], cin=False)
+    t[1] = x.mad_hi(aw[0], aw[0], t[1], cin=True)
+    for i in range(1, 8):
+        t[2 * i] = x.mad_lo(aw[i], aw[i], t[2 * i], cin=True)
+        t[2 * i + 1] = x.mad_hi(aw[i], aw[i], t[2 * i + 1], cin=True, cout=i < 7)
+    return reduce_cc(x, t)
+
+
+def mul_loose(a, b):
+    """The value both carry-chain products leave: the exact 512-bit t,
+    then t_lo + 38 t_hi folded below 2^256."""
+    assert a < W256 and b < W256
+    t = a * b
+    v = t % W256 + 38 * (t >> 256)
+    return fold38(v % W256, v >> 256)
+
+
+def add_loose(a, b):
+    s = a + b
+    return fold38(s % W256, s >> 256)
+
+
+def sub_loose(a, b):
+    """`fe_sub_loose`: a borrow adds 2^256 = 38 mod p, so 38 comes off,
+    twice where the first wraps."""
+    d = a - b
+    if d < 0:
+        d += W256 - 38
+        if d < 0:
+            d += W256
+            assert d & M32 >= 38
+            d -= 38
+    return d
+
+
+def ladder_model(k, pt, mul=mul_loose, sqr=lambda a: mul_loose(a, a)):
+    """The kernel's step sequence on one point: canonical ints out."""
+    X, Y, Z, T = pt
+    q = (sub_loose(Y, X), add_loose(Y, X), mul(T, ED_2D), Z)
+    acc = (0, 1, 1, 0)
+    for i in reversed(range(256)):
+        x, y, z, _ = acc
+        a, b, zz, s = sqr(x), sqr(y), sqr(z), sqr(add_loose(x, y))
+        h, g = add_loose(a, b), sub_loose(a, b)
+        e, f = sub_loose(h, s), add_loose(add_loose(zz, zz), g)
+        acc = (mul(e, f), mul(g, h), mul(f, g), mul(e, h))
+        x, y, z, t = acc
+        a, b = mul(sub_loose(y, x), q[0]), mul(add_loose(y, x), q[1])
+        c, zz = mul(t, q[2]), mul(z, q[3])
+        dd = add_loose(zz, zz)
+        e, f, g, h = sub_loose(b, a), sub_loose(dd, c), add_loose(dd, c), add_loose(b, a)
+        added = (mul(e, f), mul(g, h), mul(f, g), mul(e, h))
+        if (k >> i) & 1:
+            acc = added
+        assert all(v < W256 for v in acc)
+    return tuple(v % P25519 for v in acc)
+
+
+EDGE_FE = [0, 1, 2, 19, 38, P25519 - 1, P25519, P25519 + 1, 2 * P25519 - 1, 2 * P25519,
+           1 << 255, W256 - 1, W256 - 38, W256 - 39, (1 << 224) - 1, M32, W256 // 3]
+
+
+@pytest.mark.parametrize("op", ["mul", "sqr"])
+def test_carry_chain_products_word_model(op):
+    """Every carry lands in a word (no chain's top word carries out) and
+    the words leave `mul_loose`'s value: on values at 0, p, 2p, 2^255 and
+    2^256 and random ones."""
+    r = random.Random(90)
+    vals = EDGE_FE + [r.randrange(W256) for _ in range(24)] + \
+        [W256 - 1 - r.randrange(1 << 64) for _ in range(6)]
+    for a in vals:
+        for b in (vals if op == "mul" else [a]):
+            got = fe_mul_cc(a, b) if op == "mul" else fe_sqr_cc(a)
+            assert got == mul_loose(a, b) and got % P25519 == a * b % P25519
+
+
+def ladder_limbs_to_ints(limbs):
+    return [int(v) for v in lb.limb_array_to_ints(limbs.numpy())]
+
+
+@pytest.mark.parametrize("scalars", ["edge", "random"])
+def test_ladder_model_matches_ladder_plain(scalars):
+    """The kernel's sequence (P cached once, double, cached add, select,
+    loose values canonical at the end) gives `ladder_plain`'s limbs bit for
+    bit: on 0, 1, 2, l - 1, 2^253 - 1 and l (`mul_by_order`'s scalar), and
+    on random scalars; the carry-chain products in full on one point."""
+    r = random.Random(91)
+    ks = ([0, 1, 2, L - 1, (1 << 253) - 1, L] if scalars == "edge"
+          else [r.randrange(L) for _ in range(4)])
+    pts = CurvePoint.random(len(ks), np.random.default_rng(len(ks)), device="cpu")
+    co = coords(pts)
+    canon = torch.from_numpy(lb.ints_to_limb_array(ks).astype(np.int32))
+    want = list(zip(*(ladder_limbs_to_ints(c) for c in ck.ladder_plain(canon, *co))))
+    ints = list(zip(*(ladder_limbs_to_ints(c) for c in co)))
+    for i, k in enumerate(ks):
+        assert ladder_model(k, ints[i]) == want[i]
+    if scalars == "random":
+        assert ladder_model(ks[0], ints[0], fe_mul_cc, fe_sqr_cc) == want[0]
