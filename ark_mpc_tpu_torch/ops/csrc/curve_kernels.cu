@@ -11,9 +11,9 @@
 // Base field p = 2^255 - 19 on eight 32-bit words: a product is a 512-bit
 // schoolbook, the high half folded down x38 (2^256 = 38 mod p), then
 // brought to CANONICAL form, as are sums and differences (the quad core of
-// windowed_mul and window_sums, and the ladder, keep values loose and
-// canonicalize at their store; the ladder's products run on PTX carry
-// chains).  Canonical values are unique, so running the reference's formula
+// windowed_mul and window_sums, the ladder and bucket_reduce keep values
+// loose and canonicalize at their store; the ladder's and bucket_reduce's
+// products run on PTX carry chains).  Canonical values are unique, so running the reference's formula
 // sequence (twisted Edwards a = -1, extended coordinates) gives results
 // bit-identical to the plain torch versions.
 //
@@ -64,19 +64,6 @@ __device__ __forceinline__ Fe fe_load(const int32_t* __restrict__ p,
   for (int k = 0; k < NW; ++k) {
     const uint32_t lo = static_cast<uint32_t>(__ldg(p + (2 * k) * stride + j));
     const uint32_t hi = static_cast<uint32_t>(__ldg(p + (2 * k + 1) * stride + j));
-    r.w[k] = lo | (hi << 16);
-  }
-  return r;
-}
-
-// Loads that must see other blocks' writes of this launch (bypass L1).
-__device__ __forceinline__ Fe fe_load_cg(const int32_t* p, int64_t stride,
-                                         int64_t j) {
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    const uint32_t lo = static_cast<uint32_t>(__ldcg(p + (2 * k) * stride + j));
-    const uint32_t hi = static_cast<uint32_t>(__ldcg(p + (2 * k + 1) * stride + j));
     r.w[k] = lo | (hi << 16);
   }
   return r;
@@ -428,6 +415,18 @@ __device__ __forceinline__ Fe fe_sqr_cc(const Fe& a) {
   return reduce_cc(t);
 }
 
+// The products a formula runs on: the C++ 64-bit sums or the carry chains.
+struct CxxProducts {
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
+    return fe_mul_loose(a, b);
+  }
+  static __device__ __forceinline__ Fe sqr(const Fe& a) { return fe_sqr_loose(a); }
+};
+struct CcProducts {
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) { return fe_mul_cc(a, b); }
+  static __device__ __forceinline__ Fe sqr(const Fe& a) { return fe_sqr_cc(a); }
+};
+
 // ---------------------------------------------------------------------------
 // Edwards formulas: the reference's _double, _double_no_t and _padd
 // (ark_mpc_tpu/ops/curve_kernels.py:45-99)
@@ -491,7 +490,9 @@ __device__ __forceinline__ Pt pt_add(const Pt& p, const Pt& q) {
 // through a per-warp exchange buffer in shared memory; every lane then runs
 // the stage's sums and differences on the full point itself.  The lane
 // index k is public: it picks operands by selects, never the data.  A
-// double's first stage squares (`fe_sqr_loose`, 36 word products).
+// double's first stage squares (36 word products).  The products are the
+// C++ ones (`CxxProducts`) unless a caller names the carry chains
+// (`CcProducts`: bucket_reduce's Horner).
 //
 // Values stay loose (below 2^256, congruent mod p: `fe_mul_loose`,
 // `fe_add_loose`, `fe_sub_loose`) and are brought to canonical form once,
@@ -559,35 +560,38 @@ __device__ __forceinline__ void quad_share(const Quad& Q, const Fe& r, Fe out[QU
 }
 
 // The second stage of a double or an add: X = e f, Y = g h, Z = f g, T = e h.
+template <class Prod = CxxProducts>
 __device__ __forceinline__ void quad_finish(const Quad& Q, const Fe& e, const Fe& f,
                                             const Fe& g, const Fe& h, Pt& p) {
   Fe r[QUAD];
-  quad_share(Q, fe_mul_loose(fe_pick(Q.k, e, g, f, e), fe_pick(Q.k, f, h, g, h)), r);
+  quad_share(Q, Prod::mul(fe_pick(Q.k, e, g, f, e), fe_pick(Q.k, f, h, g, h)), r);
   p = Pt{r[0], r[1], r[2], r[3]};
 }
 
 // p = 2 p (`double_parts`, then `pt_double`); reads X, Y, Z.  The T-less
 // double is the same with T unused: lane 3 would idle otherwise.
+template <class Prod = CxxProducts>
 __device__ __forceinline__ void quad_double(const Quad& Q, Pt& p) {
   const Fe xy = fe_add_loose(p.x, p.y);
   const Fe op = fe_pick(Q.k, p.x, p.y, p.z, xy);
   Fe sq[QUAD];  // a = X^2, b = Y^2, zz = Z^2, (X + Y)^2
-  quad_share(Q, fe_sqr_loose(op), sq);
+  quad_share(Q, Prod::sqr(op), sq);
   const Fe c = fe_add_loose(sq[2], sq[2]);
   const Fe h = fe_add_loose(sq[0], sq[1]);
   const Fe g = fe_sub_loose(sq[0], sq[1]);
-  quad_finish(Q, fe_sub_loose(h, sq[3]), fe_add_loose(c, g), g, h, p);
+  quad_finish<Prod>(Q, fe_sub_loose(h, sq[3]), fe_add_loose(c, g), g, h, p);
 }
 
 // p += q (the plain `_padd_cached`), lane k holding coordinate k of the
 // cached q (Y - X, Y + X, 2d T, Z).
+template <class Prod = CxxProducts>
 __device__ __forceinline__ void quad_add_cached(const Quad& Q, Pt& p, const Fe& mine) {
   const Fe op = fe_pick(Q.k, fe_sub_loose(p.y, p.x), fe_add_loose(p.y, p.x), p.t, p.z);
   Fe r[QUAD];  // a, b, c, zz
-  quad_share(Q, fe_mul_loose(op, mine), r);
+  quad_share(Q, Prod::mul(op, mine), r);
   const Fe dd = fe_add_loose(r[3], r[3]);
-  quad_finish(Q, fe_sub_loose(r[1], r[0]), fe_sub_loose(dd, r[2]), fe_add_loose(dd, r[2]),
-              fe_add_loose(r[1], r[0]), p);
+  quad_finish<Prod>(Q, fe_sub_loose(r[1], r[0]), fe_sub_loose(dd, r[2]),
+                    fe_add_loose(dd, r[2]), fe_add_loose(r[1], r[0]), p);
 }
 
 // ---------------------------------------------------------------------------
@@ -1037,12 +1041,25 @@ bucket_chunk_kernel(ChunkArgs a, int64_t rows, int buckets, int chunk) {
 }
 
 // ---------------------------------------------------------------------------
-// bucket_reduce: block w (nb threads, one per bucket) computes
-// S_w = sum_d d * B[w, d] by the lane suffix scan and the lane tree in
-// shared memory; the last block to finish runs the Horner
-// acc = 2^c * acc + S_w over the windows, most significant first.
-// scratch: (W, 4, 16) int32; ticket: one int32, zero on entry.
+// bucket_reduce: sum_w 2^(c w) S_w, S_w = sum_{d >= 1} d B[w, d], in two
+// kernels on one stream.
+//   bucket_window_kernel: block w (nb threads, one per bucket) computes S_w
+//     by the lane suffix scan and the lane tree in shared memory, in the
+//     reference's order, and thread 0 writes S_w's cached form (Y - X,
+//     Y + X, 2d T, Z) to row w of the scratch; block W - 1 also writes
+//     S_{W-1} itself to row W, where the Horner starts.
+//   bucket_horner_kernel: one warp runs acc = 2^c acc + S_w for w = W - 2
+//     down to 0 (c - 1 T-less doubles, a double and a cached add) on the
+//     quad core with carry-chain products, two product stages a point
+//     operation; its 8 quads run the same chain (every lane reaches every
+//     __syncwarp) and quad 0 stores.  The cached S_w wait in shared memory.
+// Values stay loose and are made canonical at the store; every sum runs
+// the plain version's formulas, so the output is bit-identical to it.
+// scratch: (W + 1, 4, 8) words.
 // ---------------------------------------------------------------------------
+
+constexpr int MAX_REDUCE_BUCKETS = 256;  // threads of a window block
+constexpr int HORNER_THREADS = 32;
 
 __device__ __forceinline__ void pt_to_smem(uint32_t* s, const Pt& a) {
   const uint32_t* aw = reinterpret_cast<const uint32_t*>(&a);
@@ -1058,58 +1075,79 @@ __device__ __forceinline__ Pt pt_from_smem(const uint32_t* s) {
   return a;
 }
 
-struct ReduceArgs {
-  Coords in;        // (16, W, nb) each
-  int32_t* scratch; // (W, 4, 16)
-  int* ticket;
-  OutCoords out;    // (16,) each
-};
+// p + q (`pt_add`) on loose values, the products on carry chains.
+__device__ __forceinline__ Pt pt_add_cc(const Pt& p, const Pt& q) {
+  const Fe a = fe_mul_cc(fe_sub_loose(p.y, p.x), fe_sub_loose(q.y, q.x));
+  const Fe b = fe_mul_cc(fe_add_loose(p.y, p.x), fe_add_loose(q.y, q.x));
+  const Fe c = fe_mul_cc(fe_mul_cc(p.t, q.t), fe_d2());
+  const Fe zz = fe_mul_cc(p.z, q.z);
+  const Fe dd = fe_add_loose(zz, zz);
+  const Fe e = fe_sub_loose(b, a);
+  const Fe f = fe_sub_loose(dd, c);
+  const Fe g = fe_add_loose(dd, c);
+  const Fe h = fe_add_loose(b, a);
+  return Pt{fe_mul_cc(e, f), fe_mul_cc(g, h), fe_mul_cc(f, g), fe_mul_cc(e, h)};
+}
 
-__global__ void bucket_reduce_kernel(ReduceArgs r, int windows, int nb,
-                                     int c_bits) {
+__global__ void __launch_bounds__(MAX_REDUCE_BUCKETS)
+bucket_window_kernel(Coords in, uint32_t* scratch, int windows, int nb) {
   extern __shared__ uint32_t smem[];  // nb points of 32 words
   const int w = blockIdx.x;
   const int d = threadIdx.x;
   const int64_t stride = static_cast<int64_t>(windows) * nb;
   // bucket 0 has weight 0: drop it
   Pt v = (d == 0) ? pt_identity()
-                  : pt_load(r.in, stride, static_cast<int64_t>(w) * nb + d);
+                  : pt_load(in, stride, static_cast<int64_t>(w) * nb + d);
   // suffix scan: lane d <- sum_{e >= d} B_e (identity shifted in)
   for (int k = 1; k < nb; k *= 2) {
     pt_to_smem(smem + 32 * d, v);
     __syncthreads();
     const Pt u = (d + k < nb) ? pt_from_smem(smem + 32 * (d + k)) : pt_identity();
     __syncthreads();
-    v = pt_add(v, u);
+    v = pt_add_cc(v, u);
   }
   if (d == 0) v = pt_identity();
   // tree: lane 0 <- sum_{d >= 1} suffix_d = sum_d d * B_d
   for (int k = nb / 2; k >= 1; k /= 2) {
     pt_to_smem(smem + 32 * d, v);
     __syncthreads();
-    if (d < k) v = pt_add(v, pt_from_smem(smem + 32 * (d + k)));
+    if (d < k) v = pt_add_cc(v, pt_from_smem(smem + 32 * (d + k)));
     __syncthreads();
   }
   if (d != 0) return;
-  const OutCoords sc{{r.scratch + w * 4 * NLIMBS, r.scratch + w * 4 * NLIMBS + NLIMBS,
-                      r.scratch + w * 4 * NLIMBS + 2 * NLIMBS,
-                      r.scratch + w * 4 * NLIMBS + 3 * NLIMBS}};
-  pt_store(sc, 0, 1, 0, v);
-  __threadfence();
-  if (atomicAdd(r.ticket, 1) != windows - 1) return;
-  __threadfence();
-  // the last block: Horner across the windows on this one thread
-  auto load_s = [&](int ww) {
-    const int32_t* b = r.scratch + ww * 4 * NLIMBS;
-    return Pt{fe_load_cg(b, 1, 0), fe_load_cg(b + NLIMBS, 1, 0),
-              fe_load_cg(b + 2 * NLIMBS, 1, 0), fe_load_cg(b + 3 * NLIMBS, 1, 0)};
-  };
-  Pt acc = load_s(windows - 1);
-  for (int ww = windows - 2; ww >= 0; --ww) {
-    for (int b = 0; b < c_bits - 1; ++b) pt_double_no_t(acc);
-    acc = pt_add(pt_double(acc), load_s(ww));
+  pt_store_words(scratch, w, Pt{fe_sub_loose(v.y, v.x), fe_add_loose(v.y, v.x),
+                                fe_mul_cc(v.t, fe_d2()), v.z});
+  if (w == windows - 1) pt_store_words(scratch, windows, v);
+}
+
+// Shared memory of the Horner: the warp's exchange buffer, then the cached
+// S_0 .. S_{W-2} (128 bytes each).
+inline size_t horner_smem(int windows) {
+  return static_cast<size_t>(XCH_WARP_WORDS) * 4 + static_cast<size_t>(windows - 1) * 4 * NW * 4;
+}
+
+__global__ void __launch_bounds__(HORNER_THREADS)
+bucket_horner_kernel(const uint32_t* __restrict__ scratch, OutCoords out, int windows,
+                     int c_bits) {
+  extern __shared__ __align__(16) uint32_t hs[];
+  uint4* rows = reinterpret_cast<uint4*>(hs + XCH_WARP_WORDS);
+  const int t = threadIdx.x;
+  const Quad Q{hs, t >> 2, t & (QUAD - 1)};
+  const uint4* src = reinterpret_cast<const uint4*>(scratch);
+  for (int i = t; i < (windows - 1) * 2 * QUAD; i += HORNER_THREADS) rows[i] = __ldg(src + i);
+  Pt acc = pt_load_words(scratch, windows);
+  __syncwarp();
+  for (int w = windows - 2; w >= 0; --w) {
+    for (int b = 0; b < c_bits; ++b) quad_double<CcProducts>(Q, acc);
+    // lane k's coordinate of the cached S_w: chunks 2k, 2k + 1 of row w
+    const uint4 lo = rows[(w * QUAD + Q.k) * 2];
+    const uint4 hi = rows[(w * QUAD + Q.k) * 2 + 1];
+    quad_add_cached<CcProducts>(Q, acc, Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}});
   }
-  pt_store(r.out, 0, 1, 0, acc);
+  if (t < QUAD) {
+    int32_t* dst = Q.k == 0 ? out.c[0] : Q.k == 1 ? out.c[1] : Q.k == 2 ? out.c[2] : out.c[3];
+    fe_store(dst, 1, 0, fe_canon(fe_pick(Q.k, acc.x, acc.y, acc.z, acc.t)));
+  }
 }
 
 inline unsigned int blocks_for(int64_t n, int threads) {
@@ -1223,15 +1261,31 @@ int ark_bucket_chunk(void* const* ptrs, long long threads, int buckets, int chun
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: bx by bz bt (16, W, nb); scratch (W, 4, 16); ticket (1,) zeroed;
-//       ox oy oz ot (16,)
-int ark_bucket_reduce(void* const* ptrs, int windows, int nb, int c_bits,
+// The launches of bucket_reduce over W windows of nb buckets: {window
+// kernel grid, threads, dynamic shared bytes; Horner grid, threads, dynamic
+// shared bytes}.
+int ark_bucket_reduce_config(int windows, int nb, long long* launch) {
+  const long long v[6] = {windows, nb, static_cast<long long>(nb) * 4 * NW * 4,
+                          1, HORNER_THREADS, static_cast<long long>(horner_smem(windows))};
+  for (int i = 0; i < 6; ++i) launch[i] = v[i];
+  return 0;
+}
+
+// ptrs: bx by bz bt (16, W, nb); scratch (W + 1, 4, 8) words; ox oy oz ot
+// (16,).  part: 0 both kernels, 1 the windows only, 2 the Horner only (over
+// the scratch the windows wrote).  1 <= nb <= 256, a power of two.
+int ark_bucket_reduce(void* const* ptrs, int windows, int nb, int c_bits, int part,
                       void* stream) {
-  ReduceArgs r{coords_of(ptrs), static_cast<int32_t*>(ptrs[4]),
-               static_cast<int*>(ptrs[5]), out_coords_of(ptrs + 6)};
-  const size_t smem = static_cast<size_t>(nb) * 4 * NW * sizeof(uint32_t);
-  bucket_reduce_kernel<<<windows, nb, smem, static_cast<cudaStream_t>(stream)>>>(
-      r, windows, nb, c_bits);
+  uint32_t* scratch = static_cast<uint32_t*>(ptrs[4]);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (part != 2) {
+    bucket_window_kernel<<<windows, nb, static_cast<size_t>(nb) * 4 * NW * 4, s>>>(
+        coords_of(ptrs), scratch, windows, nb);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || part == 1) return static_cast<int>(err);
+  }
+  bucket_horner_kernel<<<1, HORNER_THREADS, horner_smem(windows), s>>>(
+      scratch, out_coords_of(ptrs + 5), windows, c_bits);
   return static_cast<int>(cudaGetLastError());
 }
 

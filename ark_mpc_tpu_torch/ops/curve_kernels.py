@@ -131,11 +131,13 @@ def _lib() -> ctypes.CDLL:
     lib.ark_window_sums_config.argtypes = [vp, vp, vp, vp]
     lib.ark_bucket_accumulate_config.argtypes = [vp, vp]
     lib.ark_bucket_chunk.argtypes = [vp, i64, i32, i32, vp]
-    lib.ark_bucket_reduce.argtypes = [vp, i32, i32, i32, vp]
+    lib.ark_bucket_reduce.argtypes = [vp, i32, i32, i32, i32, vp]
+    lib.ark_bucket_reduce_config.argtypes = [i32, i32, vp]
     for fn in (lib.ark_windowed_mul, lib.ark_windowed_mul_config, lib.ark_ladder,
                lib.ark_ladder_config, lib.ark_window_sums, lib.ark_window_sums_config,
                lib.ark_bucket_accumulate_config,
-               lib.ark_bucket_chunk, lib.ark_bucket_reduce):
+               lib.ark_bucket_chunk, lib.ark_bucket_reduce,
+               lib.ark_bucket_reduce_config):
         fn.restype = ctypes.c_int
     return lib
 

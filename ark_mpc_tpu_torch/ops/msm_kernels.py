@@ -31,12 +31,23 @@ window's point indices by digit, and the bucket offsets.  Then
     the (W, nb) counts (`bucket_plan`), shared with the plain version,
     which sums the same chunks in the same order.
   `bucket_reduce` replaces `bucket_reduce_pallas` (:372).
-    sum_w 2^(c w) sum_d d B[w, d]: one block per window runs the lane
-    suffix scan (Hillis-Steele, identity shifted in) and the lane tree
-    in shared memory; the last block to finish runs the Horner across
-    windows (c - 1 T-less doubles, 1 double, 1 add each) on one thread.
-    The reference's `_reduce_body` math with no virtual rows to fold.
-    Bound: latency (a few thousand dependent point operations).
+    sum_w 2^(c w) S_w, S_w = sum_d d B[w, d]: the reference's `_reduce_body`
+    math with no virtual rows to fold.  Bound: latency.  The least work is
+    a few microseconds of multiplies; the time is a chain of dependent
+    point operations: the lane suffix scan and the lane tree (2 log2 nb
+    adds), then the Horner across windows, c (W - 1) doublings and W - 1
+    adds (279 point operations at (16, 32, 256), c = 8), whose order the
+    plain version fixes.  The first port ran the Horner on one thread with
+    canonical arithmetic and C++ products, 8-9 products in a row per point
+    operation (~4-5 us each).  Design: two kernels on one stream, from one
+    C call.  The window kernel keeps a block a window and a thread a
+    bucket, with the adds on PTX carry chains and loose values, and writes
+    each S_w in cached form (Y - X, Y + X, 2d T, Z), so the Horner's adds
+    take 8 products with 2d T off the chain.  The Horner kernel is one warp
+    on `windowed_mul`'s quad core with carry-chain products: lane k
+    computes product k of each stage, so a point operation is 2 product
+    stages in a row, and the cached S_w wait in shared memory.  `marks`
+    times the two kernels apart.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ C_BITS = 8
 N_BUCKETS = 1 << C_BITS
 N_WINDOWS = 256 // C_BITS
 MAX_REDUCE_BUCKETS = 256  # one block of threads, one bucket each
+MAX_REDUCE_WINDOWS = 256  # the Horner's cached S_w in 32 KiB of shared memory
 CHUNK = 8  # entries a thread sums in each pass of bucket_accumulate (by the probe)
 NW = NLIMBS // 2  # 32-bit words per field element
 
@@ -305,28 +317,67 @@ def bucket_reduce_plain(bx, by, bz, bt, c_bits: int = C_BITS):
     return to_canonical(*acc)
 
 
-def bucket_reduce(bx, by, bz, bt, c_bits: int = C_BITS):
+def _reduce_shape(bx, c_bits: int):
+    W, nb = bx.shape[1], bx.shape[2]
+    if c_bits < 1:
+        raise ValueError(f"bucket_reduce takes c_bits >= 1, got {c_bits}")
+    if nb > MAX_REDUCE_BUCKETS or nb < 1 or nb & (nb - 1):
+        raise ValueError(f"bucket_reduce takes a power-of-two bucket count up "
+                         f"to {MAX_REDUCE_BUCKETS}, got {nb}")
+    if not 1 <= W <= MAX_REDUCE_WINDOWS:
+        raise ValueError(f"bucket_reduce takes 1 to {MAX_REDUCE_WINDOWS} windows, got {W}")
+    return W, nb
+
+
+def bucket_reduce(bx, by, bz, bt, c_bits: int = C_BITS, marks=None):
     """sum_w 2^(c_bits w) sum_d d * B[w, d] over bucket sums (16, W, nb)
-    -> the four (16,) coordinates of one point."""
+    -> the four (16,) coordinates of one point.  `marks`: optional three
+    CUDA events, recorded before the window kernel, between it and the
+    Horner kernel, and after the Horner (to time the two kernels)."""
     if bx.device.type == "cpu":
         return bucket_reduce_plain(bx, by, bz, bt, c_bits)
     dev = bx.device
-    W, nb = bx.shape[1], bx.shape[2]
-    if nb > MAX_REDUCE_BUCKETS or nb & (nb - 1):
-        raise ValueError(f"bucket_reduce takes a power-of-two bucket count up "
-                         f"to {MAX_REDUCE_BUCKETS}, got {nb}")
+    W, nb = _reduce_shape(bx, c_bits)
+    if marks is not None and len(marks) != 3:
+        raise ValueError(f"marks takes 3 events, got {len(marks)}")
     ins = [_flat(a, dev) for a in (bx, by, bz, bt)]
     if any(a.shape[1] != W * nb for a in ins):
         raise ValueError("bucket coordinates differ in shape")
-    scratch = torch.empty((W, 4 * NLIMBS), dtype=torch.int32, device=dev)
-    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    scratch = torch.empty((W + 1, 4 * NW), dtype=torch.int32, device=dev)
     outs = [torch.empty(NLIMBS, dtype=lb.LIMB_DTYPE, device=dev) for _ in range(4)]
+    ptrs = _ptrs(ins + [scratch] + outs)
     with torch.cuda.device(dev):
-        rc = _lib().ark_bucket_reduce(_ptrs(ins + [scratch, ticket] + outs),
-                                      W, nb, c_bits, _stream(dev))
-    _check(rc, "bucket_reduce")
+        stream = _stream(dev)
+        if marks is None:  # both kernels from one C call: no host gap between them
+            _check(_lib().ark_bucket_reduce(ptrs, W, nb, c_bits, 0, stream), "bucket_reduce")
+        else:
+            for part in (1, 2):
+                marks[part - 1].record()
+                _check(_lib().ark_bucket_reduce(ptrs, W, nb, c_bits, part, stream),
+                       "bucket_reduce")
+            marks[2].record()
     bucket_reduce.launches += 1
     return tuple(outs)
+
+
+def reduce_launch_config(W: int, nb: int) -> dict:
+    """`bucket_reduce`'s two launches over W windows of nb buckets: grid,
+    threads a block and dynamic shared bytes of each kernel."""
+    vals = (ctypes.c_longlong * 6)()
+    _check(_lib().ark_bucket_reduce_config(W, nb, vals), "bucket_reduce_config")
+    return {"window": dict(zip(("grid", "threads", "smem_bytes"), vals[:3])),
+            "horner": dict(zip(("grid", "threads", "smem_bytes"), vals[3:]))}
+
+
+def reduce_critical_path(W: int, nb: int, c_bits: int = C_BITS) -> dict:
+    """`bucket_reduce`'s chain of dependent point operations: the scan and
+    the tree (log2 nb adds each), then c (W - 1) doublings and W - 1 adds;
+    and the Horner's product stages (a double or a cached add is 2 stages
+    of 4 independent products on the quad core)."""
+    scan = 2 * (nb.bit_length() - 1)
+    doubles, adds = c_bits * (W - 1), W - 1
+    return {"point_ops": scan + doubles + adds, "scan_adds": scan, "doublings": doubles,
+            "horner_adds": adds, "horner_stages": 2 * (doubles + adds)}
 
 
 bucket_reduce.launches = 0

@@ -46,7 +46,11 @@ Phases (any failure exits non-zero; there is no CPU path):
               warps per SM, waves at 2^16, ptxas of its kernel), and
               `bucket_accumulate`'s passes (chunk size, pass count, grids,
               resident warps per SM, ptxas of its kernel, the time of each
-              pass);
+              pass), and `bucket_reduce`'s two launches (grid, threads and
+              shared memory of the window kernel and of the Horner, ptxas of
+              both, the time of each by CUDA events) with its critical path
+              (dependent point operations, the Horner's product stages and
+              its time a stage);
  11. traced   traced circuits (`fabric.tracer()`): the README example; gate
               throughput of 100,000 add gates under `NoRecvTransport`; a
               circuit at n = 2^20 under the trusted dealer (x*y + x at 2^20;
@@ -865,6 +869,40 @@ def bucket_report(dev, ops: CurveOperands, ptxas_log: str) -> None:
         f"{[round(v, 4) for v in pass_ms]} (sum {sum(pass_ms):.4f})")
 
 
+def reduce_report(buckets, ptxas_log: str) -> dict:
+    """`bucket_reduce`'s two launches at the bucket route's shape: grid,
+    threads and shared memory of each kernel, ptxas of both, the time of
+    each (CUDA events between them, mean of 5 calls) and the critical path:
+    the dependent point operations and the Horner's product stages
+    (returned)."""
+    W, nb = mk.N_WINDOWS, mk.N_BUCKETS
+    cfg = mk.reduce_launch_config(W, nb)
+    mk.bucket_reduce(*buckets)  # warm-up
+    part_ms = [0.0, 0.0]
+    for _ in range(5):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        mk.bucket_reduce(*buckets, marks=marks)
+        torch.cuda.synchronize()
+        for k in range(2):
+            part_ms[k] += marks[k].elapsed_time(marks[k + 1]) / 5
+    path = mk.reduce_critical_path(W, nb)
+    win, hor = cfg["window"], cfg["horner"]
+    log(f"[10 report] bucket_reduce launches at ({NLIMBS}, {W}, {nb}), c={mk.C_BITS}: "
+        f"window kernel grid {win['grid']} x {win['threads']} threads, "
+        f"{win['smem_bytes']} bytes of shared memory a block, ptxas "
+        f"bucket_window_kernel: {ptxas_of(ptxas_log, 'bucket_window_kernel')}; "
+        f"Horner grid {hor['grid']} x {hor['threads']} threads (a quad's chain), "
+        f"{hor['smem_bytes']} bytes of shared memory, ptxas bucket_horner_kernel: "
+        f"{ptxas_of(ptxas_log, 'bucket_horner_kernel')}; ms window {part_ms[0]:.4f}, "
+        f"Horner {part_ms[1]:.4f}")
+    per_stage = 1e3 * part_ms[1] / path["horner_stages"]
+    log(f"[10 report] bucket_reduce critical path: {path['point_ops']} dependent point "
+        f"operations ({path['scan_adds']} scan and tree adds, {path['doublings']} "
+        f"doublings, {path['horner_adds']} Horner adds); the Horner's "
+        f"{path['horner_stages']} product stages at {per_stage:.4f} us a stage")
+    return path
+
+
 def phase_curve_report(dev, ops: CurveOperands, launches: dict, ptxas_log: str) -> list:
     mem_rate, int_rate = device_rates(dev)
     cfg = ck.windowed_launch_config(ops.n, dev)
@@ -894,6 +932,7 @@ def phase_curve_report(dev, ops: CurveOperands, launches: dict, ptxas_log: str) 
     check(lad["warps_per_sm"] >= 16, "ladder keeps fewer than 16 warps per SM")
     bucket_report(dev, ops, ptxas_log)
     buckets = mk.bucket_accumulate(*ops.args("bucket_accumulate"))
+    path = reduce_report(buckets, ptxas_log)
     work = curve_work(ops)
     rows = []
     for name in mk.KERNELS:
@@ -919,9 +958,11 @@ def phase_curve_report(dev, ops: CurveOperands, launches: dict, ptxas_log: str) 
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": None,
         })
+        beside = (f", critical path {path['point_ops']} dependent point operations"
+                  if name == "bucket_reduce" else "")
         log(f"[10 report] {name}: {ms:.4f} ms a call at n={ops.n}, plain "
             f"{rows[-1]['plain_ms']:.2f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
-            f"({rows[-1]['bound_by']}); max limb difference vs plain {err}")
+            f"({rows[-1]['bound_by']}{beside}); max limb difference vs plain {err}")
     return rows
 
 

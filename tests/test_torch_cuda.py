@@ -380,6 +380,69 @@ def test_bucket_reduce_two_buckets(dev, windows):
     assert mk.bucket_reduce.launches == before + 1
 
 
+def reduce_buckets(W, nb, seed, dev, identity_windows=()):
+    """(16, W, nb) bucket sums of random points; the windows named are all
+    identity."""
+    from ark_mpc_tpu_torch.algebra.curve import CurvePoint
+    from ark_mpc_tpu_torch.ops import curve_kernels as ck
+
+    rng = np.random.default_rng(seed)
+    pts = CurvePoint.generator((W * nb,), device=dev).mul(Scalar.random(W * nb, rng,
+                                                                        device=dev))
+    buckets = [c.limbs.reshape(16, W, nb).clone() for c in pts._coords()]
+    ident = ck.identity_coords(buckets[0][:, :1, 0])
+    for b, i in zip(buckets, ident):
+        for w in identity_windows:
+            b[:, w, :] = i.to(b.dtype)
+    return buckets
+
+
+def reduce_matches_plain(buckets, c_bits, marks=None):
+    from ark_mpc_tpu_torch.ops import msm_kernels as mk
+
+    before = mk.bucket_reduce.launches
+    got = mk.bucket_reduce(*buckets, c_bits=c_bits, marks=marks)
+    torch.cuda.synchronize()
+    assert mk.bucket_reduce.launches == before + 1
+    return same(got, mk.bucket_reduce_plain(*buckets, c_bits=c_bits))
+
+
+@pytest.mark.parametrize("c_bits", [1, 4, 8])
+@pytest.mark.parametrize("nb", [1, 2, 4, 256])
+@pytest.mark.parametrize("W", [1, 2, 31, 32, 64])
+def test_bucket_reduce_shapes(dev, W, nb, c_bits):
+    """The window kernel and the quad Horner against the plain version bit
+    for bit: no Horner (W = 1), a lone bucket, a warp's worth of windows
+    and either side of it, one launch a call."""
+    assert reduce_matches_plain(reduce_buckets(W, nb, 1000 * W + nb, dev), c_bits)
+
+
+@pytest.mark.parametrize("W,nb,c_bits", [(32, 256, 8), (64, 2, 4), (5, 4, 1)])
+def test_bucket_reduce_identity_windows(dev, W, nb, c_bits):
+    """Windows whose buckets are all the identity (the top one among them),
+    then an input that is the identity everywhere; and the marks' two-call
+    path gives the same limbs."""
+    top = (W - 1,) + tuple(range(0, W, 3))
+    assert reduce_matches_plain(reduce_buckets(W, nb, W + nb, dev, top), c_bits)
+    everywhere = reduce_buckets(W, nb, W + nb + 1, dev, tuple(range(W)))
+    assert reduce_matches_plain(everywhere, c_bits)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    assert reduce_matches_plain(reduce_buckets(W, nb, W + nb + 2, dev), c_bits, marks)
+    assert marks[0].elapsed_time(marks[2]) > 0
+
+
+def test_bucket_reduce_launch_config_and_limits(dev):
+    from ark_mpc_tpu_torch.ops import msm_kernels as mk
+
+    cfg = mk.reduce_launch_config(32, 256)
+    assert cfg["window"] == {"grid": 32, "threads": 256, "smem_bytes": 256 * 128}
+    assert cfg["horner"]["grid"] == 1 and cfg["horner"]["threads"] == 32
+    assert cfg["horner"]["smem_bytes"] >= 31 * 128
+    for W, nb in ((2, 3), (2, 512), (mk.MAX_REDUCE_WINDOWS + 1, 2)):
+        with pytest.raises(ValueError):
+            mk.bucket_reduce(*reduce_buckets(W, nb, 5, dev))
+
+
 @pytest.mark.parametrize("n", [1, 1000, 1 << 16])
 def test_msm_windowsum_matches_ladder_route(dev, n):
     """The winsum route (one window_sums and one bucket_reduce launch)

@@ -507,3 +507,90 @@ def test_ladder_model_matches_ladder_plain(scalars):
         assert ladder_model(k, ints[i]) == want[i]
     if scalars == "random":
         assert ladder_model(ks[0], ints[0], fe_mul_cc, fe_sqr_cc) == want[0]
+
+
+# ---------------------------------------------------------------------------
+# The CUDA bucket_reduce's schedule in Python ints: the window kernel's
+# suffix scan and lane tree with the complete add on loose values, S_w
+# handed over in cached form (Y - X, Y + X, 2d T, Z), then the Horner as
+# the quad's product stages (a double: 4 squares, then 4 products; a cached
+# add: 4 products, then 4), canonical at the end.
+# ---------------------------------------------------------------------------
+
+IDENTITY = (0, 1, 1, 0)
+
+
+def finish_stage(a, b, c, zz, mul):
+    """The second stage of an add: e f, g h, f g, e h."""
+    dd = add_loose(zz, zz)
+    e, f, g, h = sub_loose(b, a), sub_loose(dd, c), add_loose(dd, c), add_loose(b, a)
+    return (mul(e, f), mul(g, h), mul(f, g), mul(e, h))
+
+
+def padd_loose(p, q, mul):
+    """`pt_add_cc`: the complete add, 2d T1 T2 as (T1 T2) 2d."""
+    (x1, y1, z1, t1), (x2, y2, z2, t2) = p, q
+    a, b = mul(sub_loose(y1, x1), sub_loose(y2, x2)), mul(add_loose(y1, x1), add_loose(y2, x2))
+    return finish_stage(a, b, mul(mul(t1, t2), ED_2D), mul(z1, z2), mul)
+
+
+def quad_double_model(p, mul, sqr):
+    x, y, z, _ = p
+    a, b, zz, s = (sqr(v) for v in (x, y, z, add_loose(x, y)))  # lanes 0-3
+    h, g = add_loose(a, b), sub_loose(a, b)
+    e, f = sub_loose(h, s), add_loose(add_loose(zz, zz), g)
+    return (mul(e, f), mul(g, h), mul(f, g), mul(e, h))
+
+
+def quad_add_cached_model(p, cached, mul):
+    x, y, z, t = p
+    a, b, c, zz = (mul(u, v) for u, v in zip((sub_loose(y, x), add_loose(y, x), t, z),
+                                             cached))
+    return finish_stage(a, b, c, zz, mul)
+
+
+def bucket_reduce_model(B, c_bits, mul=mul_loose, sqr=lambda a: mul_loose(a, a)):
+    """B[w][d] = (X, Y, Z, T) ints -> the kernels' canonical result."""
+    W, nb = len(B), len(B[0])
+    S = []
+    for row in B:
+        v = [IDENTITY] + list(row[1:])  # bucket 0 has weight 0
+        k = 1
+        while k < nb:  # suffix scan, every lane from the step's old values
+            v = [padd_loose(v[d], v[d + k] if d + k < nb else IDENTITY, mul)
+                 for d in range(nb)]
+            k *= 2
+        v[0] = IDENTITY
+        k = nb // 2
+        while k >= 1:  # lane tree
+            v = [padd_loose(v[d], v[d + k], mul) for d in range(k)] + v[k:]
+            k //= 2
+        S.append(v[0])
+    cached = [(sub_loose(y, x), add_loose(y, x), mul(t, ED_2D), z) for x, y, z, t in S]
+    acc = S[-1]
+    for w in reversed(range(W - 1)):
+        for _ in range(c_bits):  # c - 1 T-less doubles and one double
+            acc = quad_double_model(acc, mul, sqr)
+        acc = quad_add_cached_model(acc, cached[w], mul)
+        assert all(v < W256 for v in acc)
+    return tuple(v % P25519 for v in acc)
+
+
+@pytest.mark.parametrize("products", ["loose", "words"])
+@pytest.mark.parametrize("W,nb,c_bits", [(3, 4, 8), (5, 2, 4)])
+def test_bucket_reduce_model_matches_plain(W, nb, c_bits, products):
+    """The kernels' schedule gives `bucket_reduce_plain`'s limbs bit for bit
+    at the bucket route's c = 8 (window 1's buckets all the identity) and
+    at the winsum route's 2 buckets with c = 4, on loose products and on
+    the carry chains' word model."""
+    pts = CurvePoint.random(W * nb, np.random.default_rng(W), device="cpu")
+    co = [c.reshape(16, W, nb).clone() for c in coords(pts)]
+    if c_bits == 8:
+        for c, i in zip(co, ck.identity_coords(co[0][:, 1, :1])):
+            c[:, 1, :] = i
+    want = tuple(ladder_limbs_to_ints(c.reshape(16, 1))[0]
+                 for c in mk.bucket_reduce_plain(*co, c_bits=c_bits))
+    ints = list(zip(*(ladder_limbs_to_ints(c.reshape(16, W * nb)) for c in co)))
+    B = [ints[w * nb:(w + 1) * nb] for w in range(W)]
+    args = (fe_mul_cc, fe_sqr_cc) if products == "words" else ()
+    assert bucket_reduce_model(B, c_bits, *args) == want

@@ -36,10 +36,8 @@ without them.
 from __future__ import annotations
 
 import argparse
-import collections
 import ctypes
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -56,6 +54,7 @@ from ark_mpc_tpu_torch.algebra.fields import SCALAR_FIELD  # noqa: E402
 from ark_mpc_tpu_torch.algebra.scalar import Scalar  # noqa: E402
 from ark_mpc_tpu_torch.ops import _build  # noqa: E402
 from ark_mpc_tpu_torch.ops import curve_kernels as ck  # noqa: E402
+from probe_builds import build, first_difference, replace, sass, sass_mix  # noqa: E402
 
 TAILS = (1, 31, 33, 127, 129, 4097)
 SIZES = (1 << 16, 1000)
@@ -104,15 +103,6 @@ ladder_kernel(const int32_t* __restrict__ canon, Coords p, OutCoords o,
 """
 
 
-def replace(text: str, old: str, new: str, lo: int = 0, hi: int | None = None) -> str:
-    """`old` -> `new` inside text[lo:hi]; `old` must occur there."""
-    hi = len(text) if hi is None else hi
-    part = text[lo:hi]
-    if old not in part:
-        raise RuntimeError(f"variant patch does not apply: {old[:60]!r}")
-    return text[:lo] + part.replace(old, new) + text[hi:]
-
-
 def ladder_span(text: str) -> tuple[int, int]:
     return text.index(LADDER_HEAD), text.index(NEXT_HEAD)
 
@@ -151,10 +141,11 @@ def quad(text: str) -> str:
 
 def cc_everywhere(text: str) -> str:
     """Every product after the Edwards formulas' header on the carry chains
-    (the quad helpers' included)."""
+    (the quad helpers' by their default product)."""
     lo = text.index("// Edwards formulas")
     text = replace(text, "fe_mul_loose(", "fe_mul_cc(", lo)
-    return replace(text, "fe_sqr_loose(", "fe_sqr_cc(", lo)
+    return replace(text, "template <class Prod = CxxProducts>",
+                   "template <class Prod = CcProducts>", lo)
 
 
 VARIANTS = {
@@ -166,18 +157,6 @@ VARIANTS = {
 }
 
 
-def build(name: str, text: str):
-    """nvcc one variant; -> (Popen, library path)."""
-    out = _build.BUILD_DIR / "probe"
-    out.mkdir(parents=True, exist_ok=True)
-    src = out / f"curve_ladder_{name}.cu"
-    src.write_text(text)
-    lib = out / f"libcurve_ladder_{name}.so"
-    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True), lib
-
-
 def ptxas_line(log: str) -> str:
     lines = log.splitlines()
     at = next(i for i, line in enumerate(lines)
@@ -187,46 +166,7 @@ def ptxas_line(log: str) -> str:
 
 
 OTHER_KERNELS = ("windowed_mul_kernel", "window_sums_kernel", "bucket_chunk_kernel",
-                 "bucket_reduce_kernel")
-
-
-def sass(lib: Path) -> dict:
-    """{kernel: its SASS instructions} of the library (cuobjdump beside
-    nvcc), without addresses and encodings."""
-    out = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
-                          str(lib)], capture_output=True, text=True, check=True).stdout
-    funcs = {}
-    for part in out.split("Function : ")[1:]:
-        head, body = part.split("\n", 1)
-        name = next((k for k in ("ladder_kernel", *OTHER_KERNELS) if k in head), None)
-        if name:
-            # branch labels are numbered across the file: renumber them
-            labels: dict = {}
-            body = re.sub(r"\.L_x_\d+",
-                          lambda m: labels.setdefault(m.group(0), f".L{len(labels)}"),
-                          re.sub(r"/\*[^*]*\*/", "", body))
-            funcs[name] = [line.strip() for line in body.splitlines() if line.strip()]
-    return funcs
-
-
-def first_difference(a: list, b: list) -> str:
-    """The first instruction where two kernels' SASS differ."""
-    at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-    return (f"line {at}: {a[at] if at < len(a) else '(end)'!r} vs "
-            f"{b[at] if at < len(b) else '(end)'!r}")
-
-
-def sass_mix(body: list) -> dict:
-    """Opcode counts of one kernel's SASS, most frequent first, with the
-    carry forms (IMAD.X, IADD3.X) apart."""
-    ops = collections.Counter()
-    for line in body:
-        m = re.match(r"(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-        if not m:
-            continue
-        parts = m.group(1).split(".")
-        ops[parts[0] + (".X" if "X" in parts[1:] else "")] += 1
-    return dict(ops.most_common())
+                 "bucket_window_kernel", "bucket_horner_kernel")
 
 
 def load(path: Path) -> ctypes.CDLL:
@@ -283,7 +223,7 @@ def main() -> int:
     current = (_build.SRC_DIR / f"{ck.SOURCE}.cu").read_text()
     texts = {name: patch(current) for name, patch in VARIANTS.items()}
     texts.update({path.parent.name: path.read_text() for path in opts.baseline})
-    jobs = {name: build(name, text) for name, text in texts.items()}
+    jobs = {name: build(f"ladder_{name}", text) for name, text in texts.items()}
     # the current source through the package's own build, in parallel
     logs = {"current": _build.build([ck.SOURCE])[ck.SOURCE]}
     paths = {"current": _build.library_path(ck.SOURCE)}
@@ -297,7 +237,8 @@ def main() -> int:
     ptxas = {name: ptxas_line(log) for name, log in logs.items()}
     for name, line in ptxas.items():
         print(f"[{name}] ptxas ladder_kernel: {line}", flush=True)
-    code = {name: sass(path) for name, path in paths.items()} if opts.sass else {}
+    code = ({name: sass(path, ("ladder_kernel", *OTHER_KERNELS))
+             for name, path in paths.items()} if opts.sass else {})
     mix = {name: sass_mix(funcs["ladder_kernel"]) for name, funcs in code.items()}
     for name, ops in mix.items():
         print(f"[{name}] SASS opcodes ({sum(ops.values())}): {ops}", flush=True)
