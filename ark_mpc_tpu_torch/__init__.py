@@ -1,14 +1,17 @@
 """ark_mpc_tpu_torch: the PyTorch/CUDA port of ark_mpc_tpu.
 
 A second package beside the JAX reference: SPDZ-style two-party MPC over the
-Curve25519 scalar field with batch-first share arithmetic on torch tensors,
-a round-based fabric with a traced circuit scheduler (`fabric.tracer()`),
-gadgets, polynomials and field matrix products, Ed25519 point protocols and
-MSM, and hand-written CUDA kernels (sm_90a) for the authenticated Beaver
-multiplication path and the curve layer.  Entry points run on the CUDA card
+Curve25519 scalar field (and BN254's, with its G1 points) with batch-first
+share arithmetic on torch tensors, a round-based fabric with a traced
+circuit scheduler (`fabric.tracer()`), gadgets, polynomials and field matrix
+products, Ed25519 point protocols and MSM, a TCP transport with TLS between
+two processes (`python -m ark_mpc_tpu_torch.integration`), and hand-written
+CUDA kernels (sm_90a) for the authenticated Beaver multiplication path and
+the curve layer.  Entry points run on the CUDA card
 unless the caller passes another `device` (the tests pass "cpu").
 """
 
+from .algebra.bn254 import G1, Fq, Fr
 from .algebra.curve import CurvePoint
 from .algebra.point_share import PointShare
 from .algebra.scalar import BaseFelt, Scalar
@@ -21,7 +24,7 @@ from .fabric.errors import (
     SetupError,
 )
 from .fabric.simulator import execute_mock_mpc, execute_mock_mpc_dealer
-from .fabric.transport import LocalTransport
+from .fabric.transport import LocalTransport, TcpTransport
 from .offline.base import PartyIDBeaverSource, PreprocessingPhase, TrustedDealerSource
 
 __all__ = [
@@ -29,6 +32,9 @@ __all__ = [
     "BaseFelt",
     "ScalarShare",
     "CurvePoint",
+    "Fq",
+    "Fr",
+    "G1",
     "PointShare",
     "PARTY0",
     "PARTY1",
@@ -40,6 +46,7 @@ __all__ = [
     "execute_mock_mpc",
     "execute_mock_mpc_dealer",
     "LocalTransport",
+    "TcpTransport",
     "PreprocessingPhase",
     "PartyIDBeaverSource",
     "TrustedDealerSource",

@@ -159,8 +159,9 @@ class FieldArray:
         return type(self)(lb.inverse(self.spec, self.limbs))
 
     def pow(self, e: int):
-        """Fixed public exponent (square-and-multiply over the bits of e)."""
-        e = int(e)
+        """Fixed public exponent e >= 0 (square-and-multiply over the bits
+        of e).  A negative e raises `ValueError` (take `inverse()` first)."""
+        e = public_exponent(e)
         if e == 0:
             return type(self).ones(self.shape, device=self.device)
         bits = tuple((e >> i) & 1 for i in range(e.bit_length()))
@@ -292,6 +293,14 @@ class FieldArray:
         if self.size <= 4:
             return f"{type(self).__name__}({self.to_ints()})"
         return f"{type(self).__name__}(shape={self.shape})"
+
+
+def public_exponent(e) -> int:
+    """A public exponent as a Python int; negative ones raise."""
+    e = int(e)
+    if e < 0:
+        raise ValueError(f"exponent must be >= 0, got {e}")
+    return e
 
 
 def _tonelli_shanks(v: int, p: int) -> int:

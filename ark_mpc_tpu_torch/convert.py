@@ -6,7 +6,9 @@ authenticated shares and offline material.  Everything crosses as numpy:
   - a (16, ...) uint32 limb array (Montgomery form) <-> a `FieldArray`;
   - a (share, mac) pair of such arrays <-> a `ScalarShare`;
   - a (4, 16, ...) uint32 array of canonical X, Y, Z, T limbs <-> a
-    `CurvePoint`, and a (share, mac) pair of those <-> a `PointShare`;
+    `CurvePoint`, a (3, 16, ...) array of Montgomery-form Jacobian X, Y, Z
+    limbs <-> a BN254 `G1` (`curve=G1`), and a (share, mac) pair of either
+    <-> a `PointShare`;
   - a (16, deg + 1) coefficient limb array <-> a `DensePoly`, and a
     (share, mac) pair of those <-> an `AuthenticatedDensePoly`;
   - a dict of exported offline material <-> a preprocessing source that
@@ -26,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .algebra.bn254 import G1
 from .algebra.curve import CurvePoint
 from .algebra.limbs import NLIMBS
 from .algebra.point_share import PointShare
@@ -68,22 +71,27 @@ def from_share(sh) -> tuple[np.ndarray, np.ndarray]:
     return from_field(sh.share), from_field(sh.mac)
 
 
-def to_point(arr, device=None) -> CurvePoint:
-    """(4, 16, ...) uint32 limbs of X, Y, Z, T -> `CurvePoint` on `device`."""
+POINT_COORDS = {CurvePoint: 4, G1: 3}
+
+
+def to_point(arr, device=None, curve=CurvePoint):
+    """(4, 16, ...) uint32 limbs of X, Y, Z, T -> `CurvePoint` on `device`;
+    with `curve=G1`, (3, 16, ...) limbs of X, Y, Z -> `G1`."""
     arr = np.asarray(arr)
-    if arr.shape[:1] != (4,):
-        raise ValueError(f"point arrays must be (4, 16, ...), got shape {arr.shape}")
-    return CurvePoint(*(to_field(c, CurvePoint.base_field, device) for c in arr))
+    k = POINT_COORDS[curve]
+    if arr.shape[:1] != (k,):
+        raise ValueError(f"point arrays must be ({k}, 16, ...), got shape {arr.shape}")
+    return curve(*(to_field(c, curve.base_field, device) for c in arr))
 
 
 def from_point(pt) -> np.ndarray:
-    """A point batch of either package -> (4, 16, ...) uint32 numpy."""
-    return np.stack([from_field(c) for c in (pt.X, pt.Y, pt.Z, pt.T)])
+    """A point batch of either package -> (4 or 3, 16, ...) uint32 numpy."""
+    return np.stack([from_field(c) for c in pt._coords()])
 
 
-def to_point_share(pair, device=None) -> PointShare:
+def to_point_share(pair, device=None, curve=CurvePoint) -> PointShare:
     share, mac = pair
-    return PointShare(to_point(share, device), to_point(mac, device))
+    return PointShare(to_point(share, device, curve), to_point(mac, device, curve))
 
 
 def from_point_share(ps) -> tuple[np.ndarray, np.ndarray]:

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..algebra import limbs as lb
-from ..algebra.scalar import Scalar
+from ..algebra.scalar import Scalar, public_exponent
 from ..algebra.share import PARTY0, PARTY1, ScalarShare
 from ..device import resolve_device
 from ..offline.base import PreprocessingPhase
@@ -297,8 +297,9 @@ class MpcFabric:
     def pow(self, x: ScalarShare, e: int) -> ScalarShare:
         """Public-exponent exponentiation: LSB-first square-and-multiply with
         each step's two independent products (result*base, base*base)
-        batched into ONE width-2n Beaver round."""
-        e = int(e)
+        batched into ONE width-2n Beaver round.  A negative e raises
+        `ValueError` before any triple is drawn or round started."""
+        e = public_exponent(e)
         if e == 0:
             return self.share_public(self.field.ones(x.shape, device=self.device))
         shape = x.shape

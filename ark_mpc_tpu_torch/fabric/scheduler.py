@@ -28,7 +28,7 @@ depth and forms forward) with no recursion.  Constants the scheduler makes
 from __future__ import annotations
 
 from ..algebra.fields import SCALAR_FIELD
-from ..algebra.scalar import Scalar
+from ..algebra.scalar import Scalar, public_exponent
 from ..algebra.share import ScalarShare
 from .context import MpcFabric
 
@@ -126,8 +126,9 @@ class TracedShare:
     def pow(self, e: int) -> "TracedShare":
         """Public-exponent power by square-and-multiply: the mul nodes land
         on consecutive levels, so a BATCH of pows shares one Beaver round
-        per squaring step (the windowed form of `context.pow`)."""
-        e = int(e)
+        per squaring step (the windowed form of `context.pow`).  A negative e
+        raises `ValueError` before any node is traced."""
+        e = public_exponent(e)
         if e == 0:
             dev = self.tracer.fabric.device
             return ((self * Scalar.from_ints(0, device=dev))

@@ -1,9 +1,10 @@
-"""Two-party in-process transports.
+"""Two-party transports.
 
-Copied from `ark_mpc_tpu/fabric/transport.py` (stdlib only): the `Transport`
-interface, the `LocalTransport` queue pair, the lockstep pair the mock
-simulator uses, and `NoRecvTransport` for single-party gate-throughput
-runs.  TCP and TLS transports come in a later slice of the port.
+Copied from `ark_mpc_tpu/fabric/transport.py`: the `Transport` interface,
+the `LocalTransport` queue pair, the lockstep pair the mock simulator uses,
+`NoRecvTransport` for single-party gate-throughput runs, and `TcpTransport`
+between two processes or hosts (u64 little-endian length-prefixed frames,
+TLS 1.3 by default, the native IO library on the plaintext path).
 
 Party 0 always sends first in an exchange, so framing order is
 deterministic and deadlock-free.
@@ -13,7 +14,11 @@ from __future__ import annotations
 
 import os
 import queue
+import socket
+import struct
+import subprocess
 import threading
+import time
 
 PARTY0 = 0
 PARTY1 = 1
@@ -211,3 +216,90 @@ class NoRecvTransport(Transport):
 
     def _recv(self):
         raise RuntimeError("NoRecvTransport cannot receive")
+
+
+class TcpTransport(Transport):
+    """Frames over one TCP stream between two processes or hosts: u64
+    little-endian length prefix, then the payload.
+
+    Party 1 listens and party 0 dials, retrying until `timeout` (seconds,
+    also the limit on each blocking accept or receive), with TCP_NODELAY.
+    TLS 1.3 is on by default (`fabric/tls.py`: an ephemeral self-signed
+    certificate, a client that verifies nothing); `tls=False` sends
+    plaintext through the native IO library (`fabric/native_net.py`).  Only
+    where that library neither loads nor builds does plaintext go through
+    Python sockets.  `io` says which path runs: "native" or "python"."""
+
+    HEADER = struct.Struct("<Q")
+
+    def __init__(self, party_id: int, host: str, port: int,
+                 timeout: float = 60.0, tls: bool = True):
+        super().__init__(party_id)
+        self.tls = tls
+        self._native = None
+        if not tls:
+            from . import native_net
+
+            try:
+                native_net.library()
+            except (OSError, subprocess.CalledProcessError):
+                pass
+            else:
+                self._native = native_net.NativeConn(party_id, host, port, timeout)
+                self.io = "native"
+                return
+        self.io = "python"
+        if party_id == PARTY1:
+            with socket.create_server((host, port)) as srv:
+                srv.settimeout(timeout)
+                self.sock, _ = srv.accept()
+        else:
+            deadline = time.monotonic() + timeout
+            while True:
+                try:
+                    self.sock = socket.create_connection((host, port), timeout=timeout)
+                    break
+                except OSError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.25)
+        self.sock.settimeout(timeout)
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        if tls:
+            from . import tls as tlsmod
+
+            # the listener presents the ephemeral certificate
+            if party_id == PARTY1:
+                self.sock = tlsmod.server_context().wrap_socket(self.sock,
+                                                                server_side=True)
+            else:
+                self.sock = tlsmod.client_context().wrap_socket(self.sock)
+
+    def _send(self, data):
+        if self._native is not None:
+            self._native.send(data)
+        else:
+            self.sock.sendall(self.HEADER.pack(len(data)) + data)
+
+    def _recv(self):
+        if self._native is not None:
+            return self._native.recv()
+        (size,) = self.HEADER.unpack(self._recv_exact(self.HEADER.size))
+        return self._recv_exact(size)
+
+    def _recv_exact(self, size: int) -> bytes:
+        buf = bytearray(size)
+        view = memoryview(buf)
+        got = 0
+        while got < size:
+            n = self.sock.recv_into(view[got:], size - got)
+            if n == 0:
+                raise ConnectionError("peer closed")
+            got += n
+        return bytes(buf)
+
+    def close(self):
+        if self._native is not None:
+            self._native.close()
+        else:
+            self.sock.close()

@@ -132,6 +132,12 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def _count(kernel, spec: FieldSpec) -> None:
+    """One launch of `kernel`, in its total and in its count for the field."""
+    kernel.launches += 1
+    kernel.launches_by_field[spec.name] = kernel.launches_by_field.get(spec.name, 0) + 1
+
+
 def _bcast_vec(k: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return k.reshape((NLIMBS,) + (1,) * (like.dim() - 1)).expand(like.shape)
 
@@ -157,11 +163,12 @@ def mont_mul(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             rc = _lib().ark_mont_mul(xf.data_ptr(), yf.data_ptr(), out.data_ptr(),
                                      n, _field_words(spec), _stream(dev))
         _check(rc, "mont_mul")
-        mont_mul.launches += 1
+        _count(mont_mul, spec)
     return out.reshape(x.shape)
 
 
 mont_mul.launches = 0
+mont_mul.launches_by_field = {}
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +212,12 @@ def beaver_round(spec: FieldSpec, party_id: int, a_s, a_m, b_s, b_m, c_s, c_m,
             rc = _lib().ark_beaver_round(ptrs, n, party_id, _field_words(spec),
                                          _stream(dev))
         _check(rc, "beaver_round")
-        beaver_round.launches += 1
+        _count(beaver_round, spec)
     return out_s.reshape(d.shape), out_m.reshape(d.shape)
 
 
 beaver_round.launches = 0
+beaver_round.launches_by_field = {}
 
 
 # ---------------------------------------------------------------------------
@@ -333,13 +341,14 @@ def beaver_chain(spec: FieldSpec, rounds: int, x0, x1, e, a0, a1, b0, b1,
             rc = _lib().ark_beaver_chain(ptrs, n, k, grid, _field_words(spec),
                                          _stream(dev))
         _check(rc, "beaver_chain")
-        beaver_chain.launches += 1
+        _count(beaver_chain, spec)
         word_sums[start:start + k] = chain_word_sums(partial.sum(dim=0))
         cx0, cx1 = out0, out1
     return cx0, cx1, fold_reduce(spec, word_sums)
 
 
 beaver_chain.launches = 0
+beaver_chain.launches_by_field = {}
 
 KERNELS = {"mont_mul": mont_mul, "beaver_round": beaver_round,
            "beaver_chain": beaver_chain}
@@ -350,10 +359,16 @@ PLAIN = {"mont_mul": lb.mont_mul_plain, "beaver_round": beaver_round_plain,
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.launches_by_field = {}
 
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def field_launch_counts() -> dict[str, dict[str, int]]:
+    """{kernel: {field name: launches}} since the last reset."""
+    return {name: dict(fn.launches_by_field) for name, fn in KERNELS.items()}
 
 
 def build() -> dict[str, str]:

@@ -63,7 +63,30 @@ Phases (any failure exits non-zero; there is no CPU path):
               (MAC-checked, spot entries against Python ints), `mont_matmul`
               alone at 512^3, shared `poly_mul` of two degree-255
               polynomials with `poly_eval` and `poly_div`, and an
-              `EvaluationDomain(132)` FFT/IFFT round trip of shares.
+              `EvaluationDomain(132)` FFT/IFFT round trip of shares;
+ 13. bn254    at BN254's scalar field Fr under `TrustedDealerSource(field=
+              Fr)`: phase 4's fabric batch at n = 2^20 (spot products
+              against Python ints mod r) and a corrupted MAC that must
+              abort; the G1 point protocols at n = 10,000 (share and open,
+              `mul_generator`, `beaver_mul_points`, deferred opens, one
+              `verify_deferred`), spot points against Python-int affine
+              arithmetic, then a corrupted point MAC and a received point
+              off the curve that must abort; one `G1.mul` at n = 10,000
+              timed alone with its `mont_mul` launches; `mont_mul` at Fq
+              and Fr at (16, 2^22) and `beaver_round` at Fr at (16, 2^20)
+              against their plain versions, bit for bit, timed beside
+              phase 6's l-field times;
+ 14. tcp      two party processes on this card over localhost TCP
+              (plaintext, the native IO library): `python -m
+              ark_mpc_tpu_torch.integration` runs every registry case in
+              both, which must all be "ok" and agree; then the
+              wire-inclusive batch of `benchmarks/online_wire.py` at its
+              full size (n = 2^20, 4 chained `fabric.mul` rounds, one
+              authenticated open, one folded deferred check; this script
+              run as `--wire-port P --party p`): mults/s over the slower
+              party's wall time, bytes sent per mult, set-up seconds, the
+              IO path (must be native) and each party's `beaver_round`
+              launches (must be > 0).
 
 Each phase logs its seconds.  The launch counts of the field kernels are
 those of phases 3-5, those of the curve kernels those of phases 8-9 (each
@@ -71,15 +94,19 @@ path's counts are set to 0 just before it and read just after;
 `bucket_accumulate` counts one launch a pass, and `bucket_reduce` launches
 on the bucket and the winsum routes); phases
 11-12 are a third path, whose kernels (`mont_matmul`'s and the fabric's)
-must each launch there too.  The last line is `{"ok": true, "device":
-{...}}`.
+must each launch there too, and phase 13's fabric batch and point
+protocols a fourth, which must launch `mont_mul` at Fq and at Fr and
+`beaver_round` at Fr (counted by field).  The last line is `{"ok": true,
+"device": {...}}`.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import random
+import socket
 import subprocess
 import sys
 import time
@@ -88,22 +115,27 @@ import numpy as np
 import torch
 
 from ark_mpc_tpu_torch import (
+    G1,
     AuthenticationError,
     CurvePoint,
+    Fr,
     MpcFabric,
     PartyIDBeaverSource,
     PointShare,
     Scalar,
     ScalarShare,
+    TcpTransport,
     TrustedDealerSource,
     execute_mock_mpc,
     execute_mock_mpc_dealer,
 )
 from ark_mpc_tpu_torch.algebra import limbs as lb
 from ark_mpc_tpu_torch.algebra import poly
+from ark_mpc_tpu_torch.algebra.bn254 import BN254_BASE, BN254_Q, BN254_R, BN254_SCALAR
 from ark_mpc_tpu_torch.algebra.domain import EvaluationDomain
 from ark_mpc_tpu_torch.algebra.fields import SCALAR_FIELD as SPEC
 from ark_mpc_tpu_torch.algebra.limbs import NLIMBS
+from ark_mpc_tpu_torch.device import resolve_device
 from ark_mpc_tpu_torch.fabric import commitment
 from ark_mpc_tpu_torch.fabric.transport import NoRecvTransport
 from ark_mpc_tpu_torch.gadgets import bit_xor, prefix_product
@@ -113,6 +145,7 @@ from ark_mpc_tpu_torch.ops import curve_kernels as ck
 from ark_mpc_tpu_torch.ops import fp_kernels as fk
 from ark_mpc_tpu_torch.ops import matmul
 from ark_mpc_tpu_torch.ops import msm_kernels as mk
+from ark_mpc_tpu_torch.utils.stats import FabricStats
 
 L = SPEC.modulus
 SOURCE = "ark_mpc_tpu_torch/ops/csrc/fp_kernels.cu"
@@ -295,12 +328,12 @@ def readme_program(fabric):
 
 
 def corrupt_mac_program(fabric):
-    dev = fabric.device
+    dev, field = fabric.device, fabric.field
     sx = fabric.share_values(
-        Scalar.from_ints([5], device=dev) if fabric.party_id == 0 else None,
+        field.from_ints([5], device=dev) if fabric.party_id == 0 else None,
         sender=0, n=1)
     if fabric.party_id == 1:
-        sx = ScalarShare(sx.share, sx.mac + Scalar.from_ints(1, device=dev))
+        sx = ScalarShare(sx.share, sx.mac + field.from_ints(1, device=dev))
     return fabric.open_authenticated(sx).to_ints()
 
 
@@ -461,15 +494,17 @@ def device_rates(dev) -> tuple[float, float]:
     return mem_rate, int_rate
 
 
+def mul_ops(products: int, reductions: int) -> int:
+    """Work per element, in 32-bit multiply instructions: a 32x32->64 product
+    is two (lo and hi), a REDC quotient word one; 64 products per 256-bit
+    product or reduction, 8 quotient words per reduction."""
+    return 2 * 64 * (products + reductions) + 8 * reductions
+
+
 def phase_report(dev, ch: Chain, launches: dict) -> list:
     props = torch.cuda.get_device_properties(dev)
     mem_rate, int_rate = device_rates(dev)
-
-    # Work per element, in 32-bit multiply instructions: a 32x32->64 product
-    # is two (lo and hi), a REDC quotient word one; 64 products per 256-bit
-    # product or reduction, 8 quotient words per reduction.
-    def ops(products: int, reductions: int) -> int:
-        return 2 * 64 * (products + reductions) + 8 * reductions
+    ops = mul_ops
 
     e, pre = ch.pre_products()
     chain_args = ch.chain_args(e, pre)
@@ -1274,6 +1309,386 @@ def phase_matmul(dev) -> dict:
             "poly_s": psecs}
 
 
+# ---------------------------------------------------------------------------
+# BN254 (Fq, Fr, G1) and two party processes over TCP
+# ---------------------------------------------------------------------------
+
+BN254_KERNELS = (  # (kernel, field, elements): mont_mul at 2^22, beaver_round at 2^20
+    ("mont_mul", BN254_BASE, 1 << 22),
+    ("mont_mul", BN254_SCALAR, 1 << 22),
+    ("beaver_round", BN254_SCALAR, 1 << 20),
+)
+N_G1 = N_POINTS
+# benchmarks/online_wire.py:44-46: n = 2^20, 4 chained rounds, dealer seed
+WIRE_N, WIRE_ROUNDS, WIRE_SEED = 1 << 20, 4, 1234
+REGISTRY_TIMEOUT = 600
+
+
+def g1_add(p1, p2):
+    """Python-int affine addition on y^2 = x^3 + 3 over F_q (None = identity)."""
+    q = BN254_Q
+    if p1 is None or p2 is None:
+        return p2 if p1 is None else p1
+    (x1, y1), (x2, y2) = p1, p2
+    if x1 == x2 and (y1 + y2) % q == 0:
+        return None
+    if p1 == p2:
+        lam = 3 * x1 * x1 * pow(2 * y1, -1, q) % q
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, -1, q) % q
+    x3 = (lam * lam - x1 - x2) % q
+    return x3, (lam * (x1 - x3) - y1) % q
+
+
+def g1_mul(k: int, pt=(1, 2)):
+    acc = None
+    for bit in bin(k % BN254_R)[2:]:
+        acc = g1_add(acc, acc)
+        if bit == "1":
+            acc = g1_add(acc, pt)
+    return acc
+
+
+def g1_spots(pt: G1, idx) -> list:
+    """Affine Python ints of the points at `idx` (None for the identity)."""
+    pt = pt[torch.tensor(idx, device=pt.device)]
+    x, y = pt.to_affine()
+    ids = pt.is_identity().tolist()
+    return [None if i else (a, b) for a, b, i in zip(x.to_ints(), y.to_ints(), ids)]
+
+
+def rand_below(spec, n: int, gen: torch.Generator, dev) -> torch.Tensor:
+    """(16, n) limbs of random values below the modulus, made on the card:
+    every limb uniform, the top one below the modulus' top limb."""
+    limbs = torch.randint(0, 1 << 16, (NLIMBS, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+    limbs[-1] = torch.randint(0, int(spec.mod_limbs[-1]), (n,), generator=gen,
+                              device=dev, dtype=torch.int32)
+    return limbs
+
+
+def bn254_dealer(seed: int, dev):
+    return lambda pid: TrustedDealerSource(pid, seed=seed, field=Fr, device=dev)
+
+
+def g1_points_program(gs, ks, idx):
+    """Party 0 shares P_i = g_i G and both open them; party 1 shares k_i;
+    [k] G by `mul_generator`, [k P] by `beaver_mul_points`; deferred
+    authenticated opens and one `verify_deferred`."""
+    def prog(fabric):
+        dev, n = fabric.device, len(gs)
+        steps = {}
+
+        def mark(name):
+            torch.cuda.synchronize()
+            steps[name] = time.time() - t0 - sum(steps.values())
+
+        t0 = time.time()
+        pts = (G1.generator((n,), device=dev).mul(Fr.from_ints(gs, device=dev))
+               if fabric.party_id == 0 else None)
+        sp = fabric.share_points(pts, sender=0, n=n)
+        opened = fabric.open_authenticated_points(sp, defer=True)
+        mark("share+open")
+        sk = fabric.share_values(Fr.from_ints(ks, device=dev) if fabric.party_id == 1
+                                 else None, sender=1, n=n)
+        kg = fabric.mul_generator(sk)
+        mark("mul_generator")
+        prod = fabric.mul_points(sk, sp)
+        mark("beaver_mul_points")
+        o_kg = fabric.open_authenticated_points(kg, defer=True)
+        o_prod = fabric.open_authenticated_points(prod, defer=True)
+        fabric.verify_deferred()
+        mark("open+verify")
+        return ([g1_spots(v, idx) for v in (opened, o_kg, o_prod)], steps,
+                fabric.n_rounds)
+    return prog
+
+
+def g1_corrupt_mac_program(fabric):
+    n, dev = 16, fabric.device
+    pts = G1.generator((n,), device=dev) if fabric.party_id == 0 else None
+    sp = fabric.share_points(pts, sender=0, n=n)
+    if fabric.party_id == 1:
+        sp = PointShare(sp.share, sp.mac + G1.generator((n,), device=dev))
+    return fabric.open_authenticated_points(sp)
+
+
+def g1_off_curve_program(fabric):
+    """Party 0 sends the canonical affine pair (5, 7), not on y^2 = x^3 + 3,
+    where `share_points` expects its masked point."""
+    if fabric.party_id == 0:
+        fabric.offline.next_local_input_mask_batch(1)
+        fabric.send_arrays([lb.ints_to_limb_array([5]), lb.ints_to_limb_array([7])])
+        return None
+    return fabric.share_points(None, sender=0, n=1)
+
+
+def expect_abort(prog, what: str, label: str, dev) -> None:
+    try:
+        execute_mock_mpc(prog, offline_factory=bn254_dealer(6, dev), device=dev)
+    except AuthenticationError as err:
+        log(f"[{label}] {what} aborted: AuthenticationError({err})")
+    else:
+        raise RuntimeError(f"check failed: {what} was not detected")
+
+
+def phase_bn254(dev) -> dict:
+    """The Fr fabric batch and the G1 point protocols (the path whose
+    launches are counted), then one `G1.mul` timed alone."""
+    r = BN254_R
+    torch.cuda.synchronize()
+    t0 = time.time()
+    (vals0, rounds0), (vals1, _) = execute_mock_mpc(
+        fabric_program, offline_factory=bn254_dealer(3, dev), device=dev)
+    torch.cuda.synchronize()
+    fabric_s = time.time() - t0
+    xs, ys, zs = vals0
+    check(vals0 == vals1, "parties opened different Fr values")
+    check(zs == [x * y % r for x, y in zip(xs, ys)], "opened Fr products are wrong")
+    log(f"[13 bn254] Fr fabric: n=2^20 mul + 3 deferred opens + folded MAC check OK "
+        f"in {fabric_s:.2f} s host time ({rounds0} rounds); spot checks "
+        f"{len(zs)}/{len(zs)} equal Python ints mod r")
+    expect_abort(corrupt_mac_program, "corrupted Fr MAC", "13 bn254", dev)
+
+    rnd = random.Random(37)
+    gs = [rnd.randrange(1, r) for _ in range(N_G1)]
+    ks = [rnd.randrange(1, r) for _ in range(N_G1)]
+    idx = [0, 1, N_G1 // 3, N_G1 // 2, N_G1 - 1]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    (spots0, steps, rounds), (spots1, _, _) = execute_mock_mpc(
+        g1_points_program(gs, ks, idx), offline_factory=bn254_dealer(5, dev), device=dev)
+    points_s = time.time() - t0
+    check(spots0 == spots1, "parties opened different G1 points")
+    opened, o_kg, o_prod = spots0
+    check(opened == [g1_mul(gs[i]) for i in idx], "opened G1 points differ from Python ints")
+    check(o_kg == [g1_mul(ks[i]) for i in idx], "[k] G differs from Python ints")
+    check(o_prod == [g1_mul(ks[i] * gs[i]) for i in idx],
+          "Beaver k * P differs from Python ints")
+    log(f"[13 bn254] G1 points n={N_G1}: share + open, mul_generator, "
+        f"beaver_mul_points, deferred opens + verify_deferred OK in {points_s:.2f} s "
+        f"host time ({rounds} rounds); party 0 steps (s): "
+        f"{ {k: round(v, 3) for k, v in steps.items()} }; 15/15 spot points equal "
+        "Python ints")
+    expect_abort(g1_corrupt_mac_program, "corrupted G1 point MAC", "13 bn254", dev)
+    expect_abort(g1_off_curve_program, "received point off the curve", "13 bn254", dev)
+    return {"fabric_host_s": fabric_s, "fabric_rounds": rounds0,
+            "points_host_s": points_s, "points_rounds": rounds,
+            "points_steps_party0_s": steps}
+
+
+def g1_mul_alone(dev) -> dict:
+    """One `G1.mul` at n = 10,000 random scalars: seconds and launches."""
+    rng = np.random.default_rng(38)
+    g = G1.generator((N_G1,), device=dev)
+    k = Fr.random(N_G1, rng, device=dev)
+    torch.cuda.synchronize()
+    before, t0 = fk.mont_mul.launches, time.time()
+    out = g.mul(k)
+    torch.cuda.synchronize()
+    secs, launches = time.time() - t0, fk.mont_mul.launches - before
+    check(g1_spots(out, [0, N_G1 - 1]) == [g1_mul(v) for v in k[torch.tensor(
+        [0, N_G1 - 1], device=dev)].to_ints()], "G1.mul differs from Python ints")
+    log(f"[13 bn254] one G1.mul at n={N_G1}: {secs:.2f} s host time, {launches} "
+        "mont_mul launches (plain torch ladder, 2 spot points equal Python ints)")
+    return {"g1_mul_s": secs, "g1_mul_mont_mul_launches": launches}
+
+
+def bn254_kernel_rows(dev, launches: dict, l_rows: list) -> list:
+    """mont_mul at Fq and Fr, beaver_round at Fr: bit for bit against their
+    plain versions, timed by CUDA events beside the l-field rows."""
+    mem_rate, int_rate = device_rates(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(52)
+    l_ms = {row["name"]: row["ms"] for row in l_rows}
+    rows = []
+    for name, spec, n in BN254_KERNELS:
+        if name == "mont_mul":
+            args = (spec, rand_below(spec, n, gen, dev), rand_below(spec, n, gen, dev))
+            nbytes, nops = 3 * 64 * n, mul_ops(1, 1) * n
+        else:
+            ops = [rand_below(spec, n, gen, dev) for _ in range(8)]
+            key = rand_below(spec, 1, gen, dev).reshape(NLIMBS)
+            args = (spec, 0, *ops, key)
+            nbytes, nops = (8 * 64 + 2 * 64) * n + 64, mul_ops(6, 4) * n
+        got = fk.KERNELS[name](*args)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        plain = fk.PLAIN[name](*args)
+        t1.record()
+        torch.cuda.synchronize()
+        err = max_diff(got, plain)
+        check(err == 0, f"{name} at {spec.name} differs from its plain version (max {err})")
+        ms = cuda_ms(lambda: fk.KERNELS[name](*args), reps=20)
+        t_bytes, t_ops = nbytes / mem_rate, nops / int_rate
+        label = f"{name}[{spec.name}]"
+        rows.append({
+            "name": label, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name].get(spec.name, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": t0.elapsed_time(t1),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": None,
+        })
+        log(f"[13 bn254] {label} at (16, 2^{n.bit_length() - 1}): {ms:.4f} ms/launch "
+            f"(l field, phase 6: {l_ms[name]:.4f} ms), plain {rows[-1]['plain_ms']:.2f} ms, "
+            f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}); max limb "
+            f"difference vs plain {err} (tolerance 0: exact integers)")
+    return rows
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_parties(cmd: list, timeout: float) -> list:
+    """Run `cmd + ["--party", p]` for p = 1 (the listener) and 0 at once;
+    -> each party's last stdout line as JSON.  Stops both on any failure."""
+    procs = {p: subprocess.Popen(cmd + ["--party", str(p)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for p in (1, 0)}
+    try:
+        outs = {p: proc.communicate(timeout=timeout) for p, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    results = []
+    for p in (0, 1):
+        out, err = outs[p]
+        check(procs[p].returncode == 0,
+              f"party {p} exited {procs[p].returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    return results
+
+
+def phase_tcp(dev) -> dict:
+    """Two party processes on this card over localhost TCP (plaintext: the
+    card host has no `cryptography` for TLS): the integration registry, then
+    the wire-inclusive batch."""
+    from ark_mpc_tpu_torch.fabric import native_net
+
+    _, lib_path = native_net.library()  # load or build it once, before the children
+    t0 = time.time()
+    r0, r1 = run_parties([sys.executable, "-m", "ark_mpc_tpu_torch.integration",
+                          "--port", str(free_port()), "--no-tls", "--quiet",
+                          "--timeout", str(REGISTRY_TIMEOUT)], REGISTRY_TIMEOUT)
+    registry_s = time.time() - t0
+    check(r0 == r1, "the parties' registry results differ")
+    bad = {k: v for k, v in r0.items() if v != "ok"}
+    check(not bad, f"registry cases failed: {bad}")
+    log(f"[14 tcp] integration registry over TCP (no TLS, native IO from "
+        f"{lib_path}): {len(r0)}/{len(r0)} cases ok in both parties, "
+        f"{registry_s:.1f} s wall")
+
+    w0, w1 = run_parties([sys.executable, os.path.abspath(__file__), "--wire-port",
+                          str(free_port())], REGISTRY_TIMEOUT)
+    check(w0["spots"] == w1["spots"], "the wire parties opened different values")
+    xs, ys, zs = w0["spots"]
+    check(zs == [x * pow(y, WIRE_ROUNDS, L) % L for x, y in zip(xs, ys)],
+          f"the wire batch's output is not x * y^{WIRE_ROUNDS}")
+    for w in (w0, w1):
+        check(w["io"] == "native", f"party {w['party']} IO path is {w['io']}, not native")
+        check(w["beaver_round_launches"] > 0,
+              f"party {w['party']} launched no beaver_round")
+    elapsed = max(w0["elapsed_s"], w1["elapsed_s"])
+    mults = WIRE_N * WIRE_ROUNDS
+    out = {"mults_per_sec": mults / elapsed, "elapsed_s_max_of_parties": elapsed,
+           "bytes_sent_per_mult": [w["bytes_sent"] / mults for w in (w0, w1)],
+           "setup_s": [w["setup_s"] for w in (w0, w1)], "io": w0["io"],
+           "beaver_round_launches": [w["beaver_round_launches"] for w in (w0, w1)],
+           "parties": [w0, w1], "registry_s": registry_s, "registry_cases": len(r0)}
+    log(f"[14 tcp] wire-inclusive batch n=2^20 x {WIRE_ROUNDS} chained muls + 1 "
+        f"authenticated open + 1 folded deferred check, two processes on one card: "
+        f"{out['mults_per_sec']:.4e} mults/s (max of the parties' {w0['elapsed_s']:.3f} / "
+        f"{w1['elapsed_s']:.3f} s), bytes sent per mult "
+        f"{out['bytes_sent_per_mult'][0]:.2f} / {out['bytes_sent_per_mult'][1]:.2f}, "
+        f"set-up {w0['setup_s']:.1f} / {w1['setup_s']:.1f} s, IO {w0['io']}, "
+        f"beaver_round launches {out['beaver_round_launches']}; spot values equal "
+        "Python ints")
+    for w in (w0, w1):
+        log(f"[14 tcp] party {w['party']} timed steps (s, host clock; `in_exchange` "
+            f"spans sending and waiting for the peer): "
+            f"{ {k: round(v, 3) for k, v in w['steps_s'].items()} }")
+    return out
+
+
+class StockedDealer(TrustedDealerSource):
+    """The dealer with triple batches drawn ahead (the same stream order),
+    so that the timed online phase does not include drawing them."""
+
+    def stock(self, n: int, count: int) -> None:
+        self._stock = [super(StockedDealer, self).next_triplet_batch(n)
+                       for _ in range(count)]
+
+    def next_triplet_batch(self, n: int):
+        if getattr(self, "_stock", None):
+            return self._stock.pop(0)
+        return super().next_triplet_batch(n)
+
+
+def wire_party(party: int, port: int) -> dict:
+    """One party of the wire-inclusive batch (run by phase 14 as a child)."""
+    dev = resolve_device(None)
+    t0 = time.time()
+    dealer = StockedDealer(party, seed=WIRE_SEED, device=dev)
+    transport = TcpTransport(party, "127.0.0.1", port, timeout=REGISTRY_TIMEOUT, tls=False)
+    blocked = [0.0]  # seconds inside transport.exchange: sending, and waiting for the peer
+    exchange = transport.exchange
+
+    def timed_exchange(data):
+        t = time.time()
+        try:
+            return exchange(data)
+        finally:
+            blocked[0] += time.time() - t
+
+    transport.exchange = timed_exchange
+    try:
+        fabric = MpcFabric(party, transport, dealer, device=dev, collect_stats=True)
+        fk.reset_launches()
+        x = dealer.next_shared_value_batch(WIRE_N)
+        y = dealer.next_shared_value_batch(WIRE_N)
+        z = fabric.mul(x, y)  # warm-up round, outside the clock
+        fabric.open_authenticated(z, defer=True)
+        fabric.verify_deferred(fold=True)
+        dealer.stock(WIRE_N, WIRE_ROUNDS)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        stats = transport.stats
+        base = (stats.bytes_sent, stats.msgs_sent)
+        transport.exchange(b"go")
+        fabric.stats = FabricStats()
+        blocked[0] = 0.0
+        t1 = time.time()
+        z = x
+        for _ in range(WIRE_ROUNDS):
+            z = fabric.mul(z, y)
+        opened = fabric.open_authenticated(z, defer=True)
+        fabric.verify_deferred(fold=True)
+        torch.cuda.synchronize()
+        elapsed = time.time() - t1
+        steps = {op: v["seconds"] for op, v in fabric.stats.snapshot()["ops"].items()}
+        steps["in_exchange"] = blocked[0]
+        sent = (stats.bytes_sent - base[0], stats.msgs_sent - base[1])
+        idx = torch.tensor([0, 7, WIRE_N // 3, WIRE_N - 1], device=dev)
+        ox = fabric.open_authenticated(x[idx], defer=True)
+        oy = fabric.open_authenticated(y[idx], defer=True)
+        fabric.verify_deferred(fold=True)
+        return {"party": party, "n": WIRE_N, "rounds": WIRE_ROUNDS, "elapsed_s": elapsed,
+                "setup_s": setup_s, "steps_s": steps, "bytes_sent": sent[0],
+                "msgs_sent": sent[1],
+                "io": transport.io, "tls": transport.tls,
+                "beaver_round_launches": fk.beaver_round.launches,
+                "spots": [ox.to_ints(), oy.to_ints(), opened[idx].to_ints()],
+                "device": torch.cuda.get_device_name(dev)}
+    finally:
+        transport.close()
+
+
 def timed(label: str, fn, *args):
     """Run one phase; log its seconds (host clock, after a synchronize)."""
     torch.cuda.synchronize()
@@ -1284,11 +1699,18 @@ def timed(label: str, fn, *args):
     return out
 
 
-def main() -> int:
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card "
               "only", file=sys.stderr)
         return 1
+    if argv:  # one party of phase 14's wire-inclusive batch
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--wire-port", type=int, required=True)
+        ap.add_argument("--party", type=int, required=True, choices=[0, 1])
+        args = ap.parse_args(argv)
+        print(json.dumps(wire_party(args.party, args.wire_port)), flush=True)
+        return 0
     dev = torch.device("cuda")
     t_start = time.time()
     card, build_logs = phase_build()
@@ -1325,11 +1747,23 @@ def main() -> int:
     check(all(circuit_launches[k] > 0 for k in ("mont_mul", "beaver_round", "windowed_mul")),
           "a kernel of the circuit path was never launched")
 
+    fk.reset_launches()
+    bn254 = timed("13 bn254", phase_bn254, dev)
+    bn254_launches = fk.field_launch_counts()
+    log(f"bn254-path launches: {bn254_launches}")
+    check(all(bn254_launches[k].get(f, 0) > 0 for k, f in (
+        ("mont_mul", "bn254-fq"), ("mont_mul", "bn254-fr"), ("beaver_round", "bn254-fr"))),
+        "a kernel of the BN254 path was never launched at its field")
+    bn254.update(timed("13 bn254", g1_mul_alone, dev))
+    rows += timed("13 bn254", bn254_kernel_rows, dev, bn254_launches, rows)
+    tcp = timed("14 tcp", phase_tcp, dev)
+
     log(json.dumps({"headline": headline}))
     log(json.dumps({"points_n_10000": points}))
     log(json.dumps({"msm_n_2^16": msm_times}))
     log(json.dumps({"times_at_n_2^16": plain_2_16}))
     log(json.dumps({"traced": traced, "matmul_poly": mats}))
+    log(json.dumps({"bn254": bn254, "tcp": tcp}))
     log(f"total {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)
@@ -1340,4 +1774,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,13 +13,11 @@ import torch
 import _torch_wire_faults as wire_faults
 from ark_mpc_tpu_torch import AuthenticationError, execute_mock_mpc_dealer
 from ark_mpc_tpu_torch.algebra import limbs as lb
+from ark_mpc_tpu_torch.algebra.bn254 import BN254_BASE, BN254_SCALAR
 from ark_mpc_tpu_torch.algebra.fields import SCALAR_FIELD
 from ark_mpc_tpu_torch.algebra.scalar import Scalar
 from ark_mpc_tpu_torch.ops import fp_kernels as fk
 
-BN254_FR = lb.FieldSpec(
-    21888242871839275222246405745257275088548364400416034343698204186575808495617,
-    "bn254-fr")
 
 pytestmark = pytest.mark.cuda
 
@@ -41,7 +39,7 @@ def operands(spec, n, count, seed, dev):
             [F.random((), rng, device=dev).limbs for _ in range(2)])
 
 
-@pytest.mark.parametrize("spec", [SCALAR_FIELD, BN254_FR], ids=lambda s: s.name)
+@pytest.mark.parametrize("spec", [SCALAR_FIELD, BN254_SCALAR, BN254_BASE], ids=lambda s: s.name)
 @pytest.mark.parametrize("n", [1, 1000, 4096])
 def test_kernels_match_plain(dev, spec, n):
     arr, keys = operands(spec, n, 18, n, dev)
@@ -60,7 +58,7 @@ def test_kernels_match_plain(dev, spec, n):
     assert [after[k] - before[k] for k in after] == [2, 2, 1]
 
 
-@pytest.mark.parametrize("spec", [SCALAR_FIELD, BN254_FR], ids=lambda s: s.name)
+@pytest.mark.parametrize("spec", [SCALAR_FIELD, BN254_SCALAR], ids=lambda s: s.name)
 def test_chain_all_operands_m_minus_1(dev, spec):
     """Every operand and key at m - 1 (the largest carries, reductions and
     fold word sums) at n = 4096 + 7, an odd tail past the last full tile."""
@@ -73,7 +71,7 @@ def test_chain_all_operands_m_minus_1(dev, spec):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("spec", [SCALAR_FIELD, BN254_FR], ids=lambda s: s.name)
+@pytest.mark.parametrize("spec", [SCALAR_FIELD, BN254_SCALAR], ids=lambda s: s.name)
 def test_chain_one_round(dev, spec):
     arr, keys = operands(spec, 4096 + 7, 18, 17, dev)
     args = (spec, 1, *arr[:17], *keys, arr[17])
@@ -478,3 +476,67 @@ def test_honest_product_under_the_wire_checks_on_the_card(dev):
 def test_malformed_received_field_elements_abort_on_the_card(dev, fault):
     with pytest.raises(AuthenticationError):
         execute_mock_mpc_dealer(wire_faults.FAULTS[fault], device=dev)
+
+
+# ---------------------------------------------------------------------------
+# BN254 G1 on the card (plain torch; every Fq product through mont_mul) and
+# the plaintext TCP transport's native IO with card-made limbs
+# ---------------------------------------------------------------------------
+
+
+def test_g1_ops_on_the_card_match_the_cpu(dev):
+    """double, add (with the equal, opposite and identity selects) and mul
+    on the card equal the same calls on the CPU, limb for limb, and launch
+    the mont_mul kernel."""
+    from ark_mpc_tpu_torch.algebra.bn254 import G1, Fr
+
+    rng = np.random.default_rng(90)
+    n = 8
+    k = Fr.random(n, rng, device="cpu")
+    cpu_p = G1.generator((n,), device="cpu").mul(k)
+    cpu_q = cpu_p.double()
+    cpu_q = G1.concatenate([cpu_q[:4], cpu_p[4:6], -cpu_p[6:7], G1.identity((1,), device="cpu")])
+    on = {name: G1(*(type(c)(c.limbs.to(dev)) for c in pt._coords()))
+          for name, pt in (("p", cpu_p), ("q", cpu_q))}
+    s = Fr.random(n, rng, device="cpu")
+    before = fk.mont_mul.launches
+    got = [on["p"].double(), on["p"] + on["q"], on["p"].mul(Fr(s.limbs.to(dev)))]
+    assert fk.mont_mul.launches - before > 0
+    want = [cpu_p.double(), cpu_p + cpu_q, cpu_p.mul(s)]
+    for g, w in zip(got, want):
+        for gc, wc in zip(g._coords(), w._coords()):
+            assert torch.equal(gc.limbs.cpu(), wc.limbs)
+
+
+def test_tcp_plaintext_exchange_of_card_limbs(dev):
+    """Two threads exchange limbs made on the card over `TcpTransport(tls=
+    False)`, which takes the native IO library."""
+    import socket
+    import threading
+
+    from ark_mpc_tpu_torch.fabric import messages
+    from ark_mpc_tpu_torch.fabric.transport import TcpTransport
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mine = [Scalar.random(1000, np.random.default_rng(p), device=dev) for p in (0, 1)]
+    wire = [messages.encode_arrays([x.limbs.cpu().numpy().astype(np.uint32)]) for x in mine]
+    got = {}
+
+    def listener():
+        t1 = TcpTransport(1, "127.0.0.1", port, timeout=30, tls=False)
+        got[1], got["io1"] = t1.exchange(wire[1]), t1.io
+        t1.close()
+
+    th = threading.Thread(target=listener, daemon=True)
+    th.start()
+    t0 = TcpTransport(0, "127.0.0.1", port, timeout=30, tls=False)
+    got[0] = t0.exchange(wire[0])
+    th.join(timeout=30)
+    t0.close()
+    assert not th.is_alive() and t0.io == got["io1"] == "native"
+    for p in (0, 1):
+        (arr,) = messages.decode_arrays(got[p])
+        theirs = torch.from_numpy(arr.astype(np.int32)).to(dev)
+        assert torch.equal(theirs, mine[1 - p].limbs)

@@ -300,3 +300,30 @@ def test_entry_points_default_to_cuda():
         port.TrustedDealerSource(0, seed=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.execute_mock_mpc(prog_readme_product)
+
+
+# -- negative exponents: the port raises where the reference computes a
+# positive power (`FieldArray.pow`) or never ends (`MpcFabric.pow`) --------
+
+
+@pytest.mark.parametrize("e", [-1, -5])
+def test_field_pow_rejects_negative_exponent(e):
+    x = port.Scalar.from_ints([3, 7], device="cpu")
+    with pytest.raises(ValueError, match="exponent"):
+        x.pow(e)
+    assert x.pow(5).to_ints() == [3 ** 5, 7 ** 5]
+
+
+@pytest.mark.parametrize("e", [-1, -5])
+def test_fabric_pow_rejects_negative_exponent_before_any_round(e):
+    def prog(fabric):
+        sx = share_in(fabric, XS[:2], 0)
+        rounds = fabric.n_rounds
+        with pytest.raises(ValueError, match="exponent"):
+            fabric.pow(sx, e)
+        assert fabric.n_rounds == rounds
+        # no triple was drawn: the next product and its check still agree
+        return fabric.open_authenticated(fabric.mul(sx, sx)).to_ints()
+
+    r0, r1 = port.execute_mock_mpc_dealer(prog, device="cpu")
+    assert r0 == r1 == [x * x % L for x in XS[:2]]

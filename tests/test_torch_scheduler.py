@@ -286,3 +286,18 @@ def test_fabric_stats_dump():
     plain = port.MpcFabric(0, NoRecvTransport(), port.PartyIDBeaverSource(0, device="cpu"),
                            device="cpu")
     assert plain.stats is None and plain.num_ops() == 0
+
+
+@pytest.mark.parametrize("e", [-1, -5])
+def test_traced_pow_rejects_negative_exponent(e):
+    def prog(fabric):
+        tr = fabric.tracer()
+        x = tr.wrap(share_in(fabric, XS, 0))
+        with pytest.raises(ValueError, match="exponent"):
+            x.pow(e)
+        o = (x * x).open()
+        tr.run()
+        return o.value.to_ints()
+
+    v0, v1 = port.execute_mock_mpc_dealer(prog, device="cpu")
+    assert v0 == v1 == [x * x % L for x in XS]
