@@ -11,6 +11,16 @@ in the reference.  They compute the reference's field values, so every
 coordinate is bit-identical, with each level's products batched into one
 call (one `mont_mul` launch on the card).
 
+The batching is why the formulas are generators run side by side by
+`_run`, and why D is 4·X1·B and each small multiple k·v a product with
+k·R (so it joins its level's call): a ladder step makes 11 product calls
+where the reference's straight-line formulas make 30 (7 for the doubling,
+16 for the addition, 7 for the doubling its equal-point select needs).
+A plain product is a few hundred tensor ops however wide the batch,
+so the CPU tests' time budget needs the fewer calls; on the card they are
+fewer `mont_mul` launches.  A CUDA G1 ladder would replace all of this
+(ROADMAP, performance work).
+
 Constructors take a `device` (default: the CUDA card).
 """
 

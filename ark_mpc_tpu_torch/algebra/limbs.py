@@ -71,11 +71,7 @@ class FieldSpec:
         # CIOS words and need n0_32 = -m^{-1} mod 2^32.
         self.n0 = (-pow(modulus, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
         self.n0_32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
-        self.n_prime_limbs = [int(v) for v in int_to_limbs(
-            (-pow(modulus, -1, 1 << 256)) % (1 << 256))]
         self.mod_limbs = int_to_limbs(modulus)
-        self.mod_limbs_list = [int(v) for v in self.mod_limbs]
-        self.neg_mod_limbs = [int(v) for v in int_to_limbs((1 << 256) - modulus)]
         self.r2_limbs = int_to_limbs(self.r2)
         # internal-form 1: Montgomery R for generic fields, literal 1 for
         # pseudo-Mersenne (canonical) fields
@@ -124,89 +120,6 @@ def _carry(t: torch.Tensor):
     return out, carry
 
 
-_const_cache: dict = {}
-_MUL_CHUNK = 1 << 20  # elements per plain product call
-# Carry resolution and the plain Montgomery product take one of two forms by
-# batch size: below this many elements, whole-tensor look-ahead forms (a
-# fixed ~12 launches a carry chain: launch-bound batches); from it on, a
-# pass over one limb row at a time (fewer bytes moved: bandwidth-bound
-# batches).  On an H100 the row loop wins every op from 2^20 elements on
-# (`tools/plain_carry_probe.py`).
-ROW_LOOP_FROM = 1 << 20
-
-
-def _limb_const(values, like: torch.Tensor) -> torch.Tensor:
-    """int64 `values`, one a row, as a column broadcasting against `like`
-    (made once per device)."""
-    key = (tuple(values), str(like.device))
-    if key not in _const_cache:
-        _const_cache[key] = torch.tensor(values, dtype=torch.int64,
-                                         device=like.device)
-    return _const_cache[key].reshape((len(values),) + (1,) * (like.dim() - 1))
-
-
-def _normalize(v: torch.Tensor, keep: int = LIMB_MASK):
-    """Exact carry propagation of int64 limbs by look-ahead, in a fixed
-    number of whole-tensor ops -> (limbs < 2^16, carry out of the top one).
-
-    Each limb's own carry (v >> 16) must be 0 or 1 with v < 2^17 - 1
-    (sums, keep = 0xFFFF), or 0 or -1 with v > -2^16 (differences, keep =
-    0).  A limb whose low 16 bits are not `keep` passes on exactly its own
-    carry; a `keep` limb passes on the carry it receives, so the carry into
-    limb i comes from the nearest limb below it that is not `keep`.  From
-    `ROW_LOOP_FROM` elements on, the carries run limb row by limb row."""
-    if v[0].numel() >= ROW_LOOP_FROM:
-        return _carry(v)
-    g = v >> LIMB_BITS
-    r = v & LIMB_MASK
-    idx = _limb_const(range(r.shape[0]), r)
-    last = torch.cummax(torch.where(r != keep, idx, -1), dim=0).values
-    c = torch.gather(g, 0, last.clamp(min=0)) * (last >= 0)
-    r[1:] += c[:-1]
-    return r & LIMB_MASK, c[-1]
-
-
-def _carry_pass(v: torch.Tensor) -> torch.Tensor:
-    """One carry pass over int64 rows; the carry out of the top row drops."""
-    out = v & LIMB_MASK
-    out[1:] += (v >> LIMB_BITS)[:-1]
-    return out
-
-
-def _resolve(v: torch.Tensor, passes: int = 2) -> torch.Tensor:
-    """Non-negative int64 columns -> exact 16-bit limbs of their value mod
-    2^(16 * rows): carry passes, then the look-ahead.  A pass takes rows
-    below 2^(16 + b) to below 2^16 + 2^b: two passes suffice for columns
-    below 2^40, three below 2^56."""
-    for _ in range(passes):
-        v = _carry_pass(v)
-    return _normalize(v)[0]
-
-
-def _skew_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Full product of flat (16, n) int64 limb tensors (y may be a (16, 1)
-    constant) as 32 un-carried columns: column k = sum_{i+j=k} x_i y_j."""
-    n = x.shape[1]
-    outer = x[:, None, :] * y[None, :, :]  # (16, 16, n)
-    # skew row i right by i (pad rows to 33, read back as rows of 32) and sum
-    skew = torch.cat([outer, outer.new_zeros(NLIMBS, NLIMBS + 1, n)], 1)
-    return skew.reshape(NLIMBS * 33, n)[:NLIMBS * 32].reshape(NLIMBS, 32, n).sum(0)
-
-
-def _flat_chunks(fn, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """fn over x and y broadcast, flattened to (16, n) int64 and cut into
-    chunks of `_MUL_CHUNK` elements (bounding the (16, 33, n) int64
-    intermediate of `_skew_product`), reshaped back."""
-    x, y = torch.broadcast_tensors(_i64(x), _i64(y))
-    shape = x.shape
-    xf, yf = x.reshape(NLIMBS, -1), y.reshape(NLIMBS, -1)
-    n = xf.shape[1]
-    if n <= _MUL_CHUNK:
-        return fn(xf, yf).reshape(shape)
-    return torch.cat([fn(xf[:, i:i + _MUL_CHUNK], yf[:, i:i + _MUL_CHUNK])
-                      for i in range(0, n, _MUL_CHUNK)], 1).reshape(shape)
-
-
 def _sub_mod_limbs(spec: FieldSpec, x: torch.Tensor):
     """x - m limb-wise over (16, ...) int64 -> (result limbs, borrow in {0,1})."""
     out = torch.empty_like(x)
@@ -233,19 +146,24 @@ def add(spec: FieldSpec, x, y):
     """(x + y) mod m, inputs/outputs in [0, m)."""
     if spec.pm_c:
         return add25519(x, y)
-    s, _ = _normalize(_i64(x) + _i64(y))  # x + y < 2m < 2^256
-    # s + 2^256 - m carries out of limb 15 exactly when s >= m
-    d, ge = _normalize(s + _limb_const(spec.neg_mod_limbs, s))
-    return torch.where(ge == 1, d, s).to(LIMB_DTYPE)
+    s, _ = _carry(_i64(x) + _i64(y))
+    return _cond_sub(spec, s).to(LIMB_DTYPE)
 
 
 def sub(spec: FieldSpec, x, y):
     """(x - y) mod m."""
     if spec.pm_c:
         return sub25519(x, y)
-    d, borrow = _normalize(_i64(x) - _i64(y), keep=0)  # borrow -1 when x < y
-    s, _ = _normalize(d + _limb_const(spec.mod_limbs_list, d))  # d + m mod 2^256
-    return torch.where(borrow < 0, s, d).to(LIMB_DTYPE)
+    out = torch.empty_like(_i64(x))
+    borrow = torch.zeros_like(out[0])
+    xi, yi = _i64(x), _i64(y)
+    for i in range(NLIMBS):
+        v = xi[i] - yi[i] - borrow
+        out[i] = v & LIMB_MASK
+        borrow = -(v >> LIMB_BITS)
+    # add m back where the subtraction borrowed
+    s, _ = _carry(out + spec.mod_column(out.device, out.dim() - 1))
+    return torch.where(borrow == 1, s, out).to(LIMB_DTYPE)
 
 
 def neg(spec: FieldSpec, x):
@@ -281,6 +199,16 @@ def eq(x, y):
 # ---------------------------------------------------------------------------
 
 
+def _conv(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Full 256x256-bit product as 33 un-carried int64 columns.
+
+    Column k sums the unsplit 32-bit products x_i*y_j with i+j == k (< 2^36)."""
+    cols = x.new_zeros((2 * NLIMBS + 1,) + x.shape[1:])
+    for i in range(NLIMBS):
+        cols[i:i + NLIMBS] += x[i] * y
+    return cols
+
+
 def _redc(spec: FieldSpec, cols: torch.Tensor, iters: int = NLIMBS):
     """Montgomery reduction of int64 16-bit columns -> 16 canonical limbs.
 
@@ -303,18 +231,28 @@ def _redc(spec: FieldSpec, cols: torch.Tensor, iters: int = NLIMBS):
 # p = 2^255 - 19 (the Ed25519 base field): few-op plain arithmetic
 #
 # The curve layer runs thousands of base-field ops per scalar multiplication,
-# so these avoid Montgomery reduction and canonical carries.  Between ops a
-# value is kept LAZY: int64 limbs below 2^17 - 80 whose value is only
-# congruent mod p; carries move in whole-tensor passes.  `canon25519` brings
-# a lazy value to canonical limbs, resolving the last exact carry chain by
-# the look-ahead of `_normalize`.  Canonical outputs are bit-identical to
-# every other route.
+# so these avoid the 16-step carry loops above.  Between ops a value is kept
+# LAZY: int64 limbs below 2^17 - 80 whose value is only congruent mod p;
+# carries move in whole-tensor passes.  `canon25519` brings a lazy value to
+# canonical limbs, resolving the last exact carry chain by a look-ahead (the
+# carry into limb i comes from the nearest limb below it that is not
+# 0xFFFF).  Canonical outputs are bit-identical to every other route.
 # This is the one field with `FieldSpec.pm_c` (2^256 = 38 mod p).
 # ---------------------------------------------------------------------------
 
 # 8p with every limb in [2^18 - 152, 2^18): x + 8p - y has no negative limb
 # for lazy y.
 _EIGHTP = [(1 << 18) - 152] + [(1 << 18) - 4] * (NLIMBS - 1)
+_const_cache: dict = {}
+_MUL_CHUNK = 1 << 20  # elements per plain product call
+
+
+def _limb_const(values, like: torch.Tensor) -> torch.Tensor:
+    key = (tuple(values), str(like.device))
+    if key not in _const_cache:
+        _const_cache[key] = torch.tensor(values, dtype=torch.int64,
+                                         device=like.device)
+    return _const_cache[key].reshape((NLIMBS,) + (1,) * (like.dim() - 1))
 
 
 def _wrap_pass(v: torch.Tensor) -> torch.Tensor:
@@ -325,6 +263,20 @@ def _wrap_pass(v: torch.Tensor) -> torch.Tensor:
     out[1:] += c[:-1]
     out[0] += 38 * c[-1]
     return out
+
+
+def _normalize(v: torch.Tensor):
+    """Exact carry propagation of int64 limbs in [0, 2^17 - 1) ->
+    (16 limbs < 2^16, carry out of limb 15 in {0, 1})."""
+    g = v >> LIMB_BITS  # each limb generates at most one carry
+    r = v & LIMB_MASK
+    idx = _limb_const(list(range(NLIMBS)), r)
+    # a limb that is not 0xFFFF passes on exactly its own carry; 0xFFFF
+    # limbs pass on the carry they receive
+    last = torch.cummax(torch.where(r != LIMB_MASK, idx, -1), dim=0).values
+    c = torch.gather(g, 0, last.clamp(min=0)) * (last >= 0)
+    r[1:] += c[:-1]
+    return r & LIMB_MASK, c[-1]
 
 
 def canon25519(v: torch.Tensor) -> torch.Tensor:
@@ -345,14 +297,21 @@ def canon25519(v: torch.Tensor) -> torch.Tensor:
 
 def lazy_mul25519(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Product of lazy (or canonical) limb tensors, lazy int64 out."""
-    return _flat_chunks(_lazy_mul25519_flat, x, y)
-
-
-def _lazy_mul25519_flat(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    cols = _skew_product(x, y)  # each < 2^38 for lazy limbs < 2^17
+    x, y = torch.broadcast_tensors(_i64(x), _i64(y))
+    shape = x.shape
+    xf, yf = x.reshape(NLIMBS, -1), y.reshape(NLIMBS, -1)
+    n = xf.shape[1]
+    if n > _MUL_CHUNK:  # bound the (16, 33, n) int64 intermediate
+        return torch.cat([lazy_mul25519(xf[:, i:i + _MUL_CHUNK], yf[:, i:i + _MUL_CHUNK])
+                          for i in range(0, n, _MUL_CHUNK)], 1).reshape(shape)
+    outer = xf[:, None, :] * yf[None, :, :]  # (16, 16, n), each < 2^34
+    # skew row i right by i (pad rows to 33, read back as rows of 32) and
+    # sum: column k = sum_{i+j=k} x_i y_j < 2^38
+    skew = torch.cat([outer, outer.new_zeros(NLIMBS, NLIMBS + 1, n)], 1)
+    cols = skew.reshape(NLIMBS * 33, n)[:NLIMBS * 32].reshape(NLIMBS, 32, n).sum(0)
     v = cols[:NLIMBS] + 38 * cols[NLIMBS:]  # < 2^43.3
     # three passes: limbs < 2^32.6, then < 2^17.4, then < 2^16 + 39
-    return _wrap_pass(_wrap_pass(_wrap_pass(v)))
+    return _wrap_pass(_wrap_pass(_wrap_pass(v))).reshape(shape)
 
 
 def lazy_add25519(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -390,25 +349,7 @@ def mont_mul_plain(spec: FieldSpec, x, y):
     """Plain torch field product in internal form (any device)."""
     if spec.pm_c:
         return mul25519(x, y)
-    return _flat_chunks(lambda a, b: _mont_product(spec, a, b), x, y)
-
-
-def _mont_product(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x * y * 2^-256 mod m over flat (16, n) int64 limbs in [0, m), by
-    whole-number REDC in a fixed number of whole-tensor ops: with T = x * y
-    and q = (T mod R) * (-m^-1) mod R, T + q*m is a multiple of R = 2^256
-    and (T + q*m) / R < 2m.  From `ROW_LOOP_FROM` elements on, the
-    reduction runs limb by limb (`_redc`)."""
-    t = _skew_product(x, y)  # 32 columns < 2^36
-    if x.shape[1] >= ROW_LOOP_FROM:
-        return _redc(spec, t)
-    # the low 16 columns are T mod R up to multiples of R; their product with
-    # -m^-1 has columns < 2^56, resolved mod R to exact limbs
-    q = _resolve(_skew_product(t[:NLIMBS], _limb_const(spec.n_prime_limbs, t))[:NLIMBS], 3)
-    u = _resolve(t + _skew_product(q, _limb_const(spec.mod_limbs_list, q)))
-    r = u[NLIMBS:]  # T + q*m < m^2 + R*m < 2^512: no carry out of the top
-    d, ge = _normalize(r + _limb_const(spec.neg_mod_limbs, r))
-    return torch.where(ge == 1, d, r).to(LIMB_DTYPE)
+    return _redc(spec, _conv(_i64(x), _i64(y)))
 
 
 def mont_mul(spec: FieldSpec, x, y):

@@ -81,9 +81,11 @@ Phases (any failure exits non-zero; there is no CPU path):
               ark_mpc_tpu_torch.integration` runs every registry case in
               both, which must all be "ok" and agree; then the
               wire-inclusive batch of `benchmarks/online_wire.py` at its
-              full size (n = 2^20, 4 chained `fabric.mul` rounds, one
-              authenticated open, one folded deferred check; this script
-              run as `--wire-port P --party p`): mults/s over the slower
+              full size (n = 2^20, 4 chained `fabric.mul` rounds drawing
+              their triples inside the clock, one authenticated open, one
+              folded deferred check where that file's is unfolded, and
+              plaintext where it uses TLS; this script run as
+              `--wire-port P --party p`): mults/s over the slower
               party's wall time, bytes sent per mult, set-up seconds, the
               IO path (must be native) and each party's `beaver_round`
               launches (must be > 0).
@@ -1602,7 +1604,8 @@ def phase_tcp(dev) -> dict:
            "beaver_round_launches": [w["beaver_round_launches"] for w in (w0, w1)],
            "parties": [w0, w1], "registry_s": registry_s, "registry_cases": len(r0)}
     log(f"[14 tcp] wire-inclusive batch n=2^20 x {WIRE_ROUNDS} chained muls + 1 "
-        f"authenticated open + 1 folded deferred check, two processes on one card: "
+        f"authenticated open + 1 folded deferred check (triples drawn inside the "
+        f"clock; plaintext TCP), two processes on one card: "
         f"{out['mults_per_sec']:.4e} mults/s (max of the parties' {w0['elapsed_s']:.3f} / "
         f"{w1['elapsed_s']:.3f} s), bytes sent per mult "
         f"{out['bytes_sent_per_mult'][0]:.2f} / {out['bytes_sent_per_mult'][1]:.2f}, "
@@ -1616,25 +1619,16 @@ def phase_tcp(dev) -> dict:
     return out
 
 
-class StockedDealer(TrustedDealerSource):
-    """The dealer with triple batches drawn ahead (the same stream order),
-    so that the timed online phase does not include drawing them."""
-
-    def stock(self, n: int, count: int) -> None:
-        self._stock = [super(StockedDealer, self).next_triplet_batch(n)
-                       for _ in range(count)]
-
-    def next_triplet_batch(self, n: int):
-        if getattr(self, "_stock", None):
-            return self._stock.pop(0)
-        return super().next_triplet_batch(n)
-
-
 def wire_party(party: int, port: int) -> dict:
-    """One party of the wire-inclusive batch (run by phase 14 as a child)."""
+    """One party of the wire-inclusive batch (run by phase 14 as a child).
+    The timed window is `benchmarks/online_wire.py`'s: each `fabric.mul`
+    draws its triples from the dealer inside it.  It differs from that file
+    in two ways: plaintext TCP (the card host has no `cryptography`) and the
+    folded MAC check (`verify_deferred(fold=True)`; the reference's runs
+    unfolded without a mesh)."""
     dev = resolve_device(None)
     t0 = time.time()
-    dealer = StockedDealer(party, seed=WIRE_SEED, device=dev)
+    dealer = TrustedDealerSource(party, seed=WIRE_SEED, device=dev)
     transport = TcpTransport(party, "127.0.0.1", port, timeout=REGISTRY_TIMEOUT, tls=False)
     blocked = [0.0]  # seconds inside transport.exchange: sending, and waiting for the peer
     exchange = transport.exchange
@@ -1655,7 +1649,6 @@ def wire_party(party: int, port: int) -> dict:
         z = fabric.mul(x, y)  # warm-up round, outside the clock
         fabric.open_authenticated(z, defer=True)
         fabric.verify_deferred(fold=True)
-        dealer.stock(WIRE_N, WIRE_ROUNDS)
         torch.cuda.synchronize()
         setup_s = time.time() - t0
         stats = transport.stats

@@ -71,16 +71,8 @@ def test_spec_constants(field):
     assert (spec.modulus * spec.n0_32) % (1 << 32) == (1 << 32) - 1
 
 
-@pytest.fixture(params=["look_ahead", "row_loop"])
-def carry_form(request, monkeypatch):
-    """Both forms of carry resolution and Montgomery reduction: the whole
-    tensor at once (small batches) and limb row by row (large ones)."""
-    monkeypatch.setattr(lb, "ROW_LOOP_FROM", 0 if request.param == "row_loop" else 1 << 62)
-    return request.param
-
-
 @pytest.mark.parametrize("op", ["add", "sub", "mont_mul"])
-def test_binary_op(field, op, carry_form):
+def test_binary_op(field, op):
     spec, ref = field
     a = limbs(rand_ints(spec.modulus, N, 1))
     b = limbs(rand_ints(spec.modulus, N, 2))
@@ -89,7 +81,7 @@ def test_binary_op(field, op, carry_form):
 
 
 @pytest.mark.parametrize("op", ["neg", "to_mont", "from_mont", "is_zero"])
-def test_unary_op(field, op, carry_form):
+def test_unary_op(field, op):
     spec, ref = field
     a = limbs(rand_ints(spec.modulus, N, 3))
     got = getattr(lb, op)(spec, port(a))

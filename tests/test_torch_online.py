@@ -319,10 +319,12 @@ def test_fabric_pow_rejects_negative_exponent_before_any_round(e):
     def prog(fabric):
         sx = share_in(fabric, XS[:2], 0)
         rounds = fabric.n_rounds
+        stream = fabric.offline.rng.bit_generator.state
         with pytest.raises(ValueError, match="exponent"):
             fabric.pow(sx, e)
         assert fabric.n_rounds == rounds
-        # no triple was drawn: the next product and its check still agree
+        # no triple was drawn: the dealer's stream has not moved
+        assert fabric.offline.rng.bit_generator.state == stream
         return fabric.open_authenticated(fabric.mul(sx, sx)).to_ints()
 
     r0, r1 = port.execute_mock_mpc_dealer(prog, device="cpu")

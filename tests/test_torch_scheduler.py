@@ -293,8 +293,11 @@ def test_traced_pow_rejects_negative_exponent(e):
     def prog(fabric):
         tr = fabric.tracer()
         x = tr.wrap(share_in(fabric, XS, 0))
+        stream = fabric.offline.rng.bit_generator.state
         with pytest.raises(ValueError, match="exponent"):
             x.pow(e)
+        # no triple was drawn: the dealer's stream has not moved
+        assert fabric.offline.rng.bit_generator.state == stream
         o = (x * x).open()
         tr.run()
         return o.value.to_ints()
