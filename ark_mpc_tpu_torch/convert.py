@@ -21,6 +21,23 @@ authenticated shares and offline material.  Everything crosses as numpy:
 `export_source` reads any object with the preprocessing interface whose
 values carry a `.limbs` array (a torch tensor, or anything `numpy.asarray`
 accepts), so one party's material can be taken from either package.
+
+BGV-over-l state (`offline/bgv/`) crosses as uint32 residue arrays (..., L,
+phi), each residue canonical below its prime, in the ring's own form (eval
+form for `PowerfulRing`, coefficients for `CyclotomicRing`):
+
+  - a keypair as ``(sk, pk_a, pk_b)``, each (L, phi), as `KeypairL` holds them;
+  - a `CiphertextL` as ``(c0, c1)``, each (..., L, phi);
+  - a `RelinKeyL` as ``(b, a)``, each (L, L, phi);
+  - a ZK proof as the list `zkpok_words.proof_to_arrays` gives (it reads
+    either package's proofs), the wire format: the
+    ciphertexts (U, L, phi) and commitments (V, L, phi) as uint32, then the
+    int64 word planes z, zu, ze0, ze1.
+
+Rings are not carried: both packages build the same ring from (m,
+n_q_primes).  The `to_*` functions take the port's ring, check each array
+against its basis and put it on the ring's device; the `from_*` functions
+read the JAX package's objects and the port's alike.
 """
 
 from __future__ import annotations
@@ -37,6 +54,8 @@ from .algebra.scalar import FieldArray, Scalar
 from .algebra.share import ScalarShare
 from .device import resolve_device
 from .offline.base import PreprocessingPhase
+from .offline.bgv.bgv_l import CiphertextL, KeypairL, RelinKeyL
+from .offline.bgv.zkpok_words import CiphertextWithProofW, proof_from_arrays
 
 
 def limbs_to_numpy(limbs) -> np.ndarray:
@@ -147,3 +166,72 @@ class ServedSource(PreprocessingPhase):
         batch = self._triples.pop(0)
         return tuple(to_share(pair, self.field, self.device) for pair in batch)
 
+
+
+# ---------------------------------------------------------------------------
+# BGV-over-l keys, ciphertexts and proofs
+# ---------------------------------------------------------------------------
+
+
+def residues_to_numpy(x) -> np.ndarray:
+    """A residue array of either package -> uint32 numpy."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    arr = np.asarray(x)
+    if arr.size and (int(arr.min()) < 0 or int(arr.max()) > 0xFFFFFFFF):
+        raise ValueError("residues must be 32-bit values")
+    return arr.astype(np.uint32)
+
+
+def to_residues(ring, arr, lead: int | None = None) -> torch.Tensor:
+    """(..., L, phi) residues -> an int64 tensor on the ring's device; every
+    residue must be canonical (below its prime).  `lead` fixes the number of
+    leading batch axes."""
+    arr = residues_to_numpy(arr)
+    tail = (len(ring.q_primes), ring.phi)
+    if arr.shape[-2:] != tail or (lead is not None and arr.ndim != lead + 2):
+        raise ValueError(f"residues must be (..., {tail[0]}, {tail[1]}), got {arr.shape}")
+    if (arr >= np.array(ring.q_primes, dtype=np.uint32)[:, None]).any():
+        raise ValueError("residues must be canonical (below their RNS prime)")
+    return torch.as_tensor(arr.astype(np.int64), device=ring.device)
+
+
+def from_keypair(kp) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    return tuple(residues_to_numpy(x) for x in (kp.sk, kp.pk_a, kp.pk_b))
+
+
+def to_keypair(ring, arrays) -> KeypairL:
+    sk, pk_a, pk_b = (to_residues(ring, a, lead=0) for a in arrays)
+    return KeypairL(ring, sk, pk_a, pk_b)
+
+
+def from_ciphertext(ct) -> tuple[np.ndarray, np.ndarray]:
+    return residues_to_numpy(ct.c0), residues_to_numpy(ct.c1)
+
+
+def to_ciphertext(ring, pair) -> CiphertextL:
+    c0, c1 = (to_residues(ring, a) for a in pair)
+    if c0.shape != c1.shape:
+        raise ValueError(f"c0 {tuple(c0.shape)} and c1 {tuple(c1.shape)} differ")
+    return CiphertextL(c0, c1)
+
+
+def from_relin_key(rlk) -> tuple[np.ndarray, np.ndarray]:
+    return residues_to_numpy(rlk.b), residues_to_numpy(rlk.a)
+
+
+def to_relin_key(ring, pair) -> RelinKeyL:
+    n_q = len(ring.q_primes)
+    b, a = (to_residues(ring, x, lead=1) for x in pair)
+    if b.shape[0] != n_q or a.shape[0] != n_q:
+        raise ValueError(f"a relinearization key has {n_q} digit rows")
+    return RelinKeyL(b, a)
+
+
+def to_proof(ring, items) -> CiphertextWithProofW:
+    """The wire list (`proof_to_arrays` of either package) -> a proof for
+    `verify_proof`: residues checked against the ring's basis, ciphertexts on
+    its device, commitments on the host (the verifier checks the shapes)."""
+    cts = [to_residues(ring, c, lead=1) for c in items[:2]]
+    comm = [residues_to_numpy(c) for c in items[2:4]]
+    return proof_from_arrays(cts + comm + list(items[4:]), device=ring.device)

@@ -88,7 +88,19 @@ Phases (any failure exits non-zero; there is no CPU path):
               `--wire-port P --party p`): mults/s over the slower
               party's wall time, bytes sent per mult, set-up seconds, the
               IO path (must be native) and each party's `beaver_round`
-              launches (must be > 0).
+              launches (must be > 0);
+ 15. bgv      BGV over l at the production ring m = 118965 (phi = 48960,
+              24,480 GF(l^2) slots): the ring's host build time; keygen,
+              then encode -> encrypt(x) -> ct x pt(y) -> ct + pt(z) ->
+              rerandomize (drowning at sec 128) -> decrypt -> decode, every
+              slot equal to x*y + z mod l by Python ints; ct x ct with
+              relinearization at the medium ring (m = 1155); the ZK proof
+              with U = 2, V = 128 at sec = ring.zk_sec: accepted, a tampered
+              response digit rejected, the wire round trip accepted; then
+              the median of 5 CUDA-event runs of each op, each op's
+              `mont_mul` launches, prove and verify seconds and the peak
+              device memory, and `mont_mul` at (16, 48960) against its plain
+              version.
 
 Each phase logs its seconds.  The launch counts of the field kernels are
 those of phases 3-5, those of the curve kernels those of phases 8-9 (each
@@ -98,8 +110,8 @@ on the bucket and the winsum routes); phases
 11-12 are a third path, whose kernels (`mont_matmul`'s and the fabric's)
 must each launch there too, and phase 13's fabric batch and point
 protocols a fourth, which must launch `mont_mul` at Fq and at Fr and
-`beaver_round` at Fr (counted by field).  The last line is `{"ok": true,
-"device": {...}}`.
+`beaver_round` at Fr (counted by field), and phase 15 a fifth, which must
+launch `mont_mul` at l.  The last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -142,6 +154,8 @@ from ark_mpc_tpu_torch.fabric import commitment
 from ark_mpc_tpu_torch.fabric.transport import NoRecvTransport
 from ark_mpc_tpu_torch.gadgets import bit_xor, prefix_product
 from ark_mpc_tpu_torch.models.circuits import shared_matmul
+from ark_mpc_tpu_torch.offline import bgv
+from ark_mpc_tpu_torch.offline.bgv import zkpok_words
 from ark_mpc_tpu_torch.ops import _build
 from ark_mpc_tpu_torch.ops import curve_kernels as ck
 from ark_mpc_tpu_torch.ops import fp_kernels as fk
@@ -1681,6 +1695,190 @@ def wire_party(party: int, port: int) -> dict:
     finally:
         transport.close()
 
+# -- phase 15: BGV over l at the production ring --------------------------
+
+BGV_RUNS = 5               # CUDA-event runs of each op; the median is kept
+ZK_V, ZK_U = 128, 2        # triplets_l.ZK_ROWS challenge rows; two plaintexts
+
+
+def slot_ints(rng: np.random.Generator, n: int) -> list:
+    """n uniform elements of F_l as Python ints (320 random bits each)."""
+    raw = rng.bytes(40 * n)
+    return [int.from_bytes(raw[40 * i:40 * i + 40], "little") % L for i in range(n)]
+
+
+def median_event_ms(fn, runs: int = BGV_RUNS) -> float:
+    """Median of `runs` single calls, each timed by CUDA events."""
+    times = []
+    for _ in range(runs):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return float(np.median(times))
+
+
+def bgv_pipeline(ring, dev) -> tuple[dict, dict]:
+    """Key, then encode -> encrypt(x) -> ct x pt(y) -> ct + pt(z) -> drown ->
+    decrypt -> decode on every slot, each op once with its mont_mul launches;
+    every slot must equal x y + z mod l.  -> (launches by op, the ops as
+    closures for timing, the keypair)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(60)
+    kp = bgv.keygen_l(ring, gen)
+    rng = np.random.default_rng(61)
+    x, y, z = (slot_ints(rng, ring.slots) for _ in range(3))
+    sx, sy, sz = (Scalar.from_ints(v, device=dev) for v in (x, y, z))
+    launches, state = {}, {}
+    ops = {
+        "encode": lambda: bgv.encode_slots_l(ring, sx),
+        "encrypt": lambda: bgv.encrypt_l(ring, kp.pk_a, kp.pk_b, state["encode"], gen),
+        "ct_x_pt": lambda: bgv.mul_pt_l(ring, state["encrypt"], state["pt_y"]),
+        "ct_plus_pt": lambda: bgv.add_pt_l(ring, state["ct_x_pt"], state["pt_z"]),
+        "rerandomize": lambda: bgv.rerandomize_l(ring, kp.pk_a, kp.pk_b, state["ct_plus_pt"], gen),
+        "decrypt": lambda: bgv.decrypt_l(ring, kp.sk, state["rerandomize"]),
+        "decode": lambda: bgv.decode_slots_l(ring, state["decrypt"]),
+    }
+    state["pt_y"] = bgv.encode_slots_l(ring, sy)
+    state["pt_z"] = bgv.encode_slots_l(ring, sz)
+    for name, fn in ops.items():
+        before = fk.mont_mul.launches
+        state[name] = fn()
+        torch.cuda.synchronize()
+        launches[name] = fk.mont_mul.launches - before
+    got = state["decode"].to_ints()
+    want = [(a * b + c) % L for a, b, c in zip(x, y, z)]
+    check(len(got) == ring.slots, f"decoded {len(got)} slots")
+    bad = sum(g != w for g, w in zip(got, want))
+    check(bad == 0, f"{bad} of {ring.slots} slots differ from x*y + z mod l")
+    log(f"[15 bgv] encode -> encrypt -> ct x pt -> ct + pt -> rerandomize (drown "
+        f"{ring.drown_bits} bits) -> decrypt -> decode: {ring.slots}/{ring.slots} slots "
+        "equal x*y + z mod l (Python ints)")
+    return launches, ops, kp
+
+
+def bgv_ct_x_ct(dev) -> None:
+    """ct x ct with relinearization at the medium ring (m = 1155)."""
+    ring = bgv.medium_ring(device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(62)
+    kp = bgv.keygen_l(ring, gen)
+    rlk = bgv.gen_relin_key_l(ring, kp.sk, gen)
+    rng = np.random.default_rng(63)
+    a, b = (slot_ints(rng, ring.slots) for _ in range(2))
+    ca, cb = (bgv.encrypt_l(ring, kp.pk_a, kp.pk_b,
+                            bgv.encode_slots_l(ring, Scalar.from_ints(v, device=dev)), gen)
+              for v in (a, b))
+    got = bgv.decode_slots_l(ring, bgv.decrypt_l(ring, kp.sk, bgv.mul_ct_l(ring, rlk, ca, cb)))
+    check(got.to_ints() == [u * v % L for u, v in zip(a, b)], "medium-ring ct x ct is wrong")
+    log(f"[15 bgv] medium ring m={ring.m} (phi={ring.phi}, {len(ring.q_primes)} primes): "
+        f"mul_ct_l with relinearization decodes to x*y mod l on {ring.slots}/{ring.slots} slots")
+
+
+def bgv_zk(ring, kp, dev) -> dict:
+    """encrypt_and_prove_batch with U = 2, V = 128 at sec = ring.zk_sec;
+    verify, a tampered response digit, a wire round trip."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(64)
+    rng = np.random.default_rng(65)
+    slots = [slot_ints(rng, ring.slots) for _ in range(ZK_U)]
+    pts = [bgv.encode_slots_l(ring, Scalar.from_ints(v, device=dev)) for v in slots]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    proof = bgv.encrypt_and_prove_batch(ring, kp.pk_a, kp.pk_b, pts, gen, v=ZK_V,
+                                        sec=ring.zk_sec)
+    torch.cuda.synchronize()
+    prove_s = time.time() - t0
+    t0 = time.time()
+    ok = bgv.verify_proof(ring, kp.pk_a, kp.pk_b, proof, sec=ring.zk_sec, v=ZK_V,
+                          expected_u=ZK_U)
+    torch.cuda.synchronize()
+    verify_s = time.time() - t0
+    check(ok, "the production-ring proof was rejected")
+    got = bgv.decode_slots_l(ring, bgv.decrypt_l(ring, kp.sk, proof.cts)).to_ints()
+    check(got == slots[0] + slots[1], "the proven ciphertexts decrypt wrong")
+    items = bgv.proof_to_arrays(proof)
+    bad = [np.array(a, copy=True) for a in items]
+    bad[4][3, 5, 0] += 1   # one digit of the plaintext response z
+    check(not bgv.verify_proof(ring, kp.pk_a, kp.pk_b, bgv.proof_from_arrays(bad, device=dev),
+                               sec=ring.zk_sec, v=ZK_V, expected_u=ZK_U),
+          "a tampered response digit was accepted")
+    check(bgv.verify_proof(ring, kp.pk_a, kp.pk_b, bgv.proof_from_arrays(items, device=dev),
+                           sec=ring.zk_sec, v=ZK_V, expected_u=ZK_U),
+          "the wire round trip of the proof was rejected")
+    wire = sum(a.nbytes for a in items)
+    log(f"[15 bgv] ZK proof U={ZK_U}, V={ZK_V}, sec={ring.zk_sec} (V-chunk "
+        f"{zkpok_words._v_chunk(ring, ZK_V)}): prove {prove_s:.2f} s, verify {verify_s:.2f} s "
+        f"(host clock); accepted, decrypts to its plaintexts, a tampered digit rejected, "
+        f"the wire round trip ({wire / 2**20:.1f} MiB) accepted")
+    return {"prove_s": prove_s, "verify_s": verify_s, "wire_bytes": wire}
+
+
+def phase_bgv(dev, card: str) -> tuple[dict, dict]:
+    """BGV over l at the production ring m = 118965: ring build, the slot
+    pipeline, ct x ct at the medium ring and the V = 128 ZK proof (the path,
+    its mont_mul launches counted), then each op's median time."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)   # tensors earlier phases still hold
+    t0 = time.time()
+    ring = bgv.production_ring(device=dev)
+    build_s = time.time() - t0
+    t0 = time.time()
+    ring._build_slot_maps()
+    slot_maps_s = time.time() - t0
+    check((ring.phi, ring.slots) == (48960, 24480), "production ring shape")
+    log(f"[15 bgv] production ring m={ring.m}: phi={ring.phi}, {ring.slots} GF(l^2) slots, "
+        f"{len(ring.q_primes)} primes (log2 q = {ring.log2_q}, budget ok {ring.budget_ok}, "
+        f"RLWE-128 {bgv.rlwe_secure_128(ring)}); built in {build_s:.2f} s + slot maps "
+        f"{slot_maps_s:.2f} s (host)")
+    before = fk.mont_mul.launches
+    launches, ops, kp = bgv_pipeline(ring, dev)
+    bgv_ct_x_ct(dev)
+    zk = bgv_zk(ring, kp, dev)
+    path_launches = fk.mont_mul.launches - before
+    log(f"[15 bgv] mont_mul launches by op: {launches}; whole path {path_launches}")
+    times = {name: median_event_ms(fn) for name, fn in ops.items()}
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    log(f"[15 bgv] median of {BGV_RUNS} CUDA-event runs (ms): "
+        f"{ {k: round(v, 3) for k, v in times.items()} } on {card}")
+    log(f"[15 bgv] peak device memory of the phase {peak / 2**30:.2f} GiB (above the "
+        f"{held / 2**30:.2f} GiB earlier phases still hold)")
+    return {"ring_build_s": build_s, "slot_maps_s": slot_maps_s, "op_ms": times,
+            "op_mont_mul_launches": launches, "path_mont_mul_launches": path_launches,
+            "peak_device_bytes": peak, "held_before_bytes": held, **zk}, {"mont_mul": path_launches}
+
+
+def bgv_kernel_row(dev, launches: int) -> dict:
+    """mont_mul at the RNS -> F_l conversion's shape (16, phi) against its
+    plain version, timed by CUDA events."""
+    mem_rate, int_rate = device_rates(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(66)
+    n = 48960
+    args = (SPEC, rand_below(SPEC, n, gen, dev), rand_below(SPEC, n, gen, dev))
+    got = fk.mont_mul(*args)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    plain = lb.mont_mul_plain(*args)
+    t1.record()
+    torch.cuda.synchronize()
+    err = max_diff(got, plain)
+    check(err == 0, f"mont_mul at (16, {n}) differs from its plain version (max {err})")
+    ms = cuda_ms(lambda: fk.mont_mul(*args), reps=50)
+    t_bytes, t_ops = 3 * 64 * n / mem_rate, mul_ops(1, 1) * n / int_rate
+    row = {"name": "mont_mul[bgv]", "route": "cuda", "source": SOURCE,
+           "replaces": REPLACES["mont_mul"], "launches": launches, "max_abs_err": err,
+           "ms": ms, "plain_ms": t0.elapsed_time(t1), "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes > t_ops else "operations", "library_ms": None}
+    log(f"[15 bgv] mont_mul at (16, {n}): {ms:.4f} ms/launch, plain {row['plain_ms']:.2f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); max limb difference vs plain "
+        f"{err} (tolerance 0: exact integers)")
+    return row
+
 
 def timed(label: str, fn, *args):
     """Run one phase; log its seconds (host clock, after a synchronize)."""
@@ -1751,12 +1949,19 @@ def main(argv: list) -> int:
     rows += timed("13 bn254", bn254_kernel_rows, dev, bn254_launches, rows)
     tcp = timed("14 tcp", phase_tcp, dev)
 
+    fk.reset_launches()
+    bgv_out, bgv_launches = timed("15 bgv", phase_bgv, dev, card)
+    log(f"bgv-path launches: {bgv_launches}")
+    check(bgv_launches["mont_mul"] > 0, "mont_mul was never launched on the BGV path")
+    rows.append(timed("15 bgv", bgv_kernel_row, dev, bgv_launches["mont_mul"]))
+
     log(json.dumps({"headline": headline}))
     log(json.dumps({"points_n_10000": points}))
     log(json.dumps({"msm_n_2^16": msm_times}))
     log(json.dumps({"times_at_n_2^16": plain_2_16}))
     log(json.dumps({"traced": traced, "matmul_poly": mats}))
     log(json.dumps({"bn254": bn254, "tcp": tcp}))
+    log(json.dumps({"bgv_production": bgv_out}))
     log(f"total {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)

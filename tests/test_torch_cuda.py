@@ -540,3 +540,82 @@ def test_tcp_plaintext_exchange_of_card_limbs(dev):
         (arr,) = messages.decode_arrays(got[p])
         theirs = torch.from_numpy(arr.astype(np.int32)).to(dev)
         assert torch.equal(theirs, mine[1 - p].limbs)
+
+
+# -- BGV over l at the medium ring (m = 1155): card against the CPU port ----
+
+
+@pytest.fixture(scope="module")
+def bgv_rings():
+    """The medium ring on the card and on the CPU, a CPU keypair on both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU form)")
+    from ark_mpc_tpu_torch.offline import bgv
+
+    cpu, card = bgv.medium_ring(device="cpu"), bgv.medium_ring(device="cuda")
+    kp = bgv.keygen_l(cpu, torch.Generator().manual_seed(70))
+    kp_card = bgv.KeypairL(card, *(x.cuda() for x in (kp.sk, kp.pk_a, kp.pk_b)))
+    return cpu, card, kp, kp_card
+
+
+def _bgv_slots(ring, seed, device):
+    rng = np.random.default_rng(seed)
+    vals = [int(v) * 977 % SCALAR_FIELD.modulus for v in
+            rng.integers(0, 1 << 62, 2 * ring.slots, dtype=np.int64)]
+    return Scalar.from_ints(np.array(vals, dtype=object).reshape(2, ring.slots), device=device)
+
+
+def test_bgv_transforms_and_slots_on_the_card_match_the_cpu(bgv_rings):
+    from ark_mpc_tpu_torch.offline import bgv
+
+    cpu, card, _, _ = bgv_rings
+    rng = np.random.default_rng(71)
+    x = torch.as_tensor(np.stack([rng.integers(0, q, (3, cpu.phi)) for q in cpu.q_primes], -2))
+    assert torch.equal(card.to_eval(x.cuda()).cpu(), cpu.to_eval(x))
+    assert torch.equal(card.from_eval(x.cuda()).cpu(), cpu.from_eval(x))
+    slots = _bgv_slots(card, 72, "cuda")
+    card._build_slot_maps()  # its Scalar constants launch to_mont
+    before = fk.mont_mul.launches
+    enc = bgv.encode_slots_l(card, slots)
+    assert torch.equal(enc.limbs.cpu(), bgv.encode_slots_l(cpu, _bgv_slots(cpu, 72, "cpu")).limbs)
+    dec = bgv.decode_slots_l(card, enc)
+    assert torch.equal(dec.limbs.cpu(), bgv.decode_slots_l(cpu, Scalar(enc.limbs.cpu())).limbs)
+    assert fk.mont_mul.launches - before == 2 * len(card.factors)  # one a GF(l^2) axis
+
+
+def test_bgv_encrypt_and_decrypt_on_the_card_match_the_cpu(bgv_rings):
+    from ark_mpc_tpu_torch.offline import bgv
+
+    cpu, card, kp, kp_card = bgv_rings
+    rng = np.random.default_rng(73)
+    u = rng.integers(-1, 2, (2, cpu.phi))
+    e0, e1 = (rng.integers(-10, 11, (2, cpu.phi)) for _ in range(2))
+    pt = bgv.encode_slots_l(cpu, _bgv_slots(cpu, 74, "cpu"))
+
+    def encrypt(ring, keys, dev):
+        m = bgv.bgv_l._pt_to_rns(ring, Scalar(pt.limbs.to(dev)))
+        return bgv.encrypt_with_randomness_l(
+            ring, keys.pk_a, keys.pk_b, m, *(ring.lift_signed(torch.as_tensor(v).to(dev))
+                                             for v in (u, e0, e1)))
+
+    want, got = encrypt(cpu, kp, "cpu"), encrypt(card, kp_card, "cuda")
+    assert torch.equal(got.c0.cpu(), want.c0) and torch.equal(got.c1.cpu(), want.c1)
+    dec = bgv.decrypt_l(card, kp_card.sk, got)
+    assert torch.equal(dec.limbs.cpu(), bgv.decrypt_l(cpu, kp.sk, want).limbs)
+    assert torch.equal(dec.limbs.cpu(), pt.limbs)
+
+
+def test_bgv_proofs_cross_between_card_and_cpu(bgv_rings):
+    from ark_mpc_tpu_torch.offline import bgv
+
+    cpu, card, kp, kp_card = bgv_rings
+    pts = bgv.encode_slots_l(cpu, _bgv_slots(cpu, 75, "cpu"))
+    for prover, keys, verifier, vkeys, dev in ((card, kp_card, cpu, kp, "cpu"),
+                                               (cpu, kp, card, kp_card, "cuda")):
+        gen = torch.Generator(device=prover.device).manual_seed(76)
+        proof = bgv.encrypt_and_prove_batch(
+            prover, keys.pk_a, keys.pk_b, [Scalar(pts.limbs[:, i].to(prover.device))
+                                           for i in range(2)], gen, v=32,
+            host_rng=np.random.default_rng(77))
+        moved = bgv.proof_from_arrays(bgv.proof_to_arrays(proof), device=dev)
+        assert bgv.verify_proof(verifier, vkeys.pk_a, vkeys.pk_b, moved, v=32, expected_u=2)
