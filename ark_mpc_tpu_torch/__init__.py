@@ -7,7 +7,8 @@ circuit scheduler (`fabric.tracer()`), gadgets, polynomials and field matrix
 products, Ed25519 point protocols and MSM, a TCP transport with TLS between
 two processes (`python -m ark_mpc_tpu_torch.integration`), and hand-written
 CUDA kernels (sm_90a) for the authenticated Beaver multiplication path and
-the curve layer.  Entry points run on the CUDA card
+the curve layer, and the dealer-free LowGear offline phase over BGV
+(`LowGear`, `LowGearPrep`).  Entry points run on the CUDA card
 unless the caller passes another `device` (the tests pass "cpu").
 """
 
@@ -26,6 +27,8 @@ from .fabric.errors import (
 from .fabric.simulator import execute_mock_mpc, execute_mock_mpc_dealer
 from .fabric.transport import LocalTransport, TcpTransport
 from .offline.base import PartyIDBeaverSource, PreprocessingPhase, TrustedDealerSource
+from .offline.lowgear.core import LowGear
+from .offline.structs import LowGearPrep, OfflineSizingParams
 
 __all__ = [
     "Scalar",
@@ -50,6 +53,9 @@ __all__ = [
     "PreprocessingPhase",
     "PartyIDBeaverSource",
     "TrustedDealerSource",
+    "LowGear",
+    "LowGearPrep",
+    "OfflineSizingParams",
 ]
 
 __version__ = "0.1.0"

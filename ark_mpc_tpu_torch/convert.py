@@ -34,6 +34,17 @@ form for `PowerfulRing`, coefficients for `CyclotomicRing`):
     ciphertexts (U, L, phi) and commitments (V, L, phi) as uint32, then the
     int64 word planes z, zu, ze0, ze1.
 
+LowGear state (`offline/lowgear/`, `offline/structs.py`):
+
+  - a `SetupL` as a dict of the keypair ``sk, pk_a, pk_b``, the peer's
+    ``other_pk_a, other_pk_b`` (each (L, phi) residues), the peer's proved
+    enc(MAC share) ``mac_c0, mac_c1`` and the ``mac_key_share`` limbs (16,);
+  - a `LowGearPrep` as a dict with ``mac_key_share`` (16,), one list of
+    (share, mac) pairs of (16, n) arrays per store, each part's batches
+    concatenated (``triples`` 3 parts, ``inverse_pairs`` 2, ``bits``,
+    ``randomness``, ``my_mask_shares``, ``counterparty_mask_shares`` 1),
+    and ``my_masks_clear`` (16, n).
+
 Rings are not carried: both packages build the same ring from (m,
 n_q_primes).  The `to_*` functions take the port's ring, check each array
 against its basis and put it on the ring's device; the `from_*` functions
@@ -56,6 +67,8 @@ from .device import resolve_device
 from .offline.base import PreprocessingPhase
 from .offline.bgv.bgv_l import CiphertextL, KeypairL, RelinKeyL
 from .offline.bgv.zkpok_words import CiphertextWithProofW, proof_from_arrays
+from .offline.lowgear.triplets_l import SetupL
+from .offline.structs import LowGearPrep
 
 
 def limbs_to_numpy(limbs) -> np.ndarray:
@@ -235,3 +248,66 @@ def to_proof(ring, items) -> CiphertextWithProofW:
     cts = [to_residues(ring, c, lead=1) for c in items[:2]]
     comm = [residues_to_numpy(c) for c in items[2:4]]
     return proof_from_arrays(cts + comm + list(items[4:]), device=ring.device)
+
+
+# ---------------------------------------------------------------------------
+# LowGear state: the key-exchange result and the prep stores
+# ---------------------------------------------------------------------------
+
+
+def from_setup(st) -> dict:
+    """A `SetupL` of either package -> numpy arrays."""
+    return {"sk": residues_to_numpy(st.keypair.sk), "pk_a": residues_to_numpy(st.keypair.pk_a),
+            "pk_b": residues_to_numpy(st.keypair.pk_b),
+            "other_pk_a": residues_to_numpy(st.other_pk_a),
+            "other_pk_b": residues_to_numpy(st.other_pk_b),
+            "mac_c0": residues_to_numpy(st.other_mac_enc.c0),
+            "mac_c1": residues_to_numpy(st.other_mac_enc.c1),
+            "mac_key_share": from_field(st.mac_key_share)}
+
+
+def to_setup(ring, arrays: dict) -> SetupL:
+    """Numpy arrays (`from_setup`) -> the port's `SetupL` on the ring's
+    device, every residue checked against the ring's basis."""
+    res = {k: to_residues(ring, arrays[k], lead=0)
+           for k in ("sk", "pk_a", "pk_b", "other_pk_a", "other_pk_b", "mac_c0", "mac_c1")}
+    key = to_field(arrays["mac_key_share"], Scalar, ring.device)
+    if key.shape != ():
+        raise ValueError(f"the MAC key share is one element, got shape {key.shape}")
+    return SetupL(ring, KeypairL(ring, res["sk"], res["pk_a"], res["pk_b"]),
+                  res["other_pk_a"], res["other_pk_b"],
+                  CiphertextL(res["mac_c0"], res["mac_c1"]), key)
+
+
+PREP_STORES = ("triples", "inverse_pairs", "bits", "randomness", "my_mask_shares",
+               "counterparty_mask_shares")
+
+
+def _concat(arrays: list, axis: int = 1) -> np.ndarray:
+    return arrays[0] if len(arrays) == 1 else np.concatenate(arrays, axis=axis)
+
+
+def from_prep(prep) -> dict:
+    """A `LowGearPrep` of either package -> numpy arrays (the stores are
+    read, not consumed)."""
+    out = {"mac_key_share": from_field(prep.mac_key_share)}
+    for name in PREP_STORES:
+        store = getattr(prep, name)
+        out[name] = [tuple(_concat([from_field(getattr(batch[j], kind)) for batch in store.items])
+                           for kind in ("share", "mac"))
+                     for j in range(store.parts)] if store.items else []
+    clear = [from_field(c) for c in prep.my_masks_clear]
+    out["my_masks_clear"] = _concat(clear) if clear else np.zeros((NLIMBS, 0), np.uint32)
+    return out
+
+
+def to_prep(arrays: dict, device=None) -> LowGearPrep:
+    """Numpy arrays (`from_prep`) -> the port's `LowGearPrep` on `device`,
+    one batch a store."""
+    prep = LowGearPrep(mac_key_share=to_field(arrays["mac_key_share"], Scalar, device))
+    for name in PREP_STORES:
+        if arrays[name]:
+            getattr(prep, name).add(*(to_share(pair, Scalar, device) for pair in arrays[name]))
+    if arrays["my_masks_clear"].shape[1]:
+        prep.my_masks_clear.append(to_field(arrays["my_masks_clear"], Scalar, device))
+    return prep

@@ -1,7 +1,6 @@
 """The registered integration cases: a copy of `ark_mpc_tpu/integration/
 cases.py` (the ark-mpc inventory of `integration/src/main.rs:101-224`),
-every case but `lowgear_dealer_free_e2e`, which waits for the port's
-offline phase.
+the slow dealer-free LowGear case included.
 
 Every case runs on BOTH parties over the real wire; inputs come from
 per-case seeded `random.Random`, so the parties agree without
@@ -23,7 +22,7 @@ from ..algebra.share import ScalarShare
 from ..fabric.errors import AuthenticationError
 from ..fabric.points import msm_public_points
 from ..gadgets import bit_xor, bit_xor_public, prefix_product
-from . import integration_test
+from . import integration_test, slow_integration_test
 
 # ---------------------------------------------------------------------------
 # share / open family (`fabric.rs` + `authenticated_scalar.rs` tests)
@@ -464,6 +463,36 @@ def offline_randomness_sources(fabric):
     assert fabric.open_authenticated(prod).to_ints() == [1] * 4
     rv = fabric.random_shared_scalars(4)
     fabric.open_authenticated(rv)  # MAC-checked open must pass
+
+
+@slow_integration_test
+def lowgear_dealer_free_e2e(fabric):
+    """test_setup_and_run_circuit (`integration/src/lowgear.rs:15-51`): the
+    whole dealer-free flow over the real wire: BGV key exchange with its
+    proofs, LowGear preprocessing at the prototype ring (m = 132), then an
+    online product over a fresh fabric on the same transport, consuming the
+    generated prep.  Registered as a slow case, run when named (`--tests
+    lowgear_dealer_free_e2e`)."""
+    import numpy as np
+
+    from ..fabric.context import MpcFabric
+    from ..offline.bgv.bgv_l import default_ring
+    from ..offline.lowgear.core import LowGear
+    from ..offline.structs import OfflineSizingParams
+
+    pid, dev = fabric.party_id, fabric.device
+    lg = LowGear(pid, fabric.transport, mode="bgv", ring=default_ring(device=dev),
+                 allow_insecure_ring=True, rng=np.random.default_rng(140 + pid), device=dev)
+    lg.run_offline_phase(OfflineSizingParams(
+        num_triples=4, num_inverse_pairs=1, num_bits=1,
+        num_randomness=2, num_input_masks=2))
+    online = MpcFabric(pid, fabric.transport, lg.get_offline_result(), device=dev)
+    sx = online.share_values(
+        Scalar.from_ints([6, 7], device=dev) if pid == 0 else None, sender=0, n=2)
+    sy = online.share_values(
+        Scalar.from_ints([8, 9], device=dev) if pid == 1 else None, sender=1, n=2)
+    z = online.open_authenticated(online.mul(sx, sy))
+    assert z.to_ints() == [48, 63], z.to_ints()
 
 
 @integration_test

@@ -1,0 +1,23 @@
+"""LowGear offline phase (`offline-phase/src/lowgear/`): the dealer-free
+triple generation over BGV-over-l and the two-party protocols downstream of
+it.  Counterpart of `ark_mpc_tpu/offline/lowgear/`; the t-generic
+prototype (`triplets_bgv.py`, `setup.run_key_exchange`) is not ported."""
+
+from .core import LowGear, resolve_bgv_ring
+from .protocols import (
+    beaver_mul,
+    generate_inverse_tuples,
+    generate_shared_bits,
+    open_and_check_macs,
+    public_coin_scalars,
+)
+
+__all__ = [
+    "LowGear",
+    "resolve_bgv_ring",
+    "beaver_mul",
+    "generate_inverse_tuples",
+    "generate_shared_bits",
+    "open_and_check_macs",
+    "public_coin_scalars",
+]

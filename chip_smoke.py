@@ -79,7 +79,9 @@ Phases (any failure exits non-zero; there is no CPU path):
  14. tcp      two party processes on this card over localhost TCP
               (plaintext, the native IO library): `python -m
               ark_mpc_tpu_torch.integration` runs every registry case in
-              both, which must all be "ok" and agree; then the
+              both, the slow dealer-free `lowgear_dealer_free_e2e` (BGV
+              key exchange, LowGear at m = 132, an online product) named
+              with them, which must all be "ok" and agree; then the
               wire-inclusive batch of `benchmarks/online_wire.py` at its
               full size (n = 2^20, 4 chained `fabric.mul` rounds drawing
               their triples inside the clock, one authenticated open, one
@@ -100,7 +102,26 @@ Phases (any failure exits non-zero; there is no CPU path):
               the median of 5 CUDA-event runs of each op, each op's
               `mont_mul` launches, prove and verify seconds and the peak
               device memory, and `mont_mul` at (16, 48960) against its plain
-              version.
+              version;
+ 16. lowgear  the dealer-free offline phase (`bench_offline.py:54-109`),
+              both parties on this card through `execute_mock_mpc`: at the
+              medium ring (m = 1155, 240 slots) bgv-mode `LowGear` with
+              fixed numpy seeds, the key exchange, a warm-up call and a timed
+              call of `generate_triples(2 x 240)` (each makes 64 slot
+              batches), the rest of the inventory (randomness, triples,
+              inverse tuples, bits, input masks), an online product over the
+              prep against Python ints, and a corrupted candidate triple
+              that must raise `SacrificeError` in both parties; then at the
+              production ring (m = 118965, 29 primes, 24,480 slots, uncut)
+              the secure default ring's key exchange with its two proofs, a
+              warm-up and a timed call of `generate_triples(2 x 24480)`
+              (4 slot batches, 97,920 sacrificed triples a call), input
+              masks and an online product of 2^10 elements over the prep;
+              sacrificed triples/s over the timed call's wall clock, the key
+              exchange's seconds, each party's stage record (seconds by
+              stage, the proof's and the sacrifice's included), the phase's
+              peak device memory, and its `mont_mul` and `beaver_round`
+              launches.
 
 Each phase logs its seconds.  The launch counts of the field kernels are
 those of phases 3-5, those of the curve kernels those of phases 8-9 (each
@@ -110,8 +131,9 @@ on the bucket and the winsum routes); phases
 11-12 are a third path, whose kernels (`mont_matmul`'s and the fabric's)
 must each launch there too, and phase 13's fabric batch and point
 protocols a fourth, which must launch `mont_mul` at Fq and at Fr and
-`beaver_round` at Fr (counted by field), and phase 15 a fifth, which must
-launch `mont_mul` at l.  The last line is `{"ok": true, "device": {...}}`.
+`beaver_round` at Fr (counted by field), phase 15 a fifth, which must
+launch `mont_mul` at l, and phase 16 a sixth, which must launch `mont_mul`
+and `beaver_round`.  The last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -133,6 +155,7 @@ from ark_mpc_tpu_torch import (
     AuthenticationError,
     CurvePoint,
     Fr,
+    LowGear,
     MpcFabric,
     PartyIDBeaverSource,
     PointShare,
@@ -153,9 +176,13 @@ from ark_mpc_tpu_torch.device import resolve_device
 from ark_mpc_tpu_torch.fabric import commitment
 from ark_mpc_tpu_torch.fabric.transport import NoRecvTransport
 from ark_mpc_tpu_torch.gadgets import bit_xor, prefix_product
+from ark_mpc_tpu_torch.integration import REGISTRY
+from ark_mpc_tpu_torch.integration import cases as _cases  # noqa: F401  (fills REGISTRY)
 from ark_mpc_tpu_torch.models.circuits import shared_matmul
 from ark_mpc_tpu_torch.offline import bgv
 from ark_mpc_tpu_torch.offline.bgv import zkpok_words
+from ark_mpc_tpu_torch.offline.errors import SacrificeError
+from ark_mpc_tpu_torch.offline.lowgear import resolve_bgv_ring
 from ark_mpc_tpu_torch.ops import _build
 from ark_mpc_tpu_torch.ops import curve_kernels as ck
 from ark_mpc_tpu_torch.ops import fp_kernels as fk
@@ -1588,12 +1615,14 @@ def phase_tcp(dev) -> dict:
     from ark_mpc_tpu_torch.fabric import native_net
 
     _, lib_path = native_net.library()  # load or build it once, before the children
+    names = ",".join(sorted(REGISTRY))      # the slow LowGear case runs only when named
     t0 = time.time()
     r0, r1 = run_parties([sys.executable, "-m", "ark_mpc_tpu_torch.integration",
-                          "--port", str(free_port()), "--no-tls", "--quiet",
+                          "--port", str(free_port()), "--no-tls", "--quiet", "--tests", names,
                           "--timeout", str(REGISTRY_TIMEOUT)], REGISTRY_TIMEOUT)
     registry_s = time.time() - t0
     check(r0 == r1, "the parties' registry results differ")
+    check(sorted(r0) == sorted(REGISTRY), "the registry run left cases out")
     bad = {k: v for k, v in r0.items() if v != "ok"}
     check(not bad, f"registry cases failed: {bad}")
     log(f"[14 tcp] integration registry over TCP (no TLS, native IO from "
@@ -1880,6 +1909,156 @@ def bgv_kernel_row(dev, launches: int) -> dict:
     return row
 
 
+# -- phase 16: the dealer-free LowGear offline phase -----------------------
+
+LG_SEED = 300              # numpy seeds 300 + party, as bench_offline.py
+LG_BATCHES = 2             # slot batches asked of each call (bench_offline.py's BATCHES)
+N_LG_ONLINE = 1 << 10      # the online product over the production prep
+
+
+def lowgear_program(ring, allow_insecure: bool, rest: bool, n_online: int):
+    """One party of bench_offline.py's flow (`bench_offline.py:54-109`):
+    key exchange, a warm-up call and a timed call of `generate_triples(2
+    slot batches)` (each rounds up to `stack_chunk(ring)` batches), with
+    `rest` the remaining inventory, then an online product over the prep
+    and, with `rest`, a corrupted candidate triple.  -> host-clock spans
+    (start, end) by step, the timed call's stage record, counts and spot
+    values."""
+    def prog(fabric):
+        pid, dev = fabric.party_id, fabric.device
+        spans = {}
+
+        def span(label, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            spans[label] = (t0, time.perf_counter())
+            return out
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(LG_SEED + 10 + pid)
+        lg = span("key_exchange", lambda: LowGear(
+            pid, fabric.transport, mode="bgv", ring=ring, allow_insecure_ring=allow_insecure,
+            rng=np.random.default_rng(LG_SEED + pid), gen=gen, device=dev))
+        kx_stages = dict(lg.timing)
+        n = ring.slots * LG_BATCHES
+        span("warmup", lambda: lg.generate_triples(n))
+        warm = len(lg.prep.triples)
+        lg.timing.clear()
+        span("timed", lambda: lg.generate_triples(n))
+        out = {"spans": spans, "stages": dict(lg.timing), "key_exchange_stages": kx_stages,
+               "warm_triples": warm, "timed_triples": len(lg.prep.triples) - warm}
+        if rest:
+            n_inv = n_bits = ring.slots
+
+            def stock():
+                lg.generate_shared_randomness(2 * n_inv + n_bits)
+                lg.generate_triples(n_inv + n_bits)
+                lg.generate_inverse_tuples(n_inv)
+                lg.generate_shared_bits(n_bits)
+            span("rest", stock)
+        span("input_masks", lambda: lg.generate_input_masks(max(n_online, min(ring.slots, 64))))
+        prep = lg.get_offline_result()
+        out["stores"] = {name: len(store) for name, store in prep._stores().items()}
+
+        rnd = random.Random(LG_SEED)
+        xs = [rnd.randrange(L) for _ in range(n_online)]
+        ys = [rnd.randrange(L) for _ in range(n_online)]
+        online = MpcFabric(pid, fabric.transport, prep, device=dev,
+                           rng=np.random.default_rng(LG_SEED + 20 + pid))
+
+        def product():
+            sx = online.share_values(Scalar.from_ints(xs, device=dev) if pid == 0 else None,
+                                     sender=0, n=n_online)
+            sy = online.share_values(Scalar.from_ints(ys, device=dev) if pid == 1 else None,
+                                     sender=1, n=n_online)
+            z = online.open_authenticated(online.mul(sx, sy), defer=True)
+            online.verify_deferred(fold=True)
+            return z
+        z = span("online", product)
+        idx = [0, 1, n_online // 2, n_online - 1]
+        out["spots"] = (z[torch.tensor(idx, device=dev)].to_ints(),
+                        [xs[i] * ys[i] % L for i in idx])
+        if rest:
+            a, b, c, b2, c2 = lg._raw_triple_pairs(ring.slots)
+            c = c.add_public(Scalar.from_ints(1, device=dev), lg.fabric.mac_key, pid)
+            lg._raw_triple_pairs = lambda _n: (a, b, c, b2, c2)
+            try:
+                lg.generate_triples(ring.slots)
+                out["corrupted"] = "accepted"
+            except SacrificeError:
+                out["corrupted"] = "SacrificeError"
+        return out
+
+    return prog
+
+
+def lowgear_run(label: str, ring, allow_insecure: bool, rest: bool, n_online: int,
+                dev, card: str) -> dict:
+    r0, r1 = execute_mock_mpc(lowgear_program(ring, allow_insecure, rest, n_online), device=dev)
+
+    def wall(step):  # both parties run in lockstep: from the first start to the last end
+        return (max(r["spans"][step][1] for r in (r0, r1))
+                - min(r["spans"][step][0] for r in (r0, r1)))
+
+    for r in (r0, r1):
+        got, want = r["spots"]
+        check(got == want, f"{label}: the online product over the prep is wrong")
+        check(r["timed_triples"] == r0["timed_triples"] > 0, f"{label}: no triples made")
+    made = r0["timed_triples"]
+    out = {"m": ring.m, "slots": ring.slots, "primes": len(ring.q_primes),
+           "slot_batches_a_call": made // ring.slots, "triples_a_call": made,
+           "key_exchange_s": wall("key_exchange"), "warmup_s": wall("warmup"),
+           "timed_s": wall("timed"), "triples_per_s": made / wall("timed"),
+           "input_masks_s": wall("input_masks"), "online_s": wall("online"),
+           "stages_s": [r0["stages"], r1["stages"]],
+           "key_exchange_stages_s": [r0["key_exchange_stages"], r1["key_exchange_stages"]],
+           "stores": r0["stores"]}
+    if rest:
+        out["rest_s"] = wall("rest")
+        check(r0["corrupted"] == r1["corrupted"] == "SacrificeError",
+              f"{label}: a corrupted triple passed the sacrifice "
+              f"({r0['corrupted']} / {r1['corrupted']})")
+    log(f"[16 lowgear] {label} m={ring.m} ({len(ring.q_primes)} primes, {ring.slots} slots): "
+        f"key exchange {out['key_exchange_s']:.2f} s; warm-up call {out['warmup_s']:.2f} s; "
+        f"timed call {made} sacrificed triples ({made // ring.slots} slot batches) in "
+        f"{out['timed_s']:.3f} s = {out['triples_per_s']:.1f} triples/s on {card}")
+    for pid, r in enumerate((r0, r1)):
+        log(f"[16 lowgear] {label} party {pid} stages of the timed call (s, host clock; "
+            f"lockstep: `exchange` spans waiting for the peer): "
+            f"{ {k: round(v, 3) for k, v in r['stages'].items()} }")
+    log(f"[16 lowgear] {label} input masks {out['input_masks_s']:.2f} s"
+        + (f", the rest (randomness, triples, inverse tuples, bits) {out['rest_s']:.2f} s"
+           if rest else "")
+        + f"; online product of {n_online} elements {out['online_s']:.2f} s equals Python "
+        f"ints at spot indices; stores {out['stores']}"
+        + ("; a corrupted candidate triple raised SacrificeError in both parties"
+           if rest else ""))
+    return out
+
+
+def phase_lowgear(dev, card: str) -> dict:
+    """bench_offline.py's flow, both parties on this card through
+    `execute_mock_mpc`: the medium ring with the rest of the inventory and
+    a corrupted triple, then the production ring uncut."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)   # tensors earlier phases still hold
+    medium = lowgear_run("medium", bgv.medium_ring(device=dev), True, True, 64, dev, card)
+    t0 = time.time()
+    ring = resolve_bgv_ring(None, allow_insecure_ring=False, device=dev)
+    ring._build_slot_maps()
+    ring_s = time.time() - t0
+    prod = lowgear_run("production", ring, False, False, N_LG_ONLINE, dev, card)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    log(f"[16 lowgear] production ring built in {ring_s:.2f} s (host, with slot maps); "
+        f"peak device memory of the phase {peak / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB earlier phases hold (two parties on one card)")
+    return {"medium": medium, "production": prod, "production_ring_build_s": ring_s,
+            "peak_device_bytes": peak, "held_before_bytes": held}
+
+
 def timed(label: str, fn, *args):
     """Run one phase; log its seconds (host clock, after a synchronize)."""
     torch.cuda.synchronize()
@@ -1955,6 +2134,14 @@ def main(argv: list) -> int:
     check(bgv_launches["mont_mul"] > 0, "mont_mul was never launched on the BGV path")
     rows.append(timed("15 bgv", bgv_kernel_row, dev, bgv_launches["mont_mul"]))
 
+    fk.reset_launches()
+    lowgear = timed("16 lowgear", phase_lowgear, dev, card)
+    lowgear_launches = fk.launch_counts()
+    log(f"lowgear-path launches: {lowgear_launches}")
+    check(lowgear_launches["mont_mul"] > 0 and lowgear_launches["beaver_round"] > 0,
+          "mont_mul or beaver_round was never launched on the LowGear path")
+    lowgear["launches"] = lowgear_launches
+
     log(json.dumps({"headline": headline}))
     log(json.dumps({"points_n_10000": points}))
     log(json.dumps({"msm_n_2^16": msm_times}))
@@ -1962,6 +2149,7 @@ def main(argv: list) -> int:
     log(json.dumps({"traced": traced, "matmul_poly": mats}))
     log(json.dumps({"bn254": bn254, "tcp": tcp}))
     log(json.dumps({"bgv_production": bgv_out}))
+    log(json.dumps({"lowgear": lowgear}))
     log(f"total {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)

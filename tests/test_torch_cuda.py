@@ -619,3 +619,39 @@ def test_bgv_proofs_cross_between_card_and_cpu(bgv_rings):
             host_rng=np.random.default_rng(77))
         moved = bgv.proof_from_arrays(bgv.proof_to_arrays(proof), device=dev)
         assert bgv.verify_proof(verifier, vkeys.pk_a, vkeys.pk_b, moved, v=32, expected_u=2)
+
+
+# -- dealer-free LowGear at the medium ring: card against the CPU port ------
+
+
+def test_lowgear_bgv_on_the_card_matches_the_cpu(dev):
+    """bgv-mode LowGear at m = 1155 on the card and on the CPU with the same
+    numpy seeds (other torch generators: the BGV randomness cancels): the
+    stores are bit-identical, and the card's run launched both kernels."""
+    from ark_mpc_tpu_torch import LowGear, OfflineSizingParams, convert, execute_mock_mpc
+    from ark_mpc_tpu_torch.offline import bgv
+
+    sizing = OfflineSizingParams(num_triples=4, num_inverse_pairs=2, num_bits=2,
+                                 num_randomness=4, num_input_masks=4)
+
+    def run(device):
+        def prog(fabric):
+            pid = fabric.party_id
+            lg = LowGear(pid, fabric.transport, mode="bgv", ring=bgv.medium_ring(device=device),
+                         allow_insecure_ring=True, rng=np.random.default_rng(310 + pid),
+                         gen=torch.Generator(device=device).manual_seed(320 + pid),
+                         device=device)
+            lg.run_offline_phase(sizing)
+            return convert.from_prep(lg.get_offline_result())
+
+        return execute_mock_mpc(prog, device=device)
+
+    fk.reset_launches()
+    card = run(dev)
+    launches = fk.launch_counts()
+    assert launches["mont_mul"] > 0 and launches["beaver_round"] > 0
+    cpu = run("cpu")
+    for got, want in zip(card, cpu):
+        assert got.keys() == want.keys()
+        for k in got:
+            np.testing.assert_equal(got[k], want[k])

@@ -30,7 +30,10 @@ def test_guard_sees_every_module():
     for module in ("fabric/scheduler.py", "gadgets/bits.py", "gadgets/products.py",
                    "algebra/poly.py", "algebra/domain.py", "ops/matmul.py",
                    "models/circuits.py", "utils/stats.py", "ops/modular32.py",
-                   "offline/bgv/powerful.py", "offline/bgv/zkpok_words.py"):
+                   "offline/bgv/powerful.py", "offline/bgv/zkpok_words.py",
+                   "offline/errors.py", "offline/structs.py", "offline/lowgear/__init__.py",
+                   "offline/lowgear/setup.py", "offline/lowgear/protocols.py",
+                   "offline/lowgear/triplets_l.py", "offline/lowgear/core.py"):
         assert module in names
 
 

@@ -55,12 +55,13 @@ def _run_pair(extra, timeout):
 
 
 def test_registry_names_match_reference():
-    """Every case of the reference's registry but the dealer-free LowGear
-    flow, which needs the offline phase the port does not have yet."""
-    assert set(port_integration.REGISTRY) == (set(ref_integration.REGISTRY)
-                                              - {"lowgear_dealer_free_e2e"})
-    assert not any(getattr(f, "__slow__", False)
-                   for f in port_integration.REGISTRY.values())
+    """The reference's registry in full, its slow dealer-free LowGear case
+    included and registered as slow in both."""
+    assert set(port_integration.REGISTRY) == set(ref_integration.REGISTRY)
+    slow = {name for name, f in port_integration.REGISTRY.items()
+            if getattr(f, "__slow__", False)}
+    assert slow == {name for name, f in ref_integration.REGISTRY.items()
+                    if getattr(f, "__slow__", False)} == {"lowgear_dealer_free_e2e"}
 
 
 def test_registry_subset_over_tls():
@@ -69,9 +70,18 @@ def test_registry_subset_over_tls():
 
 
 def test_full_registry_over_tls():
-    """All 33 cases (~50 s on one CPU core a party)."""
+    """All 33 fast cases (~50 s on one CPU core a party); the slow case runs
+    only when named."""
     r = _run_pair([], timeout=600)
-    assert len(r) == len(port_integration.REGISTRY)
+    assert len(r) == len(port_integration.REGISTRY) - 1
+    assert "lowgear_dealer_free_e2e" not in r
+
+
+def test_lowgear_dealer_free_e2e_over_tls():
+    """The dealer-free flow between two processes over TLS: key exchange
+    with proofs, LowGear at m = 132, an online product on the prep."""
+    r = _run_pair(["--tests", "lowgear_dealer_free_e2e"], timeout=600)
+    assert r == {"lowgear_dealer_free_e2e": "ok"}
 
 
 def test_driver_defaults_to_cuda():
