@@ -45,6 +45,10 @@ from ..errors import SacrificeError
 from ..structs import LowGearPrep, OfflineSizingParams
 from . import protocols, triplets_l
 
+# The dealer mode's seed: both parties build the same dealer from it, as the
+# reference's default does.
+DEALER_SEED = 0xA5A5
+
 
 def resolve_bgv_ring(ring, allow_insecure_ring: bool, device=None):
     """Ring-selection policy for bgv-mode `LowGear`: default to the
@@ -69,7 +73,7 @@ class LowGear:
 
     def __init__(self, party_id: int, transport: Transport,
                  rng: np.random.Generator | None = None,
-                 dealer_seed: int = 0xA5A5, mode: str = "dealer",
+                 mode: str = "dealer",
                  ring=None, gen: torch.Generator | None = None, setup=None,
                  allow_insecure_ring: bool = False, device=None):
         """mode="bgv": dealer-free; mode="dealer": honest-dealer raw
@@ -109,7 +113,7 @@ class LowGear:
             self.timing = {}
             # Both parties construct the dealer with the same seed, mirroring
             # `mock_lowgear_with_keys` (`offline-phase/src/lib.rs:125-232`).
-            self._dealer = TrustedDealerSource(party_id, seed=dealer_seed, device=self.device)
+            self._dealer = TrustedDealerSource(party_id, seed=DEALER_SEED, device=self.device)
             self.mac_key_share = self._dealer.get_mac_key_share()
         self.prep = LowGearPrep(mac_key_share=self.mac_key_share)
         # The generation fabric's Beaver rounds consume triples out of the

@@ -158,20 +158,19 @@ def _decrypt_decode_l(ring, sk, ct: CiphertextL) -> Scalar:
 
 
 def share_products_grouped_l(transport: Transport, st: SetupL, groups: list,
-                             rng: np.random.Generator, gen: torch.Generator,
-                             chunk: int | None = None):
+                             rng: np.random.Generator, gen: torch.Generator):
     """N cross-products over F_l with ONE wire exchange
     (`triplets.rs:155-234`, coalesced): `groups` is a list of
     `(enc_other, factors)` where `factors` is a Scalar stack (Ni, S) and
     `enc_other` a CiphertextL of shape (L, phi) (same ciphertext for every
     row, e.g. enc(mac_share)) or (Ni, L, phi).  Both parties MUST pass
     groups in the same canonical order: rows ride one frame each way.
-    Compute runs in `chunk`-row stacked calls (a device-memory cap; the
-    values do not depend on it); the results are read back with one copy.
+    Compute runs in `stack_chunk(ring)`-row stacked calls (a device-memory
+    cap; the values do not depend on it); the results are read back with
+    one copy.
     Returns [(mask_i, dec_i)] per group, each (Ni, S)."""
     ring = st.ring
-    if chunk is None:
-        chunk = stack_chunk(ring)
+    chunk = stack_chunk(ring)
     t0 = time.perf_counter()
     sizes = [int(f.shape[0]) for _, f in groups]
     masks = [Scalar.random((n, ring.slots), rng, device=ring.device) for n in sizes]
@@ -231,19 +230,17 @@ def authenticate_vec_l(transport: Transport, st: SetupL, values: Scalar,
 
 
 def _exchange_encryptions_proven(transport: Transport, st: SetupL,
-                                 pt_coeff_list: list, rng, gen: torch.Generator,
-                                 zk_rows: int | None = None) -> CiphertextL:
+                                 pt_coeff_list: list, rng, gen: torch.Generator) -> CiphertextL:
     """Exchange U ciphertexts each way under ONE amortized proof of
     plaintext knowledge (`params.rs:65-67`: one proof covers a batch, so
     the V challenge rows are paid once per U).  Proving runs under OUR
     public key, verification under the PEER's.  -> the peer's ciphertexts,
     (U, L, phi)."""
     ring = st.ring
-    v = zk_rows or ZK_ROWS
     u = len(pt_coeff_list)
     t0 = time.perf_counter()
     proof = encrypt_and_prove_batch(ring, st.keypair.pk_a, st.keypair.pk_b,
-                                    pt_coeff_list, gen, v=v, host_rng=rng)
+                                    pt_coeff_list, gen, v=ZK_ROWS, host_rng=rng)
     items = proof_to_arrays(proof)
     del proof
     t0 = _mark(st, "zk/prove", t0)
@@ -256,18 +253,17 @@ def _exchange_encryptions_proven(transport: Transport, st: SetupL,
     peer = proof_from_arrays(cts + list(peer_items[2:]), device=ring.device)
     # v and expected_u are PINNED to the protocol's values, never read from
     # the peer's proof (a short proof would shrink soundness)
-    if not verify_proof(ring, st.other_pk_a, st.other_pk_b, peer, v=v, expected_u=u):
+    if not verify_proof(ring, st.other_pk_a, st.other_pk_b, peer, v=ZK_ROWS, expected_u=u):
         raise KeyExchangeError("peer's l-field ciphertext proof failed")
     _mark(st, "zk/verify", t0)
     return peer.cts
 
 
 def _exchange_encryption_proven(transport: Transport, st: SetupL, pt_coeffs: Scalar,
-                                rng, gen: torch.Generator,
-                                zk_rows: int | None = None) -> CiphertextL:
+                                rng, gen: torch.Generator) -> CiphertextL:
     """Single-ciphertext form of `_exchange_encryptions_proven` (key
     exchange, `setup.rs:13-32`)."""
-    cts = _exchange_encryptions_proven(transport, st, [pt_coeffs], rng, gen, zk_rows)
+    cts = _exchange_encryptions_proven(transport, st, [pt_coeffs], rng, gen)
     return CiphertextL(cts.c0[0], cts.c1[0])
 
 

@@ -12,6 +12,8 @@ port's, with the same numpy seeds, make bit-identical stores (tolerance
 0).  The JAX side spends minutes in BGV compiles, hence the marker.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -187,10 +189,10 @@ def test_peer_residues_are_checked():
             triplets_l._peer_residues(ring, bad, lead)
 
 
-def test_tampered_proof_raises_key_exchange_error():
-    """Party 1 changes one response digit of its enc(a) proof on the wire
-    (after an honest key exchange): party 0 raises `KeyExchangeError` and
-    stops; party 1 then finds its peer gone."""
+def run_with_tampered_proof(edit):
+    """Party 1 passes each proof it sends (8 arrays: cts, commitments, z,
+    zu, ze0, ze1) through `edit` after an honest key exchange -> each
+    party's outcome of one `generate_triples`."""
     ring = RINGS["powerful35"]()
 
     def prog(fabric):
@@ -200,13 +202,50 @@ def test_tampered_proof_raises_key_exchange_error():
 
             def tampered(data):
                 items = messages.decode_arrays(data)
-                if len(items) == 8:  # a proof: cts, commitments, z, zu, ze0, ze1
-                    items[4] = items[4].copy()
-                    items[4][0, 0, 0] += 1
-                    data = messages.encode_arrays(items)
+                if len(items) == 8:
+                    data = messages.encode_arrays(edit(items))
                 return exchange(data)
 
             fabric.transport.exchange = tampered
+        try:
+            lg.generate_triples(1)
+        except (KeyExchangeError, ConnectionError) as e:
+            return type(e).__name__
+        return "passed"
+
+    return run(prog)
+
+
+def test_tampered_proof_raises_key_exchange_error():
+    """Party 1 changes one response digit of its enc(a) proof on the wire:
+    party 0 raises `KeyExchangeError` and stops; party 1 then finds its
+    peer gone."""
+    def edit(items):
+        items[4] = items[4].copy()
+        items[4][0, 0, 0] += 1
+        return items
+
+    assert run_with_tampered_proof(edit) == ("KeyExchangeError", "ConnectionError")
+
+
+def test_short_proof_raises_key_exchange_error(monkeypatch):
+    """Party 1 proves its enc(a) honestly but with ZK_ROWS / 2 challenge
+    rows (soundness 2^-64): the verifier holds every proof to ZK_ROWS, so
+    party 0 raises `KeyExchangeError` and stops."""
+    prove = triplets_l.encrypt_and_prove_batch
+    short = threading.local()
+
+    def prove_short_in_party_1(*args, **kw):
+        if getattr(short, "on", False):
+            kw["v"] = triplets_l.ZK_ROWS // 2
+        return prove(*args, **kw)
+
+    monkeypatch.setattr(triplets_l, "encrypt_and_prove_batch", prove_short_in_party_1)
+    ring = RINGS["powerful35"]()
+
+    def prog(fabric):
+        lg = lowgear(fabric, ring)  # the key exchange's proofs are full
+        short.on = fabric.party_id == 1
         try:
             lg.generate_triples(1)
         except (KeyExchangeError, ConnectionError) as e:
