@@ -43,6 +43,11 @@ class PointShare:
     share: CurvePoint
     mac: CurvePoint
 
+    def __post_init__(self):
+        from ..parallel.step import refuse_on_mesh
+
+        refuse_on_mesh("curve-point shares (the point protocols and MSM)")
+
     @property
     def shape(self):
         return self.share.shape

@@ -160,6 +160,11 @@ class AuthenticatedDensePoly:
 
     coeffs: ScalarShare
 
+    def __post_init__(self):
+        from ..parallel.step import refuse_on_mesh
+
+        refuse_on_mesh("shared polynomials")
+
     @property
     def degree(self):
         return self.coeffs.shape[0] - 1

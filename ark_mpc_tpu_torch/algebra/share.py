@@ -102,7 +102,10 @@ class ScalarShare:
         )
 
     def sum(self, axis=0):
-        """Share-wise sum."""
+        """Share-wise sum (refused on a mesh: `parallel.step.refuse_on_mesh`)."""
+        from ..parallel.step import refuse_on_mesh
+
+        refuse_on_mesh("ScalarShare.sum")
         return ScalarShare(self.share.sum(axis), self.mac.sum(axis))
 
     @classmethod

@@ -1,11 +1,10 @@
 """The MPC fabric: an eager, round-based batched runtime on torch tensors.
 
-Counterpart of `ark_mpc_tpu/fabric/context.py` (`MpcFabric`) without the
-mesh, which comes with a later slice of the port; the curve-point protocols
-live in `fabric/points.py` and the traced circuit scheduler in
-`fabric/scheduler.py`.  Shares are limb tensors on the fabric's device; each
-protocol step is a batched computation followed by at most one coalesced
-exchange:
+Counterpart of `ark_mpc_tpu/fabric/context.py` (`MpcFabric`); the
+curve-point protocols live in `fabric/points.py` and the traced circuit
+scheduler in `fabric/scheduler.py`.  Shares are limb tensors on the
+fabric's device; each protocol step is a batched computation followed by at
+most one coalesced exchange:
 
   - `open`: one message each way carrying all n shares, one local combine.
   - `open_authenticated`: open + MAC-check values + ONE commitment + one
@@ -20,6 +19,24 @@ checked for its shape, 16-bit limbs and values below the modulus before use
 (`_from_wire`).  MAC checks can be deferred and verified by a single
 commit-reveal round (optionally folded to one scalar by a public-coin
 random linear combination).
+
+Mesh (`mesh=`, a `parallel.step.Mesh`): the process is one rank of a mesh
+and holds the rank's shard of every batch; the code below runs unchanged on
+the shard.  Where the reference gathers each round into one frame, rank r's
+two parties exchange rank r's shard over rank r's own transport: N frames a
+round, the same bytes in all.  Values held whole enter through `_place`
+(the rank's slice of the global batch); sizes given to the fabric (`n` of
+`share_values`, the offline passthroughs) are global; offline material is
+drawn through `ShardedSource` (each rank draws the global batch and keeps
+its slice).  On a mesh every such global batch must be a multiple of the
+mesh size, else `ValueError` naming the mesh: a rank cannot tell a
+replicated small batch from a shard, so the reference's replication of
+batches smaller than the mesh is not kept.  `verify_deferred` folds by
+default through `sharded_rlc_fold`, each rank pair with its own public coin
+over its own shard, and every MAC check's outcome is agreed over the
+party's ranks (a MIN `all_reduce`) before any rank raises, so one cheating
+rank pair aborts every rank.  Reductions over the batch axis other than
+the fold raise `NotImplementedError` on a mesh (`refuse_on_mesh`).
 """
 
 from __future__ import annotations
@@ -33,8 +50,15 @@ from ..algebra import limbs as lb
 from ..algebra.scalar import Scalar, public_exponent
 from ..algebra.share import PARTY0, PARTY1, ScalarShare
 from ..device import resolve_device
-from ..offline.base import PreprocessingPhase
+from ..offline.base import PreprocessingPhase, ShardedSource
 from ..ops import fp_kernels
+from ..parallel.step import (
+    all_ranks_ok,
+    batch_sharding,
+    set_thread_mesh,
+    shard,
+    sharded_rlc_fold,
+)
 from ..utils.csprng import CSPRNG, default_crypto_rng
 from ..utils.stats import FabricStats
 from . import commitment, messages
@@ -50,19 +74,25 @@ def _wire(s: Scalar) -> np.ndarray:
 class MpcFabric:
     """Two-party SPDZ online-phase context for one party.
 
-    `device` (default: the CUDA card) is where shares live; the offline
-    source must serve material on the same device.  `collect_stats=True`
-    attaches a `FabricStats` (`self.stats`) that the protocol steps record
-    into."""
+    `device` (default: the mesh's, else the CUDA card) is where shares live;
+    the offline source must serve material on the same device.
+    `collect_stats=True` attaches a `FabricStats` (`self.stats`) that the
+    protocol steps record into.  `mesh` makes this fabric one rank of a
+    mesh (module docstring); its `group` must be this party's alone."""
 
     def __init__(self, party_id: int, transport: Transport,
                  offline: PreprocessingPhase,
                  rng: np.random.Generator | None = None,
-                 collect_stats: bool = False, device=None):
+                 collect_stats: bool = False, device=None, mesh=None):
         if party_id != transport.party_id:
             raise ValueError("party_id does not match the transport's party")
         self.party_id = party_id
         self.transport = transport
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device if device is None else device
+            offline = ShardedSource(offline, mesh)
+        set_thread_mesh(mesh)
         self.offline = offline
         self.device = resolve_device(device)
         self.mac_key = offline.get_mac_key_share()
@@ -94,6 +124,21 @@ class MpcFabric:
             raise AuthenticationError("received field elements are not canonical "
                                       "16-bit limbs below the modulus")
         return self.field(torch.from_numpy(arr.astype(np.int32)).to(self.device))
+
+    # -- mesh placement ----------------------------------------------------
+    def _place(self, x: Scalar) -> Scalar:
+        """The rank's slice of a batch held whole (leading axis); a single
+        element is a constant and stays as it is.  No-op without a mesh."""
+        if self.mesh is None or not x.shape:
+            return x
+        return shard(x, self.mesh)
+
+    def _local_n(self, n: int) -> int:
+        """The rank's share of a global batch size."""
+        if self.mesh is None:
+            return n
+        cols = batch_sharding(self.mesh, n)
+        return cols.stop - cols.start
 
     def _timed(self, op: str, n: int = 0):
         if self.stats is None:
@@ -134,10 +179,14 @@ class MpcFabric:
         """Secret-share `values` held by `sender` into authenticated shares.
 
         The sender masks with an offline input mask and sends v - mask; both
-        parties add the public masked value onto their mask share."""
+        parties add the public masked value onto their mask share.  On a
+        mesh, `values` and `n` are the global batch's; each rank shares its
+        slice."""
         if self.party_id == sender:
             if values is None:
                 raise ValueError("the sender must pass its values")
+            if self.mesh is not None:
+                values = shard(values, self.mesh)
             n = values.size
             mask, mask_share = self.offline.next_local_input_mask_batch(n)
             masked = values.reshape(n) - mask
@@ -146,6 +195,7 @@ class MpcFabric:
         else:
             if n is None:
                 raise ValueError("the receiver must pass n")
+            n = self._local_n(n)
             mask_share = self.offline.next_counterparty_input_mask_batch(n)
             (raw,) = self.recv_arrays()
             masked = self._from_wire(raw, (n,))
@@ -157,7 +207,9 @@ class MpcFabric:
 
     def share_public(self, values: Scalar) -> ScalarShare:
         """Both parties know `values`; produce a valid authenticated sharing
-        (zero share + add_public), no communication."""
+        (zero share + add_public), no communication.  On a mesh a batch is
+        the global one and each rank keeps its slice."""
+        values = self._place(values)
         zero = ScalarShare.zeros(values.shape, field=self.field, device=self.device)
         return zero.add_public(values, self.mac_key, self.party_id)
 
@@ -184,17 +236,20 @@ class MpcFabric:
             self._run_mac_check(flat)
         return value
 
-    def verify_deferred(self, fold: bool = False) -> None:
+    def verify_deferred(self, fold: bool | None = None) -> None:
         """Run ONE commit-reveal MAC check over every deferred open, and one
         for the deferred point opens, if any.
 
-        With `fold=True` the scalar check values are first collapsed to ONE
-        scalar by a public-coin random linear combination (the SPDZ
-        aggregated check): O(1) wire bytes instead of O(n)."""
+        With `fold=True` (the default when a mesh is attached) the scalar
+        check values are first collapsed to ONE scalar by a public-coin
+        random linear combination (the SPDZ aggregated check): O(1) wire
+        bytes instead of O(n); on a mesh through `sharded_rlc_fold`."""
         if self._deferred:
             d = (self._deferred[0] if len(self._deferred) == 1
                  else self.field.concatenate(self._deferred))
             self._deferred = []
+            if fold is None:
+                fold = self.mesh is not None
             if fold:
                 self._run_mac_check_folded(d)
             else:
@@ -222,32 +277,54 @@ class MpcFabric:
 
     def _run_mac_check_folded(self, d: Scalar) -> None:
         """Fold d to one scalar with public-coin coefficients (sampled AFTER
-        every d value is fixed), then one commit-reveal zero test."""
+        every d value is fixed), then one commit-reveal zero test.  On a mesh
+        each rank pair's coin covers its own shard, the party-wide sum comes
+        from one `all_reduce`, and every rank pair zero-tests that sum."""
         coin = self.public_coin_rng()
         coeffs = self.field.random(d.size, coin, device=self.device)
-        self._run_mac_check((d * coeffs).sum().reshape(1))
+        if self.mesh is None:
+            t = (d * coeffs).sum()
+        else:
+            t = self.field(sharded_rlc_fold(self.mesh, d.limbs, coeffs.limbs,
+                                            self.field.spec).limbs)
+        self._run_mac_check(t.reshape(1))
 
     def _run_mac_check(self, d: Scalar) -> None:
-        """Commit-exchange-reveal-verify of MAC check values."""
+        """Commit-exchange-reveal-verify of MAC check values.  On a mesh the
+        outcome is agreed over the party's ranks before any rank raises."""
         with self._timed("mac_check", d.size):
-            blinder = self.field.random((), self.rng, device=self.device)
-            my_comm = commitment.commit(d, blinder)
-            # Round 1: exchange commitments.
-            peer_comm = self.exchange_scalars(my_comm)
-            # Round 2: exchange MAC-check values (canonical limbs, hash-ready).
-            canon = self.field(d.canonical_limbs())
-            (peer_d_canon,) = self._exchange_arrays([_wire(canon)])
-            # Round 3: exchange blinders.
-            peer_blinder = self.exchange_scalars(blinder)
+            try:
+                self._mac_check_round(d)
+            except AuthenticationError as err:
+                failure = err
+            else:
+                failure = None
+            if self.mesh is not None and not all_ranks_ok(failure is None, self.mesh):
+                raise failure or AuthenticationError(
+                    f"MAC check failed on another rank of the {self.mesh.size}-rank mesh")
+            if failure is not None:
+                raise failure
 
-            # Verify: peer's commitment opens AND d_mine + d_peer == 0 pairwise.
-            peer_d = self.field(lb.to_mont(self.field.spec,
-                                           self._from_wire(peer_d_canon, d.shape).limbs))
-            if not commitment.verify(peer_d, peer_blinder, peer_comm):
-                raise AuthenticationError("MAC check commitment failed to verify")
-            if not bool((d + peer_d).is_zero().all()):
-                raise AuthenticationError(
-                    "MAC check failed: shares of key*v - mac do not sum to zero")
+    def _mac_check_round(self, d: Scalar) -> None:
+        """One commit-reveal zero test; raises `AuthenticationError`."""
+        blinder = self.field.random((), self.rng, device=self.device)
+        my_comm = commitment.commit(d, blinder)
+        # Round 1: exchange commitments.
+        peer_comm = self.exchange_scalars(my_comm)
+        # Round 2: exchange MAC-check values (canonical limbs, hash-ready).
+        canon = self.field(d.canonical_limbs())
+        (peer_d_canon,) = self._exchange_arrays([_wire(canon)])
+        # Round 3: exchange blinders.
+        peer_blinder = self.exchange_scalars(blinder)
+
+        # Verify: peer's commitment opens AND d_mine + d_peer == 0 pairwise.
+        peer_d = self.field(lb.to_mont(self.field.spec,
+                                       self._from_wire(peer_d_canon, d.shape).limbs))
+        if not commitment.verify(peer_d, peer_blinder, peer_comm):
+            raise AuthenticationError("MAC check commitment failed to verify")
+        if not bool((d + peer_d).is_zero().all()):
+            raise AuthenticationError(
+                "MAC check failed: shares of key*v - mac do not sum to zero")
 
     # -- authenticated arithmetic -----------------------------------------
     def mul(self, x: ScalarShare, y: ScalarShare) -> ScalarShare:
@@ -289,7 +366,7 @@ class MpcFabric:
         open(x*r)^-1.  Zero inputs map to zero output."""
         shape = x.shape
         n = x.size
-        r = self.random_shared_scalars(n)
+        r = self.offline.next_shared_value_batch(n)
         m = self.mul(x.reshape(n), r)
         m_open = self.open_authenticated(m, defer=defer_check)
         return r.mul_public(m_open.inverse()).reshape(*shape)
@@ -361,22 +438,25 @@ class MpcFabric:
 
         return pts.msm_authenticated(self, scalars, points)
 
-    # -- offline sampling passthroughs ------------------------------------
+    # -- offline sampling passthroughs (n: the global batch; on a mesh each
+    # rank gets its slice) ------------------------------------------------
     def next_triple_batch(self, n: int):
-        return self.offline.next_triplet_batch(n)
+        return self.offline.next_triplet_batch(self._local_n(n))
 
     def random_shared_scalars(self, n: int) -> ScalarShare:
-        return self.offline.next_shared_value_batch(n)
+        return self.offline.next_shared_value_batch(self._local_n(n))
 
     def random_inverse_pairs(self, n: int):
-        return self.offline.next_shared_inverse_pair_batch(n)
+        return self.offline.next_shared_inverse_pair_batch(self._local_n(n))
 
     def random_shared_bits(self, n: int) -> ScalarShare:
-        return self.offline.next_shared_bit_batch(n)
+        return self.offline.next_shared_bit_batch(self._local_n(n))
 
-    # -- constants ---------------------------------------------------------
+    # -- constants (shapes: the global batch's) ----------------------------
     def zero_authenticated(self, shape=()) -> ScalarShare:
-        return ScalarShare.zeros(shape, field=self.field, device=self.device)
+        zero = self.field.zeros(shape, device=self.device)
+        return ScalarShare.zeros(self._place(zero).shape, field=self.field,
+                                 device=self.device)
 
     def one_authenticated(self, shape=()) -> ScalarShare:
         return self.share_public(self.field.ones(shape, device=self.device))

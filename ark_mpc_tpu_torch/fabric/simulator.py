@@ -2,7 +2,9 @@
 
 Counterpart of `ark_mpc_tpu/fabric/simulator.py`: run the same closure for
 both parties over an in-memory lockstep transport with mock preprocessing,
-return both results.  Parties run on two OS threads, one at a time.
+return both results.  Parties run on two OS threads, one at a time.  On a
+mesh every rank calls it: each rank runs both parties over its own
+transport, and each party's fabric gets its own party group's mesh.
 """
 
 from __future__ import annotations
@@ -19,14 +21,17 @@ from .transport import LockstepTransport
 
 
 def execute_mock_mpc(f, offline_factory=None, seed: int | None = None,
-                     device=None):
+                     device=None, mesh=None):
     """Run `f(fabric)` for both parties in-process; return (res0, res1).
 
     `offline_factory(party_id) -> PreprocessingPhase` defaults to
     `PartyIDBeaverSource` on `device`.  `device` (default: the CUDA card)
-    is where both fabrics keep their shares.  Exceptions from either party
-    propagate (first one raised wins)."""
-    device = resolve_device(device)
+    is where both fabrics keep their shares (default on a mesh: the mesh's).
+    `mesh` (`parallel.step.make_mesh`) attaches party p's fabric to
+    `mesh.party(p)`.  Exceptions from either party propagate (first one
+    raised wins)."""
+    device = resolve_device(mesh.device if device is None and mesh is not None
+                            else device)
     if offline_factory is None:
         def offline_factory(pid):
             return PartyIDBeaverSource(pid, device=device)
@@ -40,9 +45,12 @@ def execute_mock_mpc(f, offline_factory=None, seed: int | None = None,
         failed = False
         try:
             sched.acquire(pid)  # lockstep: party 1 waits for the baton
-            rng = np.random.default_rng(1000 + pid if seed is None else seed + pid)
+            base = 1000 + pid if seed is None else seed + pid
+            # each rank pair's coins and blinders must be its own
+            rng = np.random.default_rng(base if mesh is None else (base, mesh.rank))
             fabric = MpcFabric(pid, transports[pid], offline_factory(pid),
-                               rng=rng, device=device)
+                               rng=rng, device=device,
+                               mesh=None if mesh is None else mesh.party(pid))
             results[pid] = f(fabric)
         except BaseException as e:  # noqa: BLE001 - surfaced to caller below
             errors[pid] = e
@@ -72,11 +80,13 @@ def execute_mock_mpc(f, offline_factory=None, seed: int | None = None,
     return results[0], results[1]
 
 
-def execute_mock_mpc_dealer(f, seed: int = 7, device=None):
-    """Mock MPC with randomized honest-dealer preprocessing on `device`."""
-    device = resolve_device(device)
+def execute_mock_mpc_dealer(f, seed: int = 7, device=None, mesh=None):
+    """Mock MPC with randomized honest-dealer preprocessing on `device`; on
+    a mesh every rank holds the same dealer and draws its slice of it."""
+    device = resolve_device(mesh.device if device is None and mesh is not None
+                            else device)
     return execute_mock_mpc(
         f, offline_factory=lambda pid: TrustedDealerSource(pid, seed=seed,
                                                            device=device),
-        device=device,
+        device=device, mesh=mesh,
     )

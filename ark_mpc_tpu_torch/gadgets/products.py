@@ -18,6 +18,7 @@ from ..algebra.scalar import Scalar
 from ..algebra.share import ScalarShare
 from ..fabric.context import MpcFabric
 from ..fabric.scheduler import TracedShare
+from ..parallel.step import refuse_on_mesh
 
 
 def _public_prefix_products(values: Scalar) -> Scalar:
@@ -43,6 +44,7 @@ def prefix_product(fabric: MpcFabric, values, defer_check: bool = False):
     Takes a `TracedShare` too: the blinded open then flows through the
     tracer's mid-circuit `as_public()` path and the public scan runs at
     flush time, so the gadget fuses with level-mates in a larger circuit."""
+    refuse_on_mesh("prefix_product", fabric.mesh)
     if isinstance(values, TracedShare):
         return _prefix_product_traced(values)
     n = values.size

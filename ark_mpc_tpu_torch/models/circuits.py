@@ -10,6 +10,7 @@ from __future__ import annotations
 from ..algebra.scalar import Scalar
 from ..algebra.share import ScalarShare
 from ..fabric.context import MpcFabric
+from ..parallel.step import refuse_on_mesh
 
 
 def inner_product(fabric: MpcFabric, x: ScalarShare, y: ScalarShare,
@@ -41,6 +42,7 @@ def shared_matmul(fabric: MpcFabric, a: ScalarShare, b: ScalarShare) -> ScalarSh
 
 def poly_eval(fabric: MpcFabric, coeffs: ScalarShare, x: Scalar) -> ScalarShare:
     """Evaluate a shared polynomial at a public point (Horner, local)."""
+    refuse_on_mesh("poly_eval", fabric.mesh)
     n = coeffs.size
     acc = coeffs[n - 1]
     for i in range(n - 2, -1, -1):

@@ -10,8 +10,10 @@ shared bits/values/inverse pairs, Beaver triples), batch-first, plus
     seed both parties share.  It draws from the same host numpy generator
     in the same order as the reference, so one seed gives the same material
     bit for bit in both packages.
+  - `ShardedSource`: one rank's slice of a source every rank of a mesh
+    holds alike (what a mesh-attached `MpcFabric` draws through).
 
-Both take a `device` (default: the CUDA card) on which they serve material.
+The first two take a `device` (default: the CUDA card) on which they serve material.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 from ..algebra.scalar import Scalar
 from ..algebra.share import ScalarShare
 from ..device import resolve_device
+from ..parallel.step import shard, shard_share
 
 
 class PreprocessingPhase:
@@ -240,3 +243,53 @@ class TrustedDealerSource(PreprocessingPhase):
         c = self.field(_conv_coeffs(p.limbs, q.limbs))
         return (self._mine(self._deal(p)), self._mine(self._deal(q)),
                 self._mine(self._deal(c)))
+
+
+class ShardedSource(PreprocessingPhase):
+    """One rank's view of a source that every rank of `mesh` (a
+    `parallel.step.Mesh`) holds alike (the same dealer seed on every rank
+    of a party).
+
+    Asked for a batch of n, it draws the global batch of n * `size` from
+    the wrapped source and keeps the rank's n: every rank draws the same
+    stream, so the rank holds the material at its own global positions,
+    which is what the reference's dealer places there, and no triple is
+    used on two ranks.  The MAC key share is the wrapped source's, the same
+    on every rank.  Matrix and polynomial triples have no batch axis to
+    split and raise."""
+
+    def __init__(self, inner: PreprocessingPhase, mesh):
+        self.inner, self.mesh, self.size = inner, mesh, mesh.size
+
+    def _keep(self, x):
+        """The rank's columns of a global batch (Scalar or ScalarShare)."""
+        return shard_share(x, self.mesh) if isinstance(x, ScalarShare) else shard(x, self.mesh)
+
+    def get_mac_key_share(self) -> Scalar:
+        return self.inner.get_mac_key_share()
+
+    def next_triplet_batch(self, n: int):
+        return tuple(self._keep(s) for s in self.inner.next_triplet_batch(n * self.size))
+
+    def next_shared_value_batch(self, n: int) -> ScalarShare:
+        return self._keep(self.inner.next_shared_value_batch(n * self.size))
+
+    def next_shared_inverse_pair_batch(self, n: int):
+        return tuple(self._keep(s) for s in
+                     self.inner.next_shared_inverse_pair_batch(n * self.size))
+
+    def next_shared_bit_batch(self, n: int) -> ScalarShare:
+        return self._keep(self.inner.next_shared_bit_batch(n * self.size))
+
+    def next_local_input_mask_batch(self, n: int):
+        return tuple(self._keep(s) for s in
+                     self.inner.next_local_input_mask_batch(n * self.size))
+
+    def next_counterparty_input_mask_batch(self, n: int) -> ScalarShare:
+        return self._keep(self.inner.next_counterparty_input_mask_batch(n * self.size))
+
+    def next_matrix_triplet(self, m: int, k: int, n: int):
+        raise NotImplementedError(f"matrix triples on a {self.size}-rank mesh")
+
+    def next_poly_triplet(self, da: int, db: int):
+        raise NotImplementedError(f"polynomial triples on a {self.size}-rank mesh")

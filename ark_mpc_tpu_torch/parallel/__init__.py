@@ -1,5 +1,34 @@
-"""Fused protocol steps (single-device half; the sharded forms come later)."""
+"""Fused protocol steps and their mesh-sharded forms over torch.distributed
+(one process a device; `launch` starts the ranks)."""
 
-from .step import beaver_mul_step, flagship_forward, mac_check_fold
+from .launch import launch
+from .step import (
+    Mesh,
+    batch_sharding,
+    beaver_mul_step,
+    flagship_forward,
+    gather,
+    mac_check_fold,
+    make_mesh,
+    replicate,
+    shard,
+    shard_share,
+    sharded_mul_mac_step,
+    sharded_rlc_fold,
+)
 
-__all__ = ["beaver_mul_step", "flagship_forward", "mac_check_fold"]
+__all__ = [
+    "Mesh",
+    "batch_sharding",
+    "beaver_mul_step",
+    "flagship_forward",
+    "gather",
+    "launch",
+    "mac_check_fold",
+    "make_mesh",
+    "replicate",
+    "shard",
+    "shard_share",
+    "sharded_mul_mac_step",
+    "sharded_rlc_fold",
+]

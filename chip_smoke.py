@@ -121,7 +121,22 @@ Phases (any failure exits non-zero; there is no CPU path):
               exchange's seconds, each party's stage record (seconds by
               stage, the proof's and the sacrifice's included), the phase's
               peak device memory, and its `mont_mul` and `beaver_round`
-              launches.
+              launches;
+ 17. mesh     the scale-out path over torch.distributed: a mesh of
+              `torch.cuda.device_count()` ranks over NCCL (one rank a card;
+              one rank, in this process, on a one-card host, more ranks
+              spawned with `parallel.launch`), its two party groups NCCL
+              too; `sharded_mul_mac_step` at n = 2^22, bit for bit equal to
+              the unsharded `beaver_mul_step` + `mac_check_fold`, each timed
+              by CUDA events (median of 5 after a warm-up) beside the fold's
+              `all_reduce` alone; the mesh-attached fabric at n = 2^20
+              (phase 4's program with the default folded check through
+              `sharded_rlc_fold`): spot values equal Python ints and phase
+              4's, both parties agree, host seconds beside phase 4's, and a
+              corrupted MAC aborts both parties; then the sharded ct x pt
+              at the production ring, U = `stack_chunk` = 4 ciphertexts
+              split over the ranks, every decoded slot equal to Python ints;
+              and the path's `mont_mul` and `beaver_round` launches.
 
 Each phase logs its seconds.  The launch counts of the field kernels are
 those of phases 3-5, those of the curve kernels those of phases 8-9 (each
@@ -133,7 +148,9 @@ must each launch there too, and phase 13's fabric batch and point
 protocols a fourth, which must launch `mont_mul` at Fq and at Fr and
 `beaver_round` at Fr (counted by field), phase 15 a fifth, which must
 launch `mont_mul` at l, and phase 16 a sixth, which must launch `mont_mul`
-and `beaver_round`.  The last line is `{"ok": true, "device": {...}}`.
+and `beaver_round`, phase 17 a seventh (counted on each rank and added),
+which must launch both too.  The last line is `{"ok": true, "device":
+{...}}`.
 """
 
 from __future__ import annotations
@@ -145,10 +162,12 @@ import random
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ark_mpc_tpu_torch import (
     G1,
@@ -183,11 +202,23 @@ from ark_mpc_tpu_torch.offline import bgv
 from ark_mpc_tpu_torch.offline.bgv import zkpok_words
 from ark_mpc_tpu_torch.offline.errors import SacrificeError
 from ark_mpc_tpu_torch.offline.lowgear import resolve_bgv_ring
+from ark_mpc_tpu_torch.offline.lowgear.triplets_l import stack_chunk
 from ark_mpc_tpu_torch.ops import _build
 from ark_mpc_tpu_torch.ops import curve_kernels as ck
 from ark_mpc_tpu_torch.ops import fp_kernels as fk
 from ark_mpc_tpu_torch.ops import matmul
 from ark_mpc_tpu_torch.ops import msm_kernels as mk
+from ark_mpc_tpu_torch.parallel import launch
+from ark_mpc_tpu_torch.parallel.dryrun import sharded_ct_x_pt
+from ark_mpc_tpu_torch.parallel.launch import run_rank
+from ark_mpc_tpu_torch.parallel.step import (
+    beaver_mul_step,
+    gather,
+    mac_check_fold,
+    shard,
+    shard_share,
+    sharded_mul_mac_step,
+)
 from ark_mpc_tpu_torch.utils.stats import FabricStats
 
 L = SPEC.modulus
@@ -403,7 +434,8 @@ def fabric_program(fabric):
     return [v[idx].to_ints() for v in opened], fabric.n_rounds
 
 
-def phase_fabric(dev) -> None:
+def phase_fabric(dev) -> tuple[float, list]:
+    """-> (host seconds, party 0's spot values), for phase 17."""
     torch.cuda.synchronize()
     t0 = time.time()
     (vals0, rounds0), (vals1, _) = execute_mock_mpc_dealer(fabric_program,
@@ -415,6 +447,7 @@ def phase_fabric(dev) -> None:
     check(zs == [x * y % L for x, y in zip(xs, ys)], "opened products are wrong")
     log(f"[4 fabric] n=2^20 mul + 3 deferred opens + folded MAC check OK in "
         f"{secs:.2f} s host time ({rounds0} rounds); spot checks {len(zs)}/{len(zs)}")
+    return secs, vals0
 
 
 class Chain:
@@ -2059,6 +2092,159 @@ def phase_lowgear(dev, card: str) -> dict:
             "peak_device_bytes": peak, "held_before_bytes": held}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh
+# ---------------------------------------------------------------------------
+
+N_MESH_STEP = 1 << 22      # the headline's width
+MESH_RUNS = 5              # CUDA-event runs of each timing after a warm-up; the median is kept
+MESH_TIMEOUT = 600         # seconds a collective may wait before it raises
+
+
+def warm_median_ms(fn) -> float:
+    fn()
+    return median_event_ms(fn, MESH_RUNS)
+
+
+def mesh_step(mesh, n: int) -> dict:
+    """The sharded step at n on the rank's shard against the unsharded step
+    on the same global inputs (random field elements made on the card from
+    one seed on every rank), bit for bit; both timed, and the fold's
+    `all_reduce` alone."""
+    dev = mesh.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(170)
+    whole = [Scalar(rand_below(SPEC, n, gen, dev)) for _ in range(13)]
+    key = Scalar(rand_below(SPEC, 1, gen, dev).reshape(NLIMBS))
+    x, y, a, b, c = (ScalarShare(whole[2 * i], whole[2 * i + 1]) for i in range(5))
+    d, e, cf = whole[10:]
+    local = ([shard_share(s, mesh) for s in (x, y, a, b, c)]
+             + [shard(v, mesh) for v in (d, e)] + [key, shard(cf, mesh)])
+
+    def sharded():
+        return sharded_mul_mac_step(mesh, 0, *local)
+
+    def unsharded():
+        z = beaver_mul_step(0, x, y, a, b, c, d, e, key)
+        return z, mac_check_fold(key, z.share, z.mac, cf)
+
+    (z, fold), (zu, fu) = sharded(), unsharded()
+    zg = gather(z, mesh)
+    check(torch.equal(zg.share.limbs, zu.share.limbs) and torch.equal(zg.mac.limbs, zu.mac.limbs)
+          and torch.equal(fold.limbs, fu.limbs),
+          "the sharded step differs from the unsharded one")
+    cols = torch.ones((NLIMBS, 1), dtype=torch.int64, device=dev)
+    out = {"n": n, "sharded_ms": warm_median_ms(sharded),
+           "unsharded_ms": warm_median_ms(unsharded),
+           "all_reduce_ms": warm_median_ms(lambda: dist.all_reduce(cols, group=mesh.group))}
+    return out
+
+
+def mesh_fabric_program(fabric):
+    """Phase 4's program on a mesh: the check folds by default; the opens
+    are gathered for the spot values."""
+    n = N_FABRIC
+    x = fabric.random_shared_scalars(n)
+    y = fabric.random_shared_scalars(n)
+    z = fabric.mul(x, y)
+    opened = [fabric.open_authenticated(v, defer=True) for v in (x, y, z)]
+    fabric.verify_deferred()
+    idx = torch.tensor([0, 1, n // 3, n // 2, n - 1], device=fabric.device)
+    return [gather(v, fabric.mesh)[idx].to_ints() for v in opened], fabric.n_rounds
+
+
+def mesh_corrupt_program(fabric):
+    x = fabric.random_shared_scalars(N_FABRIC)
+    if fabric.party_id == 1:
+        x = ScalarShare(x.share, x.mac + Scalar.ones(x.shape, device=fabric.device))
+    try:
+        fabric.open_authenticated(x, defer=True)
+        fabric.verify_deferred()
+    except AuthenticationError:
+        return "abort"
+    return "pass"
+
+
+def mesh_fabric(mesh, phase4_vals) -> dict:
+    torch.cuda.synchronize()
+    t0 = time.time()
+    (vals0, rounds), (vals1, _) = execute_mock_mpc_dealer(mesh_fabric_program, seed=3,
+                                                          mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    xs, ys, zs = vals0
+    check(vals0 == vals1, "mesh parties opened different values")
+    check(zs == [x * y % L for x, y in zip(xs, ys)], "mesh products are wrong")
+    check(vals0 == phase4_vals, "the mesh fabric's spot values differ from phase 4's")
+    t0 = time.time()
+    aborts = execute_mock_mpc_dealer(mesh_corrupt_program, seed=4, mesh=mesh)
+    check(aborts == ("abort", "abort"), f"a corrupted MAC on the mesh gave {aborts}")
+    return {"n": N_FABRIC, "host_s": secs, "rounds": rounds,
+            "abort_host_s": time.time() - t0}
+
+
+def mesh_ct(mesh) -> dict:
+    t0 = time.time()
+    ring = bgv.production_ring(device=mesh.device)
+    ring_s = time.time() - t0
+    u = stack_chunk(ring)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    held = sharded_ct_x_pt(mesh, ring, u, seed=171)
+    torch.cuda.synchronize()
+    return {"m": ring.m, "slots": ring.slots, "u": u, "held": held,
+            "ring_build_s": ring_s, "host_s": time.time() - t0}
+
+
+def mesh_rank(mesh, phase4_vals) -> dict:
+    """Phase 17 on one rank; every rank of the mesh runs it.  -> its
+    numbers and the launches of its path (counted from 0 here)."""
+    backends = {name: dist.get_backend(m.group)
+                for name, m in (("mesh", mesh), ("party0", mesh.party(0)),
+                                ("party1", mesh.party(1)))}
+    check(set(backends.values()) == {"nccl"}, f"mesh groups are not NCCL: {backends}")
+    torch.cuda.synchronize()
+    fk.reset_launches()
+    out = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+           "backends": backends, "step": mesh_step(mesh, N_MESH_STEP),
+           "fabric": mesh_fabric(mesh, phase4_vals), "ct_x_pt": mesh_ct(mesh)}
+    torch.cuda.synchronize()
+    out["launches"] = fk.launch_counts()
+    return out
+
+
+def phase_mesh(dev, fabric_ref) -> dict:
+    """A mesh of every card of this host: one rank in this process on a
+    one-card host (NCCL takes one rank a card), else one spawned rank a
+    card.  -> rank 0's numbers with the launches of all ranks added."""
+    phase4_s, phase4_vals = fabric_ref
+    n_ranks = torch.cuda.device_count()
+    if n_ranks == 1:
+        with tempfile.TemporaryDirectory(prefix="ark-mesh-") as tmp:
+            ranks = [run_rank(mesh_rank, 0, 1, os.path.join(tmp, "store"), "cuda",
+                              (phase4_vals,), MESH_TIMEOUT)]
+    else:
+        ranks = launch(mesh_rank, n_ranks, phase4_vals, timeout=2 * MESH_TIMEOUT)
+    out = ranks[0]
+    out["launches"] = {k: sum(r["launches"][k] for r in ranks) for k in out["launches"]}
+    step, fab, ct = out["step"], out["fabric"], out["ct_x_pt"]
+    check(sum(r["ct_x_pt"]["held"] for r in ranks) == ct["u"],
+          "the ciphertexts were not split over the ranks")
+    log(f"[17 mesh] {n_ranks} rank(s) over NCCL ({out['backends']}), rank 0 on {out['device']}")
+    log(f"[17 mesh] sharded_mul_mac_step n=2^22 == beaver_mul_step + mac_check_fold (bit for "
+        f"bit): sharded {step['sharded_ms']:.3f} ms, unsharded {step['unsharded_ms']:.3f} ms, "
+        f"the fold's all_reduce alone {step['all_reduce_ms']:.4f} ms (CUDA events, median "
+        f"of {MESH_RUNS})")
+    log(f"[17 mesh] fabric n=2^20 mul + 3 deferred opens + default folded check OK in "
+        f"{fab['host_s']:.2f} s host time (phase 4: {phase4_s:.2f} s; {fab['rounds']} rounds); "
+        f"spot values equal Python ints and phase 4's; corrupted MAC aborted both parties "
+        f"({fab['abort_host_s']:.2f} s)")
+    log(f"[17 mesh] ct x pt at m = {ct['m']}: {ct['u']} ciphertexts x {ct['slots']} slots split "
+        f"over {n_ranks} rank(s), every slot equal to Python ints; ring built in "
+        f"{ct['ring_build_s']:.2f} s, pipeline {ct['host_s']:.2f} s host time")
+    return out
+
+
 def timed(label: str, fn, *args):
     """Run one phase; log its seconds (host clock, after a synchronize)."""
     torch.cuda.synchronize()
@@ -2088,7 +2274,7 @@ def main(argv: list) -> int:
 
     fk.reset_launches()
     timed("3 readme", phase_readme, dev)
-    timed("4 fabric", phase_fabric, dev)
+    fabric_ref = timed("4 fabric", phase_fabric, dev)
     ch, headline = timed("5 chain", phase_chain, dev, card)
     launches = fk.launch_counts()
     log(f"main-path launches: {launches}")
@@ -2142,6 +2328,11 @@ def main(argv: list) -> int:
           "mont_mul or beaver_round was never launched on the LowGear path")
     lowgear["launches"] = lowgear_launches
 
+    mesh = timed("17 mesh", phase_mesh, dev, fabric_ref)
+    log(f"mesh-path launches: {mesh['launches']}")
+    check(mesh["launches"]["mont_mul"] > 0 and mesh["launches"]["beaver_round"] > 0,
+          "mont_mul or beaver_round was never launched on the mesh path")
+
     log(json.dumps({"headline": headline}))
     log(json.dumps({"points_n_10000": points}))
     log(json.dumps({"msm_n_2^16": msm_times}))
@@ -2150,6 +2341,7 @@ def main(argv: list) -> int:
     log(json.dumps({"bn254": bn254, "tcp": tcp}))
     log(json.dumps({"bgv_production": bgv_out}))
     log(json.dumps({"lowgear": lowgear}))
+    log(json.dumps({"mesh": mesh}))
     log(f"total {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)

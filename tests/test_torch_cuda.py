@@ -655,3 +655,23 @@ def test_lowgear_bgv_on_the_card_matches_the_cpu(dev):
         assert got.keys() == want.keys()
         for k in got:
             np.testing.assert_equal(got[k], want[k])
+
+
+def test_one_rank_nccl_mesh_step_matches_unsharded(dev):
+    """A one-rank NCCL mesh over the card (one spawned rank, its party
+    groups NCCL too): the sharded step's product and its fold through the
+    `all_reduce` equal the unsharded step's, bit for bit."""
+    import _torch_mesh_prog as mesh_prog
+    from ark_mpc_tpu_torch.parallel import launch
+
+    rng = np.random.default_rng(90)
+    n = (1 << 16) + 3
+
+    def arr(shape=n):
+        return Scalar.random(shape, rng, device="cpu").limbs.numpy()
+
+    inp = {f"{k}_{part}": arr() for k in mesh_prog.ARRAYS for part in "sm"}
+    inp.update(d=arr(), e=arr(), coeffs=arr(), key=arr(()))
+    backend, same = launch(mesh_prog.one_rank_step, 1, inp, timeout=300)[0]
+    assert backend == "nccl"
+    assert same
