@@ -195,6 +195,17 @@ class G1:
     def _coords(self):
         return (self.X, self.Y, self.Z)
 
+    @property
+    def replicated(self) -> bool:
+        """On a mesh: every rank holds the whole batch (`placement.py`);
+        carried by the coordinates, so slices and reshapes keep it."""
+        return self.X.replicated
+
+    @replicated.setter
+    def replicated(self, flag: bool) -> None:
+        for c in self._coords():
+            c.replicated = flag
+
     def __getitem__(self, idx):
         return G1(*(c[idx] for c in self._coords()))
 

@@ -132,6 +132,17 @@ class CurvePoint:
     def _coords(self):
         return (self.X, self.Y, self.Z, self.T)
 
+    @property
+    def replicated(self) -> bool:
+        """On a mesh: every rank holds the whole batch (`placement.py`);
+        carried by the coordinates, so slices and reshapes keep it."""
+        return self.X.replicated
+
+    @replicated.setter
+    def replicated(self, flag: bool) -> None:
+        for c in self._coords():
+            c.replicated = flag
+
     def _limbs(self):
         return tuple(c.limbs for c in self._coords())
 

@@ -75,4 +75,4 @@ class EvaluationDomain:
     def fft_shares(self, x: ScalarShare, forward: bool = True) -> ScalarShare:
         """Share-wise (I)FFT: transform the share and MAC vectors apart."""
         f = self.fft if forward else self.ifft
-        return ScalarShare(f(x.share), f(x.mac))
+        return ScalarShare(f(x.share), f(x.mac), x.replicated)

@@ -8,6 +8,10 @@ asymmetry.  Curve-generic: the contained point batch carries the group law.
 Where the share and the MAC are multiplied by the same scalar or the same
 point, both products go through one batched scalar multiplication (one
 kernel launch on the card); the values are those of two separate calls.
+
+On a mesh a point share is the rank's shard or `replicated`, as a scalar
+share is (`placement.py`); `sum` over a shard's batch axis adds the
+party's ranks' partials (`parallel.step.sharded_point_sum`).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from .curve import CurvePoint
+from .placement import placement, same_placement, thread_mesh, with_public
 from .scalar import Scalar
 from .share import PARTY0
 
@@ -38,15 +43,12 @@ def _mul_both(points, scalars):
 
 @dataclass
 class PointShare:
-    """Additive share + MAC share of a batch of curve points."""
+    """Additive share + MAC share of a batch of curve points; `replicated`
+    as for `ScalarShare`."""
 
     share: CurvePoint
     mac: CurvePoint
-
-    def __post_init__(self):
-        from ..parallel.step import refuse_on_mesh
-
-        refuse_on_mesh("curve-point shares (the point protocols and MSM)")
+    replicated: bool = False
 
     @property
     def shape(self):
@@ -61,56 +63,72 @@ class PointShare:
         return self.share.device
 
     def __add__(self, other: "PointShare"):
-        return PointShare(self.share + other.share, self.mac + other.mac)
+        rep = placement(self, other)  # before the shapes meet
+        return PointShare(self.share + other.share, self.mac + other.mac, rep)
 
     def __sub__(self, other: "PointShare"):
-        return PointShare(self.share - other.share, self.mac - other.mac)
+        rep = placement(self, other)  # before the shapes meet
+        return PointShare(self.share - other.share, self.mac - other.mac, rep)
 
     def __neg__(self):
-        return PointShare(-self.share, -self.mac)
+        return PointShare(-self.share, -self.mac, self.replicated)
 
     def mul_public(self, rhs: Scalar):
         """Scale by a public scalar."""
-        return PointShare(*_mul_both([self.share, self.mac], [rhs, rhs]))
+        rep = with_public(self, rhs)
+        return PointShare(*_mul_both([self.share, self.mac], [rhs, rhs]), rep)
 
     def add_public(self, rhs: CurvePoint, mac_key: Scalar, party_id: int):
         """Add a public point: party 0 updates the share; both parties add
         mac_key_share * rhs to the MAC."""
+        rep = with_public(self, rhs)
         share = self.share + rhs if party_id == PARTY0 else self.share
-        return PointShare(share, self.mac + rhs.mul(mac_key))
+        return PointShare(share, self.mac + rhs.mul(mac_key), rep)
 
     def sub_public(self, rhs: CurvePoint, mac_key: Scalar, party_id: int):
         return self.add_public(-rhs, mac_key, party_id)
 
     def __getitem__(self, idx):
-        return PointShare(self.share[idx], self.mac[idx])
+        return PointShare(self.share[idx], self.mac[idx], self.replicated)
 
     def reshape(self, *shape):
-        return PointShare(self.share.reshape(*shape), self.mac.reshape(*shape))
+        return PointShare(self.share.reshape(*shape), self.mac.reshape(*shape),
+                          self.replicated)
 
     def sum(self, axis=0):
-        return PointShare(self.share.sum(axis), self.mac.sum(axis))
+        """Share-wise point sum; over the batch axis of a shard on a mesh,
+        over the party's ranks (the result is replicated)."""
+        mesh = thread_mesh()
+        if mesh is not None and axis == 0 and self.shape and not self.replicated:
+            from ..parallel.step import sharded_point_sum
+
+            return PointShare(sharded_point_sum(mesh, self.share),
+                              sharded_point_sum(mesh, self.mac), True)
+        return PointShare(self.share.sum(axis), self.mac.sum(axis), self.replicated)
 
     @classmethod
     def concatenate(cls, items, axis=0):
         curve = items[0].curve
         return cls(curve.concatenate([i.share for i in items], axis),
-                   curve.concatenate([i.mac for i in items], axis))
+                   curve.concatenate([i.mac for i in items], axis),
+                   same_placement(items))
 
     @classmethod
-    def identity(cls, shape=(), curve=CurvePoint, device=None):
+    def identity(cls, shape=(), curve=CurvePoint, device=None, replicated: bool = False):
         return cls(curve.identity(shape, device=device),
-                   curve.identity(shape, device=device))
+                   curve.identity(shape, device=device), replicated)
 
     @property
     def curve(self):
         return type(self.share)
 
     def __repr__(self):
-        return f"PointShare(shape={self.shape})"
+        rep = ", replicated" if self.replicated else ""
+        return f"PointShare(shape={self.shape}{rep})"
 
 
 def scalar_share_mul_point(scalar_share, point: CurvePoint) -> PointShare:
     """[x] * P for public P -> PointShare."""
+    rep = with_public(scalar_share, point)
     return PointShare(*_mul_both([point, point],
-                                 [scalar_share.share, scalar_share.mac]))
+                                 [scalar_share.share, scalar_share.mac]), rep)

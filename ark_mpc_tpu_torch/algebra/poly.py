@@ -14,6 +14,8 @@ gives the canonical limbs the JAX package's scan gives.
 
 Shared polynomials are coefficient `ScalarShare`s; the batch axis is the
 coefficient index.  New coefficients are made on the device of the operand.
+On a mesh a shared polynomial is whole and replicated on every rank
+(`AuthenticatedDensePoly`), so every operation here runs whole, unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from . import limbs as lb
 from .fields import SCALAR_FIELD
 from .limbs import NLIMBS
+from .placement import thread_mesh
 from .scalar import Scalar
 from .share import ScalarShare
 
@@ -156,14 +159,21 @@ def _align(a: Scalar, b: Scalar):
 
 @dataclass
 class AuthenticatedDensePoly:
-    """Shared polynomial: coefficient ScalarShares."""
+    """Shared polynomial: coefficient ScalarShares.
+
+    On a mesh the polynomial is whole on every rank: coefficients given as
+    the rank's shard of a global batch are gathered over the party's ranks
+    (the party's own shares: nothing crosses parties) and held replicated,
+    and every polynomial made from it is replicated too."""
 
     coeffs: ScalarShare
 
     def __post_init__(self):
-        from ..parallel.step import refuse_on_mesh
+        mesh = thread_mesh()
+        if mesh is not None and not self.coeffs.replicated:
+            from ..parallel.step import gather
 
-        refuse_on_mesh("shared polynomials")
+            self.coeffs = gather(self.coeffs, mesh)
 
     @property
     def degree(self):
@@ -192,7 +202,8 @@ class AuthenticatedDensePoly:
         """Share x public polynomial product: local (linear in the share)."""
         share = _conv_coeffs(self.coeffs.share.limbs, other.coeffs.limbs)
         mac = _conv_coeffs(self.coeffs.mac.limbs, other.coeffs.limbs)
-        return AuthenticatedDensePoly(ScalarShare(Scalar(share), Scalar(mac)))
+        return AuthenticatedDensePoly(ScalarShare(Scalar(share), Scalar(mac),
+                                                  self.coeffs.replicated))
 
     def scale(self, k: Scalar) -> "AuthenticatedDensePoly":
         return AuthenticatedDensePoly(self.coeffs.mul_public(k))
@@ -209,7 +220,8 @@ class AuthenticatedDensePoly:
         cur = self.coeffs.shape[0]
         if cur >= n_coeffs:
             return self
-        z = ScalarShare.zeros(n_coeffs - cur, device=self.device)
+        z = ScalarShare.zeros(n_coeffs - cur, device=self.device,
+                              replicated=self.coeffs.replicated)
         return AuthenticatedDensePoly(ScalarShare.concatenate([self.coeffs, z]))
 
     def truncate(self, n_coeffs: int) -> "AuthenticatedDensePoly":
@@ -220,7 +232,7 @@ class AuthenticatedDensePoly:
         c = self.extend(n + 1).coeffs
         return AuthenticatedDensePoly(
             ScalarShare(Scalar(torch.flip(c.share.limbs, dims=[1])),
-                        Scalar(torch.flip(c.mac.limbs, dims=[1]))))
+                        Scalar(torch.flip(c.mac.limbs, dims=[1])), c.replicated))
 
 
 # -- fabric-level protocols (communication) ---------------------------------
@@ -260,12 +272,12 @@ def _poly_mul_beaver_conv(fabric, a: AuthenticatedDensePoly,
             rows = s.limbs[:, :, None] if lhs else s.limbs[:, None, :]
             return Scalar(rows.expand(NLIMBS, na, nb).reshape(NLIMBS, na * nb))
 
-        return ScalarShare(t(share.share), t(share.mac))
+        return ScalarShare(t(share.share), t(share.mac), share.replicated)
 
     prod = fabric.mul(tile(a.coeffs, True), tile(b.coeffs, False))
     sums = [Scalar(_diag_sums(v.limbs.reshape(NLIMBS, na, nb)))
             for v in (prod.share, prod.mac)]
-    return AuthenticatedDensePoly(ScalarShare(*sums))
+    return AuthenticatedDensePoly(ScalarShare(*sums, prod.replicated))
 
 
 def poly_open(fabric, a: AuthenticatedDensePoly,
@@ -293,7 +305,8 @@ def poly_div(fabric, f: AuthenticatedDensePoly, g: DensePoly,
     reversal transform (local)."""
     n, m = f.degree, g.degree
     if n < m:
-        return AuthenticatedDensePoly(ScalarShare.zeros(1, device=f.device))
+        return AuthenticatedDensePoly(ScalarShare.zeros(1, device=f.device,
+                                                        replicated=f.coeffs.replicated))
     t = n - m + 1
     rev_g_inv = g.rev(m).inverse_mod_t(t)
     q_rev = f.rev(n).mul_public(rev_g_inv).truncate(t)
@@ -307,6 +320,7 @@ def _align_shares(a: ScalarShare, b: ScalarShare):
     def pad(x: ScalarShare, cur: int) -> ScalarShare:
         if cur == n:
             return x
-        return ScalarShare.concatenate([x, ScalarShare.zeros(n - cur, device=x.device)])
+        return ScalarShare.concatenate([x, ScalarShare.zeros(n - cur, device=x.device,
+                                                             replicated=x.replicated)])
 
     return pad(a, na), pad(b, nb)

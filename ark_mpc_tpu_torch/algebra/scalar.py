@@ -26,6 +26,7 @@ class FieldArray:
     """An array of elements of one prime field (Montgomery-form limbs)."""
 
     spec = None  # set by subclass
+    replicated = False  # on a mesh: held whole by every rank (`placement.py`)
 
     __array_priority__ = 1000  # win against numpy operator dispatch
 
@@ -92,24 +93,34 @@ class FieldArray:
     def device(self) -> torch.device:
         return self.limbs.device
 
+    def _like(self, limbs: torch.Tensor, replicated: bool | None = None):
+        """A value of this field and placement (or of `replicated`)."""
+        out = type(self)(limbs)
+        if self.replicated if replicated is None else replicated:
+            out.replicated = True
+        return out
+
     def reshape(self, *shape):
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
             shape = tuple(shape[0])
-        return type(self)(self.limbs.reshape((NLIMBS,) + shape))
+        return self._like(self.limbs.reshape((NLIMBS,) + shape))
 
     def __getitem__(self, idx):
         if not isinstance(idx, tuple):
             idx = (idx,)
-        return type(self)(self.limbs[(slice(None),) + idx])
+        return self._like(self.limbs[(slice(None),) + idx])
 
     @classmethod
     def concatenate(cls, items, axis=0):
-        return cls(torch.cat([it.limbs for it in items], dim=axis + 1))
+        out = cls(torch.cat([it.limbs for it in items], dim=axis + 1))
+        if all(it.replicated for it in items):
+            out.replicated = True
+        return out
 
     def broadcast_to(self, shape):
         shape = _shape(shape)
         lead = (1,) * (len(shape) - len(self.shape))
-        return type(self)(self.limbs.reshape((NLIMBS,) + lead + self.shape)
+        return self._like(self.limbs.reshape((NLIMBS,) + lead + self.shape)
                           .expand((NLIMBS,) + shape))
 
     # -- arithmetic --------------------------------------------------------
@@ -129,7 +140,11 @@ class FieldArray:
         a, b = self.limbs, other.limbs
         if a.shape != b.shape:
             a, b = _broadcast_limbs(a, b)
-        return type(self)(fn(self.spec, a, b))
+        # a public result is marked replicated where each operand is marked
+        # or 0-d (public values never raise on mixing: `placement.py`)
+        rep = (self.replicated or other.replicated) and (
+            (self.replicated or not self.shape) and (other.replicated or not other.shape))
+        return self._like(fn(self.spec, a, b), rep)
 
     def __add__(self, other):
         return self._bin(other, lb.add)
@@ -148,7 +163,7 @@ class FieldArray:
     __rmul__ = __mul__
 
     def __neg__(self):
-        return type(self)(lb.neg(self.spec, self.limbs))
+        return self._like(lb.neg(self.spec, self.limbs))
 
     def __truediv__(self, other):
         other = self._coerce(other)
@@ -156,7 +171,7 @@ class FieldArray:
 
     def inverse(self):
         """Multiplicative inverse (0 -> 0); Fermat pow, fully batched."""
-        return type(self)(lb.inverse(self.spec, self.limbs))
+        return self._like(lb.inverse(self.spec, self.limbs))
 
     def pow(self, e: int):
         """Fixed public exponent e >= 0 (square-and-multiply over the bits

@@ -8,12 +8,17 @@ communication):
   - `add_public` adds to party 0's share only, while BOTH parties add
     `mac_key_share * rhs` to the MAC — the party-0 asymmetry that makes
     additive shares of public constants well-defined.
+
+On a mesh a share is the rank's shard or `replicated` (`placement.py`);
+element-wise ops carry the placement and refuse to mix the two, and `sum`
+over a shard's batch axis reduces over the party's ranks.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from .placement import placement, same_placement, thread_mesh, with_public
 from .scalar import FieldArray, Scalar
 
 PARTY0 = 0
@@ -25,10 +30,12 @@ class ScalarShare:
     """Additive share + SPDZ MAC share of a batch of field elements.
 
     Generic over the share field: the contained `FieldArray` subclass
-    carries the field spec."""
+    carries the field spec.  `replicated`: on a mesh, every rank of the
+    party holds the whole batch (else the rank's shard)."""
 
     share: Scalar
     mac: Scalar
+    replicated: bool = False
 
     @property
     def field(self):
@@ -48,19 +55,22 @@ class ScalarShare:
 
     # -- linear algebra (local) -------------------------------------------
     def __add__(self, other: "ScalarShare"):
-        return ScalarShare(self.share + other.share, self.mac + other.mac)
+        rep = placement(self, other)  # before the shapes meet
+        return ScalarShare(self.share + other.share, self.mac + other.mac, rep)
 
     def __sub__(self, other: "ScalarShare"):
-        return ScalarShare(self.share - other.share, self.mac - other.mac)
+        rep = placement(self, other)  # before the shapes meet
+        return ScalarShare(self.share - other.share, self.mac - other.mac, rep)
 
     def __neg__(self):
-        return ScalarShare(-self.share, -self.mac)
+        return ScalarShare(-self.share, -self.mac, self.replicated)
 
     def mul_public(self, rhs):
         """Multiply by a public value: scales share and MAC."""
         if isinstance(rhs, int):
             rhs = self.field.from_ints(rhs, device=self.device)
-        return ScalarShare(self.share * rhs, self.mac * rhs)
+        rep = with_public(self, rhs)
+        return ScalarShare(self.share * rhs, self.mac * rhs, rep)
 
     def __mul__(self, rhs):
         if isinstance(rhs, FieldArray):
@@ -72,26 +82,29 @@ class ScalarShare:
     def add_public(self, rhs: Scalar, mac_key: Scalar, party_id: int):
         """Add a public value: party 0 updates the share, both parties
         update the MAC by `mac_key_share * rhs`."""
+        rep = with_public(self, rhs)
         share = self.share + rhs if party_id == PARTY0 else self.share
-        return ScalarShare(share, self.mac + mac_key * rhs)
+        return ScalarShare(share, self.mac + mac_key * rhs, rep)
 
     def sub_public(self, rhs: Scalar, mac_key: Scalar, party_id: int):
         return self.add_public(-rhs, mac_key, party_id)
 
     def matmul_public_right(self, rhs: Scalar) -> "ScalarShare":
-        """[X] @ E for public E: linear, applies to share and MAC."""
-        return ScalarShare(self.share @ rhs, self.mac @ rhs)
+        """[X] @ E for public E: linear, applies to share and MAC.  The
+        rows, and so the placement, are [X]'s."""
+        return ScalarShare(self.share @ rhs, self.mac @ rhs, self.replicated)
 
     def matmul_public_left(self, lhs: Scalar) -> "ScalarShare":
-        """D @ [X] for public D."""
-        return ScalarShare(lhs @ self.share, lhs @ self.mac)
+        """D @ [X] for public D; the rows, and so the placement, are D's."""
+        return ScalarShare(lhs @ self.share, lhs @ self.mac, lhs.replicated)
 
     # -- batch structure ---------------------------------------------------
     def __getitem__(self, idx):
-        return ScalarShare(self.share[idx], self.mac[idx])
+        return ScalarShare(self.share[idx], self.mac[idx], self.replicated)
 
     def reshape(self, *shape):
-        return ScalarShare(self.share.reshape(*shape), self.mac.reshape(*shape))
+        return ScalarShare(self.share.reshape(*shape), self.mac.reshape(*shape),
+                           self.replicated)
 
     @classmethod
     def concatenate(cls, items, axis=0):
@@ -99,19 +112,26 @@ class ScalarShare:
         return cls(
             f.concatenate([it.share for it in items], axis=axis),
             f.concatenate([it.mac for it in items], axis=axis),
+            same_placement(items),
         )
 
     def sum(self, axis=0):
-        """Share-wise sum (refused on a mesh: `parallel.step.refuse_on_mesh`)."""
-        from ..parallel.step import refuse_on_mesh
+        """Share-wise sum.  Over the batch axis of a shard on a mesh it
+        reduces over the party's ranks (`parallel.step.sharded_sum`); the
+        result is replicated."""
+        mesh = thread_mesh()
+        if mesh is not None and axis == 0 and self.shape and not self.replicated:
+            from ..parallel.step import sharded_sum
 
-        refuse_on_mesh("ScalarShare.sum")
-        return ScalarShare(self.share.sum(axis), self.mac.sum(axis))
+            return ScalarShare(sharded_sum(mesh, self.share), sharded_sum(mesh, self.mac),
+                               True)
+        return ScalarShare(self.share.sum(axis), self.mac.sum(axis), self.replicated)
 
     @classmethod
-    def zeros(cls, shape=(), field=Scalar, device=None):
+    def zeros(cls, shape=(), field=Scalar, device=None, replicated: bool = False):
         return cls(field.zeros(shape, device=device),
-                   field.zeros(shape, device=device))
+                   field.zeros(shape, device=device), replicated)
 
     def __repr__(self):
-        return f"ScalarShare(shape={self.shape})"
+        rep = ", replicated" if self.replicated else ""
+        return f"ScalarShare(shape={self.shape}{rep})"

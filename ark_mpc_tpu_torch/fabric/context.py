@@ -20,23 +20,46 @@ checked for its shape, 16-bit limbs and values below the modulus before use
 commit-reveal round (optionally folded to one scalar by a public-coin
 random linear combination).
 
-Mesh (`mesh=`, a `parallel.step.Mesh`): the process is one rank of a mesh
-and holds the rank's shard of every batch; the code below runs unchanged on
-the shard.  Where the reference gathers each round into one frame, rank r's
-two parties exchange rank r's shard over rank r's own transport: N frames a
-round, the same bytes in all.  Values held whole enter through `_place`
-(the rank's slice of the global batch); sizes given to the fabric (`n` of
-`share_values`, the offline passthroughs) are global; offline material is
-drawn through `ShardedSource` (each rank draws the global batch and keeps
-its slice).  On a mesh every such global batch must be a multiple of the
-mesh size, else `ValueError` naming the mesh: a rank cannot tell a
-replicated small batch from a shard, so the reference's replication of
-batches smaller than the mesh is not kept.  `verify_deferred` folds by
-default through `sharded_rlc_fold`, each rank pair with its own public coin
-over its own shard, and every MAC check's outcome is agreed over the
-party's ranks (a MIN `all_reduce`) before any rank raises, so one cheating
-rank pair aborts every rank.  Reductions over the batch axis other than
-the fold raise `NotImplementedError` on a mesh (`refuse_on_mesh`).
+Mesh (`mesh=`, a `parallel.step.Mesh`): the process is one rank of a mesh,
+and every value it holds has one of two placements (`algebra/placement.py`):
+
+  - a shard: the rank's columns of a global batch.  Values held whole enter
+    through `_place` (the rank's slice); sizes given to the fabric (`n` of
+    `share_values`, the offline passthroughs, `share_public`'s batch) are
+    global and must be multiples of the mesh size, else `ValueError` naming
+    the mesh (a 0-d value is a constant and stays as it is); offline
+    material is drawn through `ShardedSource` (each rank draws the global
+    batch and keeps its slice, so every position holds the reference's
+    material).  The reference's replication of batches smaller than the
+    mesh is not kept;
+  - replicated (`replicated = True`): every rank of the party holds the
+    whole, with the same limbs: the result of a reduction over the batch
+    axis (`ScalarShare.sum` through `parallel.step.sharded_sum`, point sums
+    and MSM through `sharded_point_sum`), a shared polynomial (its
+    coefficients gathered over the party's ranks), a matrix triple's Q,
+    and what opening or element-wise operations make of such values.
+    `_place` leaves a replicated value whole, and offline material for
+    replicated operands is drawn whole (`ShardedSource.draw_whole`).
+
+Element-wise operations carry the placement and raise `ValueError` naming
+the mesh where a shard meets a replicated batch of more than one element;
+`parallel.step.gather` returns a replicated value as it is.  Rank r's two
+parties exchange rank r's values over rank r's own transport: N frames a
+round where the reference sends one, the same bytes in all for shards.
+
+Opening a replicated share: each rank pair exchanges the whole value and
+computes its own check values d = key * v - mac from it.  These enter the
+deferred fold on every rank beside the shards', each rank pair with its
+own public coin (the simulator seeds each rank pair apart), so the
+party-wide fold holds sum_r r_r . e for an error e in the value a cheating
+peer sent, with independent uniform r_r; it is zero with probability 1/l
+unless e is, on every rank, and a peer who sends different values to
+different ranks makes some rank's e nonzero.  Unfolded, each rank pair
+zero-tests its own d.  Either way every MAC check's outcome is agreed over
+the party's ranks (a MIN `all_reduce`, `all_ranks_ok`) before any rank
+raises, so one cheating rank pair aborts every rank and none is left
+waiting in a collective.  `verify_deferred` folds by default on a mesh,
+through `sharded_rlc_fold`.
 """
 
 from __future__ import annotations
@@ -47,18 +70,13 @@ import numpy as np
 import torch
 
 from ..algebra import limbs as lb
+from ..algebra.placement import mark, placement, set_thread_mesh
 from ..algebra.scalar import Scalar, public_exponent
 from ..algebra.share import PARTY0, PARTY1, ScalarShare
 from ..device import resolve_device
 from ..offline.base import PreprocessingPhase, ShardedSource
 from ..ops import fp_kernels
-from ..parallel.step import (
-    all_ranks_ok,
-    batch_sharding,
-    set_thread_mesh,
-    shard,
-    sharded_rlc_fold,
-)
+from ..parallel.step import all_ranks_ok, batch_sharding, shard, sharded_rlc_fold
 from ..utils.csprng import CSPRNG, default_crypto_rng
 from ..utils.stats import FabricStats
 from . import commitment, messages
@@ -128,8 +146,9 @@ class MpcFabric:
     # -- mesh placement ----------------------------------------------------
     def _place(self, x: Scalar) -> Scalar:
         """The rank's slice of a batch held whole (leading axis); a single
-        element is a constant and stays as it is.  No-op without a mesh."""
-        if self.mesh is None or not x.shape:
+        element is a constant and a replicated value stays whole.  No-op
+        without a mesh."""
+        if self.mesh is None or not x.shape or x.replicated:
             return x
         return shard(x, self.mesh)
 
@@ -139,6 +158,14 @@ class MpcFabric:
             return n
         cols = batch_sharding(self.mesh, n)
         return cols.stop - cols.start
+
+    def _draw(self, method: str, n: int, replicated: bool = False):
+        """`n` elements of offline material (`method` of the source) for
+        operands of this placement: the rank's slice, or the whole batch
+        where the operands are replicated (off a mesh every batch is whole)."""
+        if replicated and self.mesh is not None:
+            return self.offline.draw_whole(method, n)
+        return getattr(self.offline, method)(n)
 
     def _timed(self, op: str, n: int = 0):
         if self.stats is None:
@@ -208,18 +235,27 @@ class MpcFabric:
     def share_public(self, values: Scalar) -> ScalarShare:
         """Both parties know `values`; produce a valid authenticated sharing
         (zero share + add_public), no communication.  On a mesh a batch is
-        the global one and each rank keeps its slice."""
+        the global one and each rank keeps its slice (a replicated value
+        stays whole)."""
         values = self._place(values)
-        zero = ScalarShare.zeros(values.shape, field=self.field, device=self.device)
+        zero = ScalarShare.zeros(values.shape, field=self.field, device=self.device,
+                                 replicated=values.replicated)
         return zero.add_public(values, self.mac_key, self.party_id)
 
     # -- opening -----------------------------------------------------------
     def open(self, x: ScalarShare) -> Scalar:
         """Open shares without MAC check: one exchange of the share vector,
-        one combine."""
-        with self._timed("open", x.size):
-            (theirs,) = self._exchange_arrays([_wire(x.share)])
-            return x.share + self._from_wire(theirs, x.shape)
+        one combine.  The value has the share's placement."""
+        return self.open_many([x])[0]
+
+    def open_many(self, xs: list) -> list:
+        """Open several shares in ONE exchange (one array each, so shards
+        and replicated values travel side by side unmixed); -> their values,
+        each with its share's placement."""
+        with self._timed("open", sum(x.size for x in xs)):
+            theirs = self._exchange_arrays([_wire(x.share) for x in xs])
+            return [mark(x.share + self._from_wire(t, x.shape), x.replicated)
+                    for x, t in zip(xs, theirs)]
 
     def open_authenticated(self, x: ScalarShare, defer: bool = False) -> Scalar:
         """Open and check MACs.
@@ -227,14 +263,21 @@ class MpcFabric:
         With `defer=True` the commit-reveal check round is postponed; call
         `verify_deferred()` once at the end of the program.  Raises
         `AuthenticationError` on a bad MAC (malicious abort)."""
-        value = self.open(x)
-        d = self.mac_key * value - x.mac
-        flat = d.reshape(d.size)
+        return self.open_authenticated_many([x], defer)[0]
+
+    def open_authenticated_many(self, xs: list, defer: bool = False) -> list:
+        """`open_authenticated` of several shares in one exchange and one
+        check (module docstring: a replicated share's check values enter
+        the check on every rank)."""
+        values = self.open_many(xs)
+        d = [self.field((self.mac_key * v - x.mac).limbs.reshape(lb.NLIMBS, -1))
+             for x, v in zip(xs, values)]
+        d = d[0] if len(d) == 1 else self.field.concatenate(d)
         if defer:
-            self._deferred.append(flat)
+            self._deferred.append(d)
         else:
-            self._run_mac_check(flat)
-        return value
+            self._run_mac_check(d)
+        return values
 
     def verify_deferred(self, fold: bool | None = None) -> None:
         """Run ONE commit-reveal MAC check over every deferred open, and one
@@ -290,20 +333,25 @@ class MpcFabric:
         self._run_mac_check(t.reshape(1))
 
     def _run_mac_check(self, d: Scalar) -> None:
-        """Commit-exchange-reveal-verify of MAC check values.  On a mesh the
-        outcome is agreed over the party's ranks before any rank raises."""
+        """Commit-exchange-reveal-verify of MAC check values."""
         with self._timed("mac_check", d.size):
-            try:
-                self._mac_check_round(d)
-            except AuthenticationError as err:
-                failure = err
-            else:
-                failure = None
-            if self.mesh is not None and not all_ranks_ok(failure is None, self.mesh):
-                raise failure or AuthenticationError(
-                    f"MAC check failed on another rank of the {self.mesh.size}-rank mesh")
-            if failure is not None:
-                raise failure
+            self._agreed_check(lambda: self._mac_check_round(d), "MAC check")
+
+    def _agreed_check(self, check, what: str) -> None:
+        """Run `check`, which raises `AuthenticationError` on a bad MAC.  On
+        a mesh its outcome is agreed over the party's ranks before any rank
+        raises, so one cheating rank pair aborts every rank."""
+        try:
+            check()
+        except AuthenticationError as err:
+            failure = err
+        else:
+            failure = None
+        if self.mesh is not None and not all_ranks_ok(failure is None, self.mesh):
+            raise failure or AuthenticationError(
+                f"{what} failed on another rank of the {self.mesh.size}-rank mesh")
+        if failure is not None:
+            raise failure
 
     def _mac_check_round(self, d: Scalar) -> None:
         """One commit-reveal zero test; raises `AuthenticationError`."""
@@ -330,19 +378,21 @@ class MpcFabric:
     def mul(self, x: ScalarShare, y: ScalarShare) -> ScalarShare:
         """Beaver multiplication, element-wise over the batch: one triple
         batch, ONE open round for the concatenated (d, e) masks, one
-        combine."""
+        combine.  Replicated operands take a whole triple batch and give a
+        replicated product."""
         shape = x.shape
         n = x.size
+        rep = placement(x, y)
         with self._timed("beaver_mul", n):
-            a, b, c = self.offline.next_triplet_batch(n)
+            a, b, c = self._draw("next_triplet_batch", n, rep)
             masked = self.field.concatenate([(x.reshape(n) - a).share,
                                              (y.reshape(n) - b).share])
             (theirs,) = self._exchange_arrays([_wire(masked)])
             opened = masked + self._from_wire(theirs, (2 * n,))
             d, e = opened[:n], opened[n:]
-            return self._beaver_combine_dispatch(a, b, c, d, e).reshape(*shape)
+            return self._beaver_combine_dispatch(a, b, c, d, e, rep).reshape(*shape)
 
-    def _beaver_combine_dispatch(self, a, b, c, d, e) -> ScalarShare:
+    def _beaver_combine_dispatch(self, a, b, c, d, e, replicated=False) -> ScalarShare:
         """Post-open Beaver combine through the `beaver_round` kernel (its
         plain version for CPU tensors).  The CUDA kernel masks its own tail,
         so every batch size takes it."""
@@ -350,7 +400,7 @@ class MpcFabric:
             self.field.spec, self.party_id,
             a.share.limbs, a.mac.limbs, b.share.limbs, b.mac.limbs,
             c.share.limbs, c.mac.limbs, d.limbs, e.limbs, self.mac_key.limbs)
-        return ScalarShare(self.field(zs), self.field(zm))
+        return ScalarShare(self.field(zs), self.field(zm), replicated)
 
     def mul_public(self, x: ScalarShare, k: Scalar) -> ScalarShare:
         return x.mul_public(k)
@@ -366,7 +416,7 @@ class MpcFabric:
         open(x*r)^-1.  Zero inputs map to zero output."""
         shape = x.shape
         n = x.size
-        r = self.offline.next_shared_value_batch(n)
+        r = self._draw("next_shared_value_batch", n, x.replicated)
         m = self.mul(x.reshape(n), r)
         m_open = self.open_authenticated(m, defer=defer_check)
         return r.mul_public(m_open.inverse()).reshape(*shape)
@@ -378,7 +428,8 @@ class MpcFabric:
         `ValueError` before any triple is drawn or round started."""
         e = public_exponent(e)
         if e == 0:
-            return self.share_public(self.field.ones(x.shape, device=self.device))
+            return self.share_public(mark(self.field.ones(x.shape, device=self.device),
+                                          x.replicated))
         shape = x.shape
         n = x.size
         result, base = None, x.reshape(n)

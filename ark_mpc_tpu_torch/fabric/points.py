@@ -11,6 +11,14 @@ from the fabric's share field (`Scalar.curve = CurvePoint`).
 Every point received off the wire is validated before use: canonical
 coordinates, on the curve and in the prime-order subgroup (`windowed_mul`
 by the order l).  A failure raises `AuthenticationError`.
+
+On a mesh point shares are sharded like scalars (`fabric/context.py`):
+`share_points` shards the sender's global points and both parties take
+their mask slices from `ShardedSource`; the element-wise protocols run on
+the rank's shard (the `windowed_mul` kernel on each rank's shard on the
+card); `PointShare.sum`, and so both MSMs, add the party's ranks' partials
+into a replicated result; a point MAC check's outcome is agreed over the
+party's ranks before any rank raises.
 """
 
 from __future__ import annotations
@@ -20,8 +28,10 @@ import torch
 
 from ..algebra import limbs as lb
 from ..algebra.curve import CurvePoint
+from ..algebra.placement import mark, placement
 from ..algebra.point_share import PointShare, _mul_both, scalar_share_mul_point
 from ..algebra.share import ScalarShare
+from ..parallel.step import shard
 from . import commitment
 from .errors import AuthenticationError
 
@@ -92,6 +102,9 @@ def share_points(fabric, points=None, sender: int = 0,
     if fabric.party_id == sender:
         if points is None:
             raise ValueError("the sender must pass its points")
+        if fabric.mesh is not None:
+            points = type(points)(*(shard(c, fabric.mesh)
+                                    for c in points.reshape(points.size)._coords()))
         n = points.size
         mask, mask_share = fabric.offline.next_local_input_mask_batch(n)
         gen = curve.generator((n,), device=fabric.device)
@@ -101,6 +114,7 @@ def share_points(fabric, points=None, sender: int = 0,
     else:
         if n is None:
             raise ValueError("the receiver must pass n")
+        n = fabric._local_n(n)
         mask_share = fabric.offline.next_counterparty_input_mask_batch(n)
         xc, yc = fabric.recv_arrays()
         masked = _point_from_wire_checked(fabric, curve, xc, yc)
@@ -112,27 +126,47 @@ def share_points(fabric, points=None, sender: int = 0,
 
 
 def share_public_points(fabric, points) -> PointShare:
-    """Both parties know the points; make a valid authenticated sharing."""
-    return PointShare.identity(points.shape, curve=type(points),
-                               device=fabric.device).add_public(
+    """Both parties know the points; make a valid authenticated sharing.
+    On a mesh a batch is the global one and each rank keeps its slice (a
+    replicated batch stays whole)."""
+    if fabric.mesh is not None and points.shape and not points.replicated:
+        points = type(points)(*(shard(c, fabric.mesh) for c in points._coords()))
+    return PointShare.identity(points.shape, curve=type(points), device=fabric.device,
+                               replicated=points.replicated).add_public(
         points, fabric.mac_key, fabric.party_id)
 
 
 def open_points(fabric, ps: PointShare) -> CurvePoint:
     """Open without MAC check: one exchange of affine share coordinates and
-    one point add."""
-    theirs = fabric._exchange_arrays(list(_wire_arrays(ps.share)))
-    their_pt = _point_from_wire_checked(fabric, ps.curve, theirs[0], theirs[1])
-    return ps.share + their_pt.reshape(*ps.shape)
+    one point add.  The points have the share's placement."""
+    return open_points_many(fabric, [ps])[0]
+
+
+def open_points_many(fabric, pss: list) -> list:
+    """Open several point shares in ONE exchange (their coordinate arrays
+    side by side, so shards and replicated values travel unmixed)."""
+    theirs = fabric._exchange_arrays([a for ps in pss for a in _wire_arrays(ps.share)])
+    out = []
+    for i, ps in enumerate(pss):
+        their_pt = _point_from_wire_checked(fabric, ps.curve, *theirs[2 * i:2 * i + 2])
+        out.append(mark(ps.share + their_pt.reshape(*ps.shape), ps.replicated))
+    return out
 
 
 def open_authenticated_points(fabric, ps: PointShare,
                               defer: bool = False) -> CurvePoint:
     """Open + point MAC check: commit to the check points' bytes, exchange,
     verify that the two parties' check points sum to the identity."""
-    opened = open_points(fabric, ps)
-    d = opened.mul(fabric.mac_key) - ps.mac  # key_share * opened - mac_share
-    flat = d.reshape(d.size)
+    return open_authenticated_points_many(fabric, [ps], defer)[0]
+
+
+def open_authenticated_points_many(fabric, pss: list, defer: bool = False) -> list:
+    """`open_authenticated_points` of several shares in one exchange and one
+    check (each rank pair tests the check values of what it opened)."""
+    opened = open_points_many(fabric, pss)
+    # key_share * opened - mac_share
+    ds = [(v.mul(fabric.mac_key) - ps.mac).reshape(ps.size) for v, ps in zip(opened, pss)]
+    flat = ds[0] if len(ds) == 1 else type(ds[0]).concatenate(ds)
     if defer:
         fabric._deferred_points.append(flat)
     else:
@@ -141,6 +175,12 @@ def open_authenticated_points(fabric, ps: PointShare,
 
 
 def run_point_mac_check(fabric, d: CurvePoint) -> None:
+    """Commit-reveal zero test of point check values, agreed over the
+    party's ranks on a mesh (`MpcFabric._agreed_check`)."""
+    fabric._agreed_check(lambda: _point_mac_check_round(fabric, d), "point MAC check")
+
+
+def _point_mac_check_round(fabric, d: CurvePoint) -> None:
     blinder = fabric.field.random((), fabric.rng, device=fabric.device)
     wire = _wire_arrays(d)
     my_comm = commitment.commit_bytes(_bytes_be(*wire), blinder)
@@ -182,9 +222,10 @@ def beaver_mul_points(fabric, x: ScalarShare, ps: PointShare) -> PointShare:
     (a, b, c), open d = x - a and E = P - b*G; the result is
     d*E (party 0) + d*[bG] + [a]*E + [c]*G."""
     n = x.size
+    rep = placement(x, ps)
     xf = x.reshape(n)
     pf = ps.reshape(n)
-    a, b, c = fabric.offline.next_triplet_batch(n)
+    a, b, c = fabric._draw("next_triplet_batch", n, rep)
     b_gen = mul_generator(fabric, b)
 
     # one coalesced round: scalar masks + point masks
@@ -208,12 +249,13 @@ def _beaver_point_combine(fabric, a: ScalarShare, b_gen: PointShare,
         [d, d, a.share, a.mac, c.share, c.mac, d])
     res = PointShare(db_s, db_m) + PointShare(ae_s, ae_m) + PointShare(c_s, c_m)
     share = res.share + de if fabric.party_id == 0 else res.share
-    return PointShare(share, res.mac + de.mul(fabric.mac_key))
+    return PointShare(share, res.mac + de.mul(fabric.mac_key), c.replicated)
 
 
 def msm_authenticated(fabric, scalars: ScalarShare,
                       points: PointShare) -> PointShare:
-    """Authenticated MSM = batched Beaver products + tree point sum."""
+    """Authenticated MSM = batched Beaver products + tree point sum (on a
+    mesh: of the rank's shard, then over the party's ranks)."""
     return beaver_mul_points(fabric, scalars, points).sum()
 
 

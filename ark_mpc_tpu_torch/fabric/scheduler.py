@@ -23,11 +23,22 @@ Nodes register with their tracer at creation, so creation order IS a
 topological order; leveling is two linear passes (reachability backward,
 depth and forms forward) with no recursion.  Constants the scheduler makes
 (coefficients, the 0 and 1 of `pow(0)`) live on the fabric's device.
+
+On a mesh a level may hold shards and replicated values (a `sum` is
+replicated, `algebra/placement.py`).  They are never concatenated: a
+level's opens send one group of each placement side by side in the same
+exchange, and its muls, inversions and point products make one fused call
+for each placement present (so a level that mixes them takes a round
+more).  Every rank's groups are then equal in size (equal shards, the same
+replicated values), so each rank slices its results back the same way.
 """
 
 from __future__ import annotations
 
+import functools
+
 from ..algebra.fields import SCALAR_FIELD
+from ..algebra.placement import placement
 from ..algebra.scalar import Scalar, public_exponent
 from ..algebra.share import ScalarShare
 from .context import MpcFabric
@@ -569,54 +580,31 @@ class Tracer:
             lv = by_level.get(level, {})
             mids = lv.get("open", [])
             if mids:
-                flat = [eval_local(n.deps[0]).reshape(_numel(n))
-                        for n in mids]
-                sizes = [s.size for s in flat]
-                opened = fabric.open_authenticated(
-                    ScalarShare.concatenate(flat), defer=True)
-                off = 0
-                for n, k in zip(mids, sizes):
-                    values[n.nid] = opened[off: off + k].reshape(*n.shape)
-                    off += k
+                opened = _open_fused(fabric.open_authenticated_many,
+                                     [eval_local(n.deps[0]).reshape(_numel(n))
+                                      for n in mids])
+                for n, v in zip(mids, opened):
+                    values[n.nid] = v.reshape(*n.shape)
             muls = lv.get("mul", [])
             invs = lv.get("inv", [])
             if muls:
                 lhs = [eval_local(n.deps[0]).reshape(_numel(n)) for n in muls]
                 rhs = [eval_local(n.deps[1]).reshape(_numel(n)) for n in muls]
-                big = fabric.mul(
-                    ScalarShare.concatenate(lhs), ScalarShare.concatenate(rhs)
-                )
-                off = 0
-                for n in muls:
-                    k = _numel(n)
-                    values[n.nid] = big[off: off + k]
-                    off += k
+                for n, v in zip(muls, _fused(fabric.mul, lhs, rhs)):
+                    values[n.nid] = v
             if invs:
                 xs = [eval_local(n.deps[0]).reshape(_numel(n)) for n in invs]
-                big = fabric.inverse(
-                    ScalarShare.concatenate(xs), defer_check=True
-                )
-                off = 0
-                for n in invs:
-                    k = _numel(n)
-                    values[n.nid] = big[off: off + k]
-                    off += k
+                for n, v in zip(invs, _fused(
+                        lambda x: fabric.inverse(x, defer_check=True), xs)):
+                    values[n.nid] = v
             pmuls = lv.get("pmul", [])
             if pmuls:
-                from ..algebra.point_share import PointShare
-
                 pts = [eval_local(n.deps[0]).reshape(_numel(n))
                        for n in pmuls]
                 scs = [eval_local(n.deps[1]).reshape(_numel(n))
                        for n in pmuls]
-                big = fabric.mul_points(
-                    ScalarShare.concatenate(scs), PointShare.concatenate(pts)
-                )
-                off = 0
-                for n in pmuls:
-                    k = _numel(n)
-                    values[n.nid] = big[off: off + k]
-                    off += k
+                for n, v in zip(pmuls, _fused(fabric.mul_points, scs, pts)):
+                    values[n.nid] = v
 
         # one coalesced open flush for everything still unopened (handles
         # whose open node already flushed mid-circuit just read the value)
@@ -626,37 +614,64 @@ class Tracer:
             if h.node is not None and h.node.nid in values:
                 h.value = values[h.node.nid]
         if terminal:
-            flat = [
+            opened = _open_fused(fabric.open_authenticated_many, [
                 eval_local(h.source.node).reshape(_numel(h.source.node))
-                for h in terminal
-            ]
-            sizes = [s.size for s in flat]
-            opened = fabric.open_authenticated(
-                ScalarShare.concatenate(flat), defer=True
-            )
-            off = 0
-            for h, k in zip(terminal, sizes):
-                h.value = opened[off: off + k].reshape(*h.source.shape)
-                off += k
+                for h in terminal])
+            for h, v in zip(terminal, opened):
+                h.value = v.reshape(*h.source.shape)
         if self.point_opens:
-            from ..algebra.point_share import PointShare
+            from . import points
 
-            flatp = [
-                eval_local(h.source.node).reshape(_numel(h.source.node))
-                for h in self.point_opens
-            ]
-            sizes = [p.size for p in flatp]
-            opened_p = fabric.open_authenticated_points(
-                PointShare.concatenate(flatp), defer=True
-            )
-            off = 0
-            for h, k in zip(self.point_opens, sizes):
-                h.value = opened_p[(slice(off, off + k),)].reshape(
-                    *h.source.shape)
-                off += k
+            opened = _open_fused(
+                functools.partial(points.open_authenticated_points_many, fabric),
+                [eval_local(h.source.node).reshape(_numel(h.source.node))
+                 for h in self.point_opens])
+            for h, v in zip(self.point_opens, opened):
+                h.value = v.reshape(*h.source.shape)
         if verify:
             fabric.verify_deferred()
         return [eval_local(o.node) for o in outputs]
+
+
+def _groups(keys: list) -> list:
+    """Item indices by placement key (shards first), empty groups left out."""
+    return [idx for idx in ([i for i, k in enumerate(keys) if k == key]
+                            for key in (False, True)) if idx]
+
+
+def _split(result, items: list, idx: list, out: list) -> None:
+    """out[i] = item i's slice of `result`, the fused result of `idx`'s
+    items concatenated in order."""
+    off = 0
+    for i in idx:
+        k = items[i].size
+        out[i] = result[off: off + k]
+        off += k
+
+
+def _fused(call, *operands: list) -> list:
+    """`call` on the concatenated flat operands of a level, once per
+    placement present (never concatenating the two); -> each item's slice
+    of its result, in item order."""
+    keys = [placement(*ops) for ops in zip(*operands)]
+    out = [None] * len(keys)
+    for idx in _groups(keys):
+        result = call(*(type(ops[0]).concatenate([ops[i] for i in idx])
+                        for ops in operands))
+        _split(result, operands[0], idx, out)
+    return out
+
+
+def _open_fused(open_many, items: list) -> list:
+    """Deferred authenticated opens of a level's flat shares in ONE exchange:
+    one concatenated group per placement, sent side by side."""
+    groups = _groups([it.replicated for it in items])
+    opened = open_many([type(items[0]).concatenate([items[i] for i in idx])
+                        for idx in groups], defer=True)
+    out = [None] * len(items)
+    for idx, result in zip(groups, opened):
+        _split(result, items, idx, out)
+    return out
 
 
 def _coeff_mul(c, k: Scalar):

@@ -44,7 +44,13 @@ def prefix_product(fabric: MpcFabric, values, defer_check: bool = False):
     Takes a `TracedShare` too: the blinded open then flows through the
     tracer's mid-circuit `as_public()` path and the public scan runs at
     flush time, so the gadget fuses with level-mates in a larger circuit."""
-    refuse_on_mesh("prefix_product", fabric.mesh)
+    refuse_on_mesh(
+        "prefix_product", fabric.mesh,
+        "it draws n + 1 inverse pairs, and n + 1 is no multiple of the mesh size "
+        "when n is; the reference raises there too (ark_mpc_tpu/gadgets/"
+        "products.py:52 draws random_inverse_pairs(n + 1), and "
+        "ark_mpc_tpu/fabric/context.py:152-158 refuses a batch that does not "
+        "divide the mesh)")
     if isinstance(values, TracedShare):
         return _prefix_product_traced(values)
     n = values.size

@@ -11,7 +11,8 @@ shared bits/values/inverse pairs, Beaver triples), batch-first, plus
     in the same order as the reference, so one seed gives the same material
     bit for bit in both packages.
   - `ShardedSource`: one rank's slice of a source every rank of a mesh
-    holds alike (what a mesh-attached `MpcFabric` draws through).
+    holds alike (what a mesh-attached `MpcFabric` draws through), or the
+    whole batch, marked replicated, for replicated operands.
 
 The first two take a `device` (default: the CUDA card) on which they serve material.
 """
@@ -20,10 +21,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..algebra.placement import mark
 from ..algebra.scalar import Scalar
 from ..algebra.share import ScalarShare
 from ..device import resolve_device
-from ..parallel.step import shard, shard_share
+from ..parallel.step import batch_sharding, shard, shard_share
 
 
 class PreprocessingPhase:
@@ -254,9 +256,11 @@ class ShardedSource(PreprocessingPhase):
     the wrapped source and keeps the rank's n: every rank draws the same
     stream, so the rank holds the material at its own global positions,
     which is what the reference's dealer places there, and no triple is
-    used on two ranks.  The MAC key share is the wrapped source's, the same
-    on every rank.  Matrix and polynomial triples have no batch axis to
-    split and raise."""
+    used on two ranks.  `draw_whole` draws a batch whole instead, marked
+    replicated (material for replicated operands); polynomial triples are
+    always whole, and a matrix triple keeps the rank's rows of P and C and
+    the whole Q.  The MAC key share is the wrapped source's, the same on
+    every rank."""
 
     def __init__(self, inner: PreprocessingPhase, mesh):
         self.inner, self.mesh, self.size = inner, mesh, mesh.size
@@ -264,6 +268,14 @@ class ShardedSource(PreprocessingPhase):
     def _keep(self, x):
         """The rank's columns of a global batch (Scalar or ScalarShare)."""
         return shard_share(x, self.mesh) if isinstance(x, ScalarShare) else shard(x, self.mesh)
+
+    def draw_whole(self, method: str, *args):
+        """The wrapped source's `method(*args)` as it is, every share (and
+        cleartext) marked replicated: each rank draws the same material."""
+        out = getattr(self.inner, method)(*args)
+        for x in out if isinstance(out, tuple) else (out,):
+            mark(x)
+        return out
 
     def get_mac_key_share(self) -> Scalar:
         return self.inner.get_mac_key_share()
@@ -289,7 +301,14 @@ class ShardedSource(PreprocessingPhase):
         return self._keep(self.inner.next_counterparty_input_mask_batch(n * self.size))
 
     def next_matrix_triplet(self, m: int, k: int, n: int):
-        raise NotImplementedError(f"matrix triples on a {self.size}-rank mesh")
+        """The global triple ([P](m, k), [Q](k, n), [P@Q](m, n)): the rank's
+        rows of P and C, and the whole Q, marked replicated.  `m` must be a
+        multiple of the mesh size (`ValueError` naming the mesh)."""
+        rows = batch_sharding(self.mesh, m)
+        p, q, c = self.inner.next_matrix_triplet(m, k, n)
+        return p[rows], mark(q), c[rows]
 
     def next_poly_triplet(self, da: int, db: int):
-        raise NotImplementedError(f"polynomial triples on a {self.size}-rank mesh")
+        """The whole triple, replicated: shared polynomials are whole on
+        every rank."""
+        return self.draw_whole("next_poly_triplet", da, db)

@@ -14,7 +14,9 @@ from .step import (
     shard,
     shard_share,
     sharded_mul_mac_step,
+    sharded_point_sum,
     sharded_rlc_fold,
+    sharded_sum,
 )
 
 __all__ = [
@@ -30,5 +32,7 @@ __all__ = [
     "shard",
     "shard_share",
     "sharded_mul_mac_step",
+    "sharded_point_sum",
     "sharded_rlc_fold",
+    "sharded_sum",
 ]

@@ -15,14 +15,15 @@ batch-sharded vector, so the element-wise stages run unchanged on the shard
 and only reductions over the batch axis cross ranks.  The reference instead
 holds a `jax.sharding.Mesh` in one controller and lets XLA insert the
 collectives; `Mesh` here is the rank's view of the process group (gloo on
-the CPU, NCCL on the card).  The fold is the one reduction: each rank's
-modular partial sum, ONE integer `all_reduce` of its 16-bit limb column,
-then one `reduce_wide`.
+the CPU, NCCL on the card).  A field reduction (the fold, a share's sum) is
+each rank's modular partial sum, ONE integer `all_reduce` of its 16-bit
+limb columns, then one `reduce_wide`; a point sum all-gathers each rank's
+partial and adds them in rank order.  Both give a replicated result
+(`algebra/placement.py`).
 """
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass, field
 
 import torch
@@ -31,6 +32,8 @@ import torch.distributed as dist
 from ..algebra import limbs as lb
 from ..algebra.fields import SCALAR_FIELD, FieldSpec
 from ..algebra.limbs import NLIMBS
+from ..algebra.placement import mark
+from ..algebra.point_share import PointShare
 from ..algebra.scalar import FieldArray, Scalar
 from ..algebra.share import ScalarShare
 from ..device import resolve_device
@@ -144,16 +147,31 @@ def replicate(x: FieldArray, mesh: Mesh) -> FieldArray:
     return type(x)(x.limbs.to(mesh.device))
 
 
+def _all_gather(t: torch.Tensor, mesh: Mesh) -> list:
+    """Every rank's `t` (equal shapes), in rank order."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(mesh.size)]
+    dist.all_gather(parts, t, group=mesh.group)
+    return parts
+
+
 def gather(x, mesh: Mesh):
     """The global batch from every rank's shard (the counterpart of
     `jax.device_get` of a sharded array): a collective, so every rank of
-    `mesh` calls it; each gets the whole."""
+    `mesh` calls it; each gets the whole, marked replicated.  A replicated
+    or 0-d value is returned as it is, with no collective (every rank
+    calls it alike).  Takes field arrays, curve points and their shares."""
+    if x.replicated or not x.shape:
+        return x
     if isinstance(x, ScalarShare):
-        return ScalarShare(gather(x.share, mesh), gather(x.mac, mesh))
-    limbs = x.limbs.contiguous()
-    parts = [torch.empty_like(limbs) for _ in range(mesh.size)]
-    dist.all_gather(parts, limbs, group=mesh.group)
-    return type(x)(torch.cat(parts, dim=1))
+        return ScalarShare(gather(x.share, mesh), gather(x.mac, mesh), True)
+    if isinstance(x, PointShare):
+        return PointShare(gather(x.share, mesh), gather(x.mac, mesh), True)
+    if isinstance(x, FieldArray):
+        return mark(type(x)(torch.cat(_all_gather(x.limbs, mesh), dim=1)))
+    coords = torch.stack([c.limbs for c in x._coords()])  # a point batch
+    whole = torch.cat(_all_gather(coords, mesh), dim=2)
+    return mark(type(x)(*(type(c)(t) for c, t in zip(x._coords(), whole))))
 
 
 def all_ranks_ok(ok: bool, mesh: Mesh) -> bool:
@@ -181,9 +199,34 @@ def sharded_rlc_fold(mesh: Mesh, t_limbs: torch.Tensor, coeff_limbs: torch.Tenso
     encoding of the modular sum (a Scalar of `spec`'s field for the
     default; the caller rewraps for another field)."""
     part = lb.tree_sum(spec, lb.mont_mul(spec, t_limbs, coeff_limbs), axis=1)
-    cols = part.reshape(NLIMBS, 1).to(torch.int64)
+    return Scalar(_all_reduce_sum(mesh, spec, part))
+
+
+def _all_reduce_sum(mesh: Mesh, spec: FieldSpec, part: torch.Tensor) -> torch.Tensor:
+    """The modular sum over the ranks of each rank's (16, *rest) partial:
+    ONE int64 `all_reduce` of the limb columns, one `reduce_wide`."""
+    cols = part.reshape(NLIMBS, -1).to(torch.int64)
     dist.all_reduce(cols, op=dist.ReduceOp.SUM, group=mesh.group)
-    return Scalar(lb.reduce_wide(spec, cols).reshape(NLIMBS))
+    return lb.reduce_wide(spec, cols).reshape(part.shape)
+
+
+def sharded_sum(mesh: Mesh, x: FieldArray) -> FieldArray:
+    """sum over the batch axis (leading) of a batch-sharded field array: the
+    rank's `tree_sum`, then the columns' `all_reduce` and `reduce_wide` as
+    in `sharded_rlc_fold` (the Montgomery form is linear mod m, so this is
+    the encoding of the modular sum).  The result is replicated: every rank
+    of `mesh` calls it and gets the same limbs."""
+    part = lb.tree_sum(x.spec, x.limbs, axis=1)
+    return mark(type(x)(_all_reduce_sum(mesh, x.spec, part)))
+
+
+def sharded_point_sum(mesh: Mesh, pt):
+    """sum over the batch axis (leading) of a batch-sharded point batch
+    (`CurvePoint` or `G1`): the rank's tree sum, an all-gather of every
+    rank's partial, then their sum in rank order (a tree over the
+    rank-ordered partials, the same on every rank).  The result is
+    replicated."""
+    return mark(gather(pt.sum().reshape(1), mesh).sum())
 
 
 def sharded_mul_mac_step(mesh: Mesh, party_id: int, x, y, a, b, c, d, e,
@@ -198,26 +241,14 @@ def sharded_mul_mac_step(mesh: Mesh, party_id: int, x, y, a, b, c, d, e,
 
 
 # ---------------------------------------------------------------------------
-# reductions a mesh-attached fabric does not have
+# the one operation a mesh-attached fabric refuses
 # ---------------------------------------------------------------------------
 
-_THREAD = threading.local()
 
-
-def set_thread_mesh(mesh: Mesh | None) -> None:
-    """Record the mesh of the fabric this thread runs (`MpcFabric` calls it),
-    so that batch-axis reductions that take no fabric can refuse."""
-    _THREAD.mesh = mesh
-
-
-def refuse_on_mesh(what: str, mesh: Mesh | None = None) -> None:
-    """Raise `NotImplementedError` naming the mesh if `mesh` (default: this
-    thread's fabric's) is set: on a mesh each rank holds a shard, and an
-    operation that reduces over the batch axis, or mixes its elements,
-    would return the rank's partial."""
-    mesh = getattr(_THREAD, "mesh", None) if mesh is None else mesh
+def refuse_on_mesh(what: str, mesh: Mesh | None, why: str) -> None:
+    """Raise `NotImplementedError` naming `mesh`, with `why` as the reason,
+    if there is one."""
     if mesh is not None:
         raise NotImplementedError(
             f"{what}: not implemented on a mesh-attached fabric (the "
-            f"{mesh.size}-rank mesh splits the batch axis across ranks, and "
-            f"this reduces over it)")
+            f"{mesh.size}-rank mesh): {why}")

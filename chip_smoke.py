@@ -136,7 +136,19 @@ Phases (any failure exits non-zero; there is no CPU path):
               corrupted MAC aborts both parties; then the sharded ct x pt
               at the production ring, U = `stack_chunk` = 4 ciphertexts
               split over the ranks, every decoded slot equal to Python ints;
-              and the path's `mont_mul` and `beaver_round` launches.
+              then the operations that reduce over the batch axis or hold
+              values whole (replicated): `ScalarShare.sum` and
+              `inner_product` at 2^20, a traced circuit at 2^16 whose levels
+              open a sum beside a sharded product, `shared_matmul` at 512^3
+              (row-sharded), phase 12's degree-255 polynomials with
+              `poly_eval`, and Ed25519 `share_points` + `mul_generator` +
+              `msm_authenticated` at 2^16, each against Python ints, with
+              its host seconds beside the unsharded phase's (the points
+              beside the same program on the unsharded fabric, whose shares
+              mul_generator's equal bit for bit and the MSM's
+              projectively); a corrupted point MAC on one rank pair aborts
+              both parties, and `prefix_product` still raises; and the
+              path's `mont_mul`, `beaver_round` and `windowed_mul` launches.
 
 Each phase logs its seconds.  The launch counts of the field kernels are
 those of phases 3-5, those of the curve kernels those of phases 8-9 (each
@@ -149,7 +161,7 @@ protocols a fourth, which must launch `mont_mul` at Fq and at Fr and
 `beaver_round` at Fr (counted by field), phase 15 a fifth, which must
 launch `mont_mul` at l, and phase 16 a sixth, which must launch `mont_mul`
 and `beaver_round`, phase 17 a seventh (counted on each rank and added),
-which must launch both too.  The last line is `{"ok": true, "device":
+which must launch both and `windowed_mul`.  The last line is `{"ok": true, "device":
 {...}}`.
 """
 
@@ -197,7 +209,7 @@ from ark_mpc_tpu_torch.fabric.transport import NoRecvTransport
 from ark_mpc_tpu_torch.gadgets import bit_xor, prefix_product
 from ark_mpc_tpu_torch.integration import REGISTRY
 from ark_mpc_tpu_torch.integration import cases as _cases  # noqa: F401  (fills REGISTRY)
-from ark_mpc_tpu_torch.models.circuits import shared_matmul
+from ark_mpc_tpu_torch.models.circuits import inner_product, poly_eval, shared_matmul
 from ark_mpc_tpu_torch.offline import bgv
 from ark_mpc_tpu_torch.offline.bgv import zkpok_words
 from ark_mpc_tpu_torch.offline.errors import SacrificeError
@@ -1284,20 +1296,27 @@ def phase_traced(dev) -> dict:
             "prefix_2^16_s": psecs, "points_10000_s": qsecs}
 
 
+def whole(x, fabric):
+    """x gathered over the party's ranks of a mesh fabric (else as it is)."""
+    return x if fabric.mesh is None else gather(x, fabric.mesh)
+
+
 def matmul_program(a: Scalar, b: Scalar, idx):
+    """Shared matmul of the global a and b; on a mesh each rank holds its
+    rows of both (its shard of the flat batch), and of the product."""
     def prog(fabric):
         dev, (m, k), n = fabric.device, a.shape, b.shape[1]
         sa = fabric.share_values(a.reshape(m * k) if fabric.party_id == 0
-                                 else None, sender=0, n=m * k).reshape(m, k)
+                                 else None, sender=0, n=m * k).reshape(-1, k)
         sb = fabric.share_values(b.reshape(k * n) if fabric.party_id == 1
-                                 else None, sender=1, n=k * n).reshape(k, n)
+                                 else None, sender=1, n=k * n).reshape(-1, n)
         torch.cuda.synchronize()
         t0 = time.time()
         sc = shared_matmul(fabric, sa, sb)
         torch.cuda.synchronize()
         secs = time.time() - t0
-        opened = fabric.open_authenticated(sc.reshape(m * n))  # MAC-checked
-        return spot(opened, [i * n + j for i, j in idx]), secs
+        opened = fabric.open_authenticated(sc.reshape(sc.size))  # MAC-checked
+        return spot(whole(opened, fabric), [i * n + j for i, j in idx]), secs
     return prog
 
 
@@ -1334,6 +1353,27 @@ def poly_ref_mul(a, b):
     return [v % L for v in out]
 
 
+def poly_inputs() -> tuple:
+    r = random.Random(91)
+    f = [r.randrange(L) for _ in range(POLY_DEG + 1)]
+    g = [r.randrange(L) for _ in range(POLY_DEG + 1)]
+    h = [r.randrange(1, L) for _ in range(18)]
+    return f, g, h, r.randrange(L)
+
+
+def check_poly(p0, p1, f, g, h, x_eval) -> None:
+    """`poly_program`'s opens against Python ints; both parties agree."""
+    check(p0 == p1, "parties opened different polynomials")
+    prod = poly_ref_mul(f, g)
+    check(p0["prod"] == prod, "shared poly_mul differs from Python ints")
+    check(p0["eval"] == [sum(c * pow(x_eval, i, L) for i, c in enumerate(prod)) % L],
+          "poly_eval differs from Python ints")
+    rem = [(u - v) % L for u, v in zip(f, poly_ref_mul(p0["div"], h) + [0] * len(f))]
+    check(len(p0["div"]) == len(f) - len(h) + 1 and not any(rem[len(h) - 1:]),
+          "poly_div leaves a remainder of too high a degree")
+    check(p0["fft_round_trip"] == f[:132], "FFT/IFFT round trip of shares failed")
+
+
 def phase_matmul(dev) -> dict:
     rng = np.random.default_rng(81)
     n = N_MATMUL
@@ -1360,23 +1400,11 @@ def phase_matmul(dev) -> dict:
         f"{n}^3 alone median {mm_ms:.3f} ms ({min(runs[1:]):.3f}-{max(runs[1:]):.3f}), "
         f"route {matmul.ROUTE}")
 
-    r = random.Random(91)
-    f = [r.randrange(L) for _ in range(POLY_DEG + 1)]
-    g = [r.randrange(L) for _ in range(POLY_DEG + 1)]
-    h = [r.randrange(1, L) for _ in range(18)]
-    x_eval = r.randrange(L)
+    f, g, h, x_eval = poly_inputs()
     dom = EvaluationDomain(132, device=dev)
     (p0, psecs), (p1, _) = execute_mock_mpc_dealer(poly_program(f, g, h, x_eval, dom),
                                                    seed=13, device=dev)
-    check(p0 == p1, "parties opened different polynomials")
-    prod = poly_ref_mul(f, g)
-    check(p0["prod"] == prod, "shared poly_mul differs from Python ints")
-    check(p0["eval"] == [sum(c * pow(x_eval, i, L) for i, c in enumerate(prod)) % L],
-          "poly_eval differs from Python ints")
-    rem = [(u - v) % L for u, v in zip(f, poly_ref_mul(p0["div"], h) + [0] * len(f))]
-    check(len(p0["div"]) == len(f) - len(h) + 1 and not any(rem[len(h) - 1:]),
-          "poly_div leaves a remainder of too high a degree")
-    check(p0["fft_round_trip"] == f[:132], "FFT/IFFT round trip of shares failed")
+    check_poly(p0, p1, f, g, h, x_eval)
     log(f"[12 matmul] degree-{POLY_DEG} shared poly_mul, poly_eval, poly_div and an "
         f"EvaluationDomain(132) FFT/IFFT share round trip equal Python ints "
         f"({psecs:.2f} s host time)")
@@ -2196,24 +2224,219 @@ def mesh_ct(mesh) -> dict:
             "ring_build_s": ring_s, "host_s": time.time() - t0}
 
 
+def synced_s(t0: float) -> float:
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def mesh_sum_program(fabric):
+    """`ScalarShare.sum` and `inner_product` at phase 4's 2^20 on the mesh,
+    each timed; x and y are opened too, for party 0's Python-int check."""
+    n, mesh = N_FABRIC, fabric.mesh
+    x = fabric.random_shared_scalars(n)
+    y = fabric.random_shared_scalars(n)
+    secs = {}
+    t0 = time.time()
+    total = x.sum()
+    secs["sum"] = synced_s(t0)
+    t0 = time.time()
+    ip = inner_product(fabric, x, y)
+    secs["inner_product"] = synced_s(t0)
+    s_open, ip_open, xs, ys = (gather(fabric.open_authenticated(v, defer=True), mesh)
+                               for v in (total, ip, x, y))
+    fabric.verify_deferred()
+    ok = None
+    if fabric.party_id == 0:
+        xs, ys = xs.to_ints(), ys.to_ints()
+        ok = (s_open.to_ints() == [sum(xs) % L]
+              and ip_open.to_ints() == [sum(a * b for a, b in zip(xs, ys)) % L])
+    return s_open.to_ints(), ip_open.to_ints(), ok, secs
+
+
+def mesh_traced_program(fabric):
+    """A traced circuit at 2^16 whose level opens a sum beside a sharded
+    product (mid-circuit and in the terminal flush)."""
+    n, mesh = N_SLICE, fabric.mesh
+    x = fabric.random_shared_scalars(n)
+    y = fabric.random_shared_scalars(n)
+    t0 = time.time()
+    tr = fabric.tracer()
+    tx, ty = tr.wrap(x), tr.wrap(y)
+    prod = tx * ty
+    tsum = prod.sum()
+    w = tx * prod.open().as_public() + tsum.open().as_public()
+    handles = [tsum.open(), w.open(), tx.open(), ty.open()]
+    before = fabric.n_rounds
+    tr.run()
+    secs = synced_s(t0)
+    total, ws, xs, ys = (gather(h.value, mesh).to_ints() for h in handles)
+    ok = None
+    if fabric.party_id == 0:
+        ps = [a * b % L for a, b in zip(xs, ys)]
+        ok = total == [sum(ps) % L] and ws == [(a * p + total[0]) % L for a, p in zip(xs, ps)]
+    return total, ok, secs, fabric.n_rounds - before
+
+
+def mesh_poly_eval_program(f, x_eval):
+    """`poly_eval` of phase 12's degree-255 f, its coefficients shared as
+    the ranks' shards."""
+    def prog(fabric):
+        dev = fabric.device
+        sf = fabric.share_values(Scalar.from_ints(f, device=dev) if fabric.party_id == 0
+                                 else None, sender=0, n=len(f))
+        t0 = time.time()
+        ev = poly_eval(fabric, sf, Scalar.from_ints(x_eval, device=dev))
+        secs = synced_s(t0)
+        return fabric.open_authenticated(ev).to_ints(), secs
+    return prog
+
+
+def mesh_points_program(gs, ks, idx):
+    """share_points + mul_generator + the authenticated MSM at phases 8-9's
+    MSM size, with or without a mesh: -> the spot points of mul_generator
+    and the MSM (affine ints, gathered), each step's host seconds, and the
+    shares to compare with the unsharded run (the MSM's PointShare, the
+    gathered mul_generator share coordinates)."""
+    def prog(fabric):
+        dev, n = fabric.device, len(gs)
+        pts = (CurvePoint.generator((n,), device=dev).mul(Scalar.from_ints(gs, device=dev))
+               if fabric.party_id == 0 else None)
+        secs = {}
+        t0 = time.time()
+        sp = fabric.share_points(pts, sender=0, n=n)
+        secs["share_points"] = synced_s(t0)
+        sk = fabric.share_values(Scalar.from_ints(ks, device=dev)
+                                 if fabric.party_id == 1 else None, sender=1, n=n)
+        t0 = time.time()
+        mg = fabric.mul_generator(sk)
+        secs["mul_generator"] = synced_s(t0)
+        t0 = time.time()
+        msm = fabric.msm(sk, sp)
+        secs["msm_authenticated"] = synced_s(t0)
+        o_mg = fabric.open_authenticated_points(mg, defer=True)
+        o_msm = fabric.open_authenticated_points(msm.reshape(1), defer=True)
+        fabric.verify_deferred()
+        mg = whole(mg, fabric)
+        return (affine(whole(o_mg, fabric), idx), affine(o_msm), secs, msm,
+                [c.limbs for c in mg.share._coords() + mg.mac._coords()])
+    return prog
+
+
+def mesh_corrupt_point_program(fabric):
+    """Party 1 of the last rank adds G to its point MAC shares."""
+    n, dev = 16 * fabric.mesh.size, fabric.device
+    gen = CurvePoint.generator((n,), device=dev)
+    sp = fabric.share_points(gen if fabric.party_id == 0 else None, sender=0, n=n)
+    if fabric.party_id == 1 and fabric.mesh.rank == fabric.mesh.size - 1:
+        sp = PointShare(sp.share, sp.mac + gen[:sp.size])
+    try:
+        fabric.open_authenticated_points(sp)
+    except AuthenticationError:
+        return "abort"
+    return "pass"
+
+
+def mesh_prefix_program(fabric):
+    x = fabric.random_shared_scalars(2 * fabric.mesh.size)
+    try:
+        prefix_product(fabric, x)
+    except NotImplementedError as err:
+        return str(err)
+    return "no error"
+
+
+def mesh_ops(mesh) -> tuple[dict, tuple]:
+    """The operations slice G gave the mesh, at the unsharded phases'
+    sizes, each against Python ints; -> their numbers, and the point
+    program's results for `mesh_points_vs_unsharded`."""
+    out = {}
+    (s0, ip0, ok, secs), (s1, ip1, _, _) = execute_mock_mpc_dealer(
+        mesh_sum_program, seed=172, mesh=mesh)
+    check(ok and (s0, ip0) == (s1, ip1),
+          "mesh sum or inner product differs from Python ints or between the parties")
+    out["sum_inner_product_2^20_s"] = secs
+    (t0, ok, secs, rounds), (t1, _, _, _) = execute_mock_mpc_dealer(
+        mesh_traced_program, seed=173, mesh=mesh)
+    check(ok and t0 == t1, "the traced mesh circuit differs from Python ints")
+    out["traced_2^16"] = {"s": secs, "rounds": rounds}
+
+    rng = np.random.default_rng(81)  # phase 12's inputs
+    n = N_MATMUL
+    a = Scalar.random((n, n), rng, device=mesh.device)
+    b = Scalar.random((n, n), rng, device=mesh.device)
+    idx = [(0, 0), (3, 5), (n - 1, n - 1), (100 % n, 200 % n)]
+    (e0, secs), (e1, _) = execute_mock_mpc_dealer(matmul_program(a, b, idx), seed=12, mesh=mesh)
+    want = [sum(u * v for u, v in zip(a[i].to_ints(), b[:, j].to_ints())) % L for i, j in idx]
+    check(e0 == e1 == want, "mesh shared matmul spot entries differ from Python ints")
+    out["shared_matmul_512_party0_s"] = secs
+    f, g, h, x_eval = poly_inputs()
+    dom = EvaluationDomain(132, device=mesh.device)
+    (p0, secs), (p1, _) = execute_mock_mpc_dealer(poly_program(f, g, h, x_eval, dom),
+                                                  seed=13, mesh=mesh)
+    check_poly(p0, p1, f, g, h, x_eval)
+    out["poly_s"] = secs
+    (v0, secs), (v1, _) = execute_mock_mpc_dealer(mesh_poly_eval_program(f, x_eval),
+                                                  seed=14, mesh=mesh)
+    check(v0 == v1 == [sum(c * pow(x_eval, i, L) for i, c in enumerate(f)) % L],
+          "mesh poly_eval differs from Python ints")
+    out["poly_eval_s"] = secs
+
+    rng = np.random.default_rng(41)  # phase 9's discrete logs and scalars
+    gs, ks = (Scalar.random(N_MSM, rng, device=mesh.device).to_ints() for _ in range(2))
+    pidx = [0, 1, N_MSM // 3, N_MSM // 2, N_MSM - 1]
+    prog = mesh_points_program(gs, ks, pidx)
+    res = execute_mock_mpc_dealer(prog, seed=15, mesh=mesh)
+    for r in res:
+        check(r[0] == [ed_mul(ks[i]) for i in pidx], "mesh mul_generator differs from Python ints")
+        check(r[1] == [ed_mul(sum(k * g for k, g in zip(ks, gs)) % L)],
+              "mesh authenticated MSM differs from Python ints")
+    out["points_2^16_party0_s"] = res[0][2]
+    aborts = execute_mock_mpc_dealer(mesh_corrupt_point_program, seed=16, mesh=mesh)
+    check(aborts == ("abort", "abort"),
+          f"a corrupted point MAC on one rank pair of the mesh gave {aborts}")
+    msg = execute_mock_mpc_dealer(mesh_prefix_program, seed=17, mesh=mesh)[0]
+    check("ark_mpc_tpu/gadgets/products.py:52" in msg, f"prefix_product on the mesh: {msg}")
+    return out, (prog, res)
+
+
+def mesh_points_vs_unsharded(dev, prog, mesh_res) -> dict:
+    """The point program on the unsharded fabric on this card: mul_generator's
+    gathered shares bit for bit, the MSM's share and MAC projectively, the
+    opened points equal; -> party 0's step seconds there."""
+    plain = execute_mock_mpc_dealer(prog, seed=15, device=dev)
+    for got, want in zip(mesh_res, plain):
+        check(got[:2] == want[:2], "mesh points differ from the unsharded fabric's")
+        check(all(torch.equal(u, v) for u, v in zip(got[4], want[4])),
+              "mesh mul_generator shares differ from the unsharded fabric's")
+        check(bool(got[3].share.equals(want[3].share)) and bool(got[3].mac.equals(want[3].mac)),
+              "the mesh MSM's shares differ projectively from the unsharded fabric's")
+    return plain[0][2]
+
+
 def mesh_rank(mesh, phase4_vals) -> dict:
     """Phase 17 on one rank; every rank of the mesh runs it.  -> its
-    numbers and the launches of its path (counted from 0 here)."""
+    numbers and the launches of its path (counted from 0 here; rank 0's
+    comparison with the unsharded point program runs after the count)."""
     backends = {name: dist.get_backend(m.group)
                 for name, m in (("mesh", mesh), ("party0", mesh.party(0)),
                                 ("party1", mesh.party(1)))}
     check(set(backends.values()) == {"nccl"}, f"mesh groups are not NCCL: {backends}")
     torch.cuda.synchronize()
     fk.reset_launches()
+    mk.reset_launches()
     out = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
            "backends": backends, "step": mesh_step(mesh, N_MESH_STEP),
            "fabric": mesh_fabric(mesh, phase4_vals), "ct_x_pt": mesh_ct(mesh)}
+    out["ops"], (prog, points) = mesh_ops(mesh)
     torch.cuda.synchronize()
-    out["launches"] = fk.launch_counts()
+    out["launches"] = {**fk.launch_counts(), **mk.launch_counts()}
+    if mesh.rank == 0:
+        out["ops"]["points_2^16_unsharded_party0_s"] = mesh_points_vs_unsharded(
+            mesh.device, prog, points)
     return out
 
 
-def phase_mesh(dev, fabric_ref) -> dict:
+def phase_mesh(dev, fabric_ref, mats: dict) -> dict:
     """A mesh of every card of this host: one rank in this process on a
     one-card host (NCCL takes one rank a card), else one spawned rank a
     card.  -> rank 0's numbers with the launches of all ranks added."""
@@ -2242,6 +2465,28 @@ def phase_mesh(dev, fabric_ref) -> dict:
     log(f"[17 mesh] ct x pt at m = {ct['m']}: {ct['u']} ciphertexts x {ct['slots']} slots split "
         f"over {n_ranks} rank(s), every slot equal to Python ints; ring built in "
         f"{ct['ring_build_s']:.2f} s, pipeline {ct['host_s']:.2f} s host time")
+    ops = out["ops"]
+    sip, tr, pts = ops["sum_inner_product_2^20_s"], ops["traced_2^16"], ops["points_2^16_party0_s"]
+    log(f"[17 mesh] ScalarShare.sum and inner_product at n=2^20 (replicated results) equal "
+        f"Python ints, both parties agree: sum {sip['sum']:.3f} s, inner_product "
+        f"{sip['inner_product']:.3f} s host time, party 0 (phase 4's 2^20 program: "
+        f"{phase4_s:.2f} s)")
+    log(f"[17 mesh] traced circuit at n=2^16 opening a sum beside a sharded product (mid-circuit "
+        f"and terminal): equal to Python ints, {tr['rounds']} rounds, {tr['s']:.2f} s")
+    log(f"[17 mesh] shared_matmul 512^3 (row-sharded, E all-gathered): MAC check passed, spot "
+        f"entries equal Python ints; party 0's call {ops['shared_matmul_512_party0_s'] * 1e3:.2f} "
+        f"ms host time (phase 12: {mats['shared_matmul_512_party0_ms']:.2f} ms)")
+    log(f"[17 mesh] degree-{POLY_DEG} poly_mul, eval, poly_div and the FFT round trip on "
+        f"replicated polynomials equal Python ints ({ops['poly_s']:.2f} s; phase 12: "
+        f"{mats['poly_s']:.2f} s); poly_eval of sharded coefficients "
+        f"{ops['poly_eval_s'] * 1e3:.2f} ms, equal to Python ints")
+    log(f"[17 mesh] Ed25519 share_points + mul_generator + msm_authenticated at n=2^16: spot "
+        f"points and the MSM equal Python ints; mul_generator's shares equal the unsharded "
+        f"fabric's bit for bit and the MSM's projectively; party 0 steps (s): "
+        f"{ {k: round(v, 3) for k, v in pts.items()} }, unsharded "
+        f"{ {k: round(v, 3) for k, v in ops['points_2^16_unsharded_party0_s'].items()} }; "
+        f"a corrupted point MAC on one rank pair aborted both parties; prefix_product still "
+        f"raises NotImplementedError")
     return out
 
 
@@ -2328,10 +2573,10 @@ def main(argv: list) -> int:
           "mont_mul or beaver_round was never launched on the LowGear path")
     lowgear["launches"] = lowgear_launches
 
-    mesh = timed("17 mesh", phase_mesh, dev, fabric_ref)
+    mesh = timed("17 mesh", phase_mesh, dev, fabric_ref, mats)
     log(f"mesh-path launches: {mesh['launches']}")
-    check(mesh["launches"]["mont_mul"] > 0 and mesh["launches"]["beaver_round"] > 0,
-          "mont_mul or beaver_round was never launched on the mesh path")
+    check(all(mesh["launches"][k] > 0 for k in ("mont_mul", "beaver_round", "windowed_mul")),
+          "mont_mul, beaver_round or windowed_mul was never launched on the mesh path")
 
     log(json.dumps({"headline": headline}))
     log(json.dumps({"points_n_10000": points}))

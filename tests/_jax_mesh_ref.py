@@ -1,14 +1,19 @@
 """Subprocess body for the JAX side of the port's mesh tests.
 
-    python tests/_jax_mesh_ref.py IN.pkl OUT.pkl
+    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [points]
 
 reads the inputs `test_torch_parallel.py` made (`_torch_mesh_prog.py`'s
-IN.pkl) and writes what the JAX package computes from them on a one-device
-CPU mesh: `sharded_mul_mac_step` for both parties beside the unsharded
-`beaver_mul_step` + `mac_check_fold`, `sharded_rlc_fold` beside the plain
-fold, and `tests/_mesh_fabric_prog.py`'s honest program through
-`execute_mock_mpc_dealer(..., mesh=)`.  It runs in a process of its own so
-that the XLA compilations (about 2 GiB) do not stay in the test worker.
+IN.pkl) and writes what the JAX package computes from them on an N-device
+virtual CPU mesh (`jax_num_cpu_devices` = N, fixed when the backend
+starts, hence a fresh interpreter): `sharded_mul_mac_step` for both parties
+beside the unsharded `beaver_mul_step` + `mac_check_fold`,
+`sharded_rlc_fold` beside the plain fold, `tests/_mesh_fabric_prog.py`'s
+honest program and the scalar operations' program (`ops_program`, the
+calls of `_torch_mesh_prog.ops_program` in the same order), each through
+`execute_mock_mpc_dealer(..., mesh=)`.  With `points` it runs the point
+protocols' program (`_torch_mesh_prog.points_program`) alone.  It runs in
+a process of its own so that the XLA compilations (a few GiB) do not stay
+in the test worker.
 """
 
 import os
@@ -17,18 +22,27 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+N_DEV = int(sys.argv[1])
+
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_num_cpu_devices", N_DEV)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 import ark_mpc_tpu as ref  # noqa: E402
+from ark_mpc_tpu.algebra import poly  # noqa: E402
+from ark_mpc_tpu.algebra.curve import CurvePoint  # noqa: E402
+from ark_mpc_tpu.fabric import points  # noqa: E402
 from ark_mpc_tpu.fabric.simulator import execute_mock_mpc_dealer  # noqa: E402
+from ark_mpc_tpu.models.circuits import inner_product, poly_eval, shared_matmul  # noqa: E402
 from ark_mpc_tpu.parallel import step  # noqa: E402
 
 ARRAYS = ("x", "y", "a", "b", "c")
+MAT_N = 3  # as `_torch_mesh_prog.py`'s
+POLY_T = 8
 
 
 def scalar(arr):
@@ -77,13 +91,87 @@ def honest_program(xs, ys):
     return prog
 
 
+def share_in(fabric, vals, sender):
+    values = ref.Scalar.from_ints(vals) if fabric.party_id == sender else None
+    return fabric.share_values(values, sender=sender, n=len(vals))
+
+
+def ops_program(inp, n_dev):
+    """`_torch_mesh_prog.ops_program`'s calls in the same order, on global
+    arrays; -> the same record."""
+
+    def prog(fabric):
+        x, y = share_in(fabric, inp["xs"], 0), share_in(fabric, inp["ys"], 1)
+        res = {"sum": x.sum(), "inner_product": inner_product(fabric, x, y)}
+        tr = fabric.tracer()
+        tx, ty = tr.wrap(x), tr.wrap(y)
+        prod = tx * ty
+        tsum = prod.sum()
+        w = tx * prod.open().as_public() + tsum.open().as_public()
+        handles = [tsum.open(), prod.open(), w.open()]
+        res["traced_sum"], res["traced_w"] = tr.run(outputs=[tsum, w])
+        m, k, n = 2 * n_dev, n_dev, MAT_N
+        a = share_in(fabric, inp["mat_a"][:m * k], 0).reshape(m, k)
+        b = share_in(fabric, inp["mat_b"][:k * n], 1).reshape(k, n)
+        res["shared_matmul"] = shared_matmul(fabric, a, b)
+        f, g = share_in(fabric, inp["poly_f"], 0), share_in(fabric, inp["poly_g"], 1)
+        res["poly_eval"] = poly_eval(fabric, f, ref.Scalar.from_ints(inp["x_eval"]))
+        pf, pg = poly.AuthenticatedDensePoly(f), poly.AuthenticatedDensePoly(g)
+        res["poly_mul"] = poly.poly_mul(fabric, pf, pg).coeffs
+        res["poly_inverse_mod_t"] = poly.poly_inverse_mod_t(fabric, pf, POLY_T).coeffs
+        res["poly_div"] = poly.poly_div(
+            fabric, pf, poly.DensePoly.from_ints(inp["poly_h"])).coeffs
+        opened = {name: fabric.open_authenticated(v, defer=True) for name, v in res.items()}
+        fabric.verify_deferred()
+        out = {name: (opened[name].to_ints(), limbs(v.share), limbs(v.mac))
+               for name, v in res.items()}
+        out["traced_opens"] = [h.value.to_ints() for h in handles]
+        return out
+
+    return prog
+
+
+def point_limbs(pt) -> np.ndarray:
+    return np.stack([limbs(c) for c in (pt.X, pt.Y, pt.Z, pt.T)])
+
+
+def points_program(inp):
+    """`_torch_mesh_prog.points_program`'s calls in the same order."""
+    gs, ks = inp["gs"], inp["ks"]
+
+    def prog(fabric):
+        n = len(gs)
+        pub = CurvePoint.generator((n,)).mul(ref.Scalar.from_ints(gs))
+        sp = fabric.share_points(pub if fabric.party_id == 0 else None, sender=0, n=n)
+        sk = share_in(fabric, ks, 1)
+        res = {"share_points": sp, "mul_generator": fabric.mul_generator(sk),
+               "mul_public_point": points.mul_public_point(sk, pub),
+               "beaver_mul_points": fabric.mul_points(sk, sp),
+               "msm_authenticated": fabric.msm(sk, sp).reshape(1),
+               "msm_public_points": points.msm_public_points(sk, pub).reshape(1)}
+        opened = {k: fabric.open_authenticated_points(v, defer=True) for k, v in res.items()}
+        fabric.verify_deferred()
+        out = {}
+        for name, v in res.items():
+            x, y = opened[name].to_affine()
+            out[name] = ([x.to_ints(), y.to_ints()], point_limbs(v.share), point_limbs(v.mac))
+        return out
+
+    return prog
+
+
 if __name__ == "__main__":
-    with open(sys.argv[1], "rb") as fh:
+    with open(sys.argv[2], "rb") as fh:
         inputs = pickle.load(fh)
-    mesh = step.make_mesh(1)
-    out = {"step": step_refs(inputs, mesh),
-           "fabric": execute_mock_mpc_dealer(honest_program(inputs["xs"], inputs["ys"]),
-                                             mesh=mesh)}
-    with open(sys.argv[2], "wb") as fh:
+    assert len(jax.devices()) == N_DEV, jax.devices()
+    mesh = step.make_mesh(N_DEV)
+    if sys.argv[4:] == ["points"]:
+        out = {"points": execute_mock_mpc_dealer(points_program(inputs), mesh=mesh)}
+    else:
+        out = {"step": step_refs(inputs, mesh),
+               "fabric": execute_mock_mpc_dealer(
+                   honest_program(inputs["xs"], inputs["ys"]), mesh=mesh),
+               "ops": execute_mock_mpc_dealer(ops_program(inputs, N_DEV), mesh=mesh)}
+    with open(sys.argv[3], "wb") as fh:
         pickle.dump(out, fh)
-    print("JAX_MESH_REF_OK")
+    print(f"JAX_MESH_REF_OK {N_DEV}")

@@ -6,8 +6,11 @@ spawns N gloo CPU ranks (`ark_mpc_tpu_torch.parallel.launch`) and runs every
 case below on each rank; each case's result, or its traceback, is kept by
 name, and the list of the ranks' results is written to OUT.pkl.  IN.pkl
 holds the inputs the test made from numpy seeds: the sharded step's limb
-arrays and the mesh-fabric program's values (`tests/_mesh_fabric_prog.py`).
-`test_torch_parallel.py` holds the results against the JAX package.
+arrays, the mesh-fabric program's values (`tests/_mesh_fabric_prog.py`),
+and the values of the scalar operations' and point protocols' programs
+(`ops_program`, `points_program`; `tests/_jax_mesh_ref.py` mirrors them
+call for call).  `test_torch_parallel.py` holds the results against the
+JAX package and against the port's unsharded fabric.
 """
 
 import os
@@ -20,13 +23,25 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from ark_mpc_tpu_torch import AuthenticationError, Scalar, ScalarShare  # noqa: E402
-from ark_mpc_tpu_torch.algebra.poly import AuthenticatedDensePoly  # noqa: E402
+from ark_mpc_tpu_torch import (  # noqa: E402
+    G1,
+    AuthenticationError,
+    CurvePoint,
+    Fr,
+    PointShare,
+    Scalar,
+    ScalarShare,
+    TrustedDealerSource,
+    execute_mock_mpc,
+)
+from ark_mpc_tpu_torch.algebra import poly  # noqa: E402
+from ark_mpc_tpu_torch.fabric.points import mul_public_point, msm_public_points  # noqa: E402
 from ark_mpc_tpu_torch.fabric.simulator import execute_mock_mpc_dealer  # noqa: E402
 from ark_mpc_tpu_torch.gadgets import prefix_product  # noqa: E402
 from ark_mpc_tpu_torch.models.circuits import inner_product, poly_eval, shared_matmul  # noqa: E402
 from ark_mpc_tpu_torch.parallel import launch  # noqa: E402
 from ark_mpc_tpu_torch.parallel.step import (  # noqa: E402
+    batch_sharding,
     beaver_mul_step,
     gather,
     mac_check_fold,
@@ -38,6 +53,24 @@ from ark_mpc_tpu_torch.parallel.step import (  # noqa: E402
 )
 
 ARRAYS = ("x", "y", "a", "b", "c")
+MAT_N = 3  # shared_matmul: (2N, N) @ (N, MAT_N) on an N-rank mesh
+MAX_RANKS = 8
+POLY_N = 8  # shared polynomials' coefficients (a multiple of every mesh size)
+POLY_T = 8  # poly_inverse_mod_t's precision (likewise)
+
+
+def op_inputs(rng: np.random.Generator, n: int) -> dict:
+    """Values for `ops_program` and `points_program` besides the batches
+    xs and ys: matrices for every mesh size up to MAX_RANKS (each takes its
+    leading entries), polynomials (f(0) != 0), a point x, and n points'
+    discrete logs gs and scalars ks."""
+
+    def ints(k, low=0):
+        return [int(v) for v in rng.integers(low, 1 << 62, size=k)]
+
+    return dict(mat_a=ints(2 * MAX_RANKS * MAX_RANKS), mat_b=ints(MAX_RANKS * MAT_N),
+                poly_f=ints(POLY_N, 1), poly_g=ints(POLY_N), poly_h=ints(3, 1),
+                x_eval=ints(1)[0], gs=ints(n, 1), ks=ints(n))
 
 
 def scalar(arr, device="cpu") -> Scalar:
@@ -186,24 +219,204 @@ def case_batch_rule(mesh, inp):
     }
 
 
-def case_refusals(mesh, inp):
-    """Each batch-axis reduction, after a shared batch of 2 a rank: ->
-    {name: "TypeName: message"} in party 0."""
+def whole(x, fabric):
+    """x gathered over the party's ranks (as it is without a mesh)."""
+    return x if fabric.mesh is None else gather(x, fabric.mesh)
+
+
+def matmul_dims(n_ranks: int) -> tuple:
+    return 2 * n_ranks, n_ranks, MAT_N
+
+
+def ops_program(inp, n_ranks):
+    """The scalar operations a mesh fabric gained (sum, inner product, a
+    traced circuit whose levels open a sum beside a sharded product,
+    shared matmul with m = 2N, poly_eval, poly_mul, poly_inverse_mod_t,
+    poly_div), then one deferred open of each result and one folded check;
+    -> {name: (opened ints, share limbs, MAC limbs)}, gathered, plus the
+    traced circuit's opens.  `_jax_mesh_ref.ops_program` makes the same
+    calls in the same order."""
+
+    def prog(fabric):
+        dev = fabric.device
+        x, y = share_in(fabric, inp["xs"], 0), share_in(fabric, inp["ys"], 1)
+        res = {"sum": x.sum(), "inner_product": inner_product(fabric, x, y)}
+        tr = fabric.tracer()
+        tx, ty = tr.wrap(x), tr.wrap(y)
+        prod = tx * ty
+        tsum = prod.sum()
+        # level 2 opens the sum beside the sharded product, and so does the
+        # terminal flush
+        w = tx * prod.open().as_public() + tsum.open().as_public()
+        handles = [tsum.open(), prod.open(), w.open()]
+        res["traced_sum"], res["traced_w"] = tr.run(outputs=[tsum, w])
+        m, k, n = matmul_dims(n_ranks)
+        a = share_in(fabric, inp["mat_a"][:m * k], 0).reshape(-1, k)
+        b = share_in(fabric, inp["mat_b"][:k * n], 1).reshape(-1, n)
+        res["shared_matmul"] = shared_matmul(fabric, a, b)
+        f, g = share_in(fabric, inp["poly_f"], 0), share_in(fabric, inp["poly_g"], 1)
+        res["poly_eval"] = poly_eval(fabric, f, Scalar.from_ints(inp["x_eval"], device=dev))
+        pf, pg = poly.AuthenticatedDensePoly(f), poly.AuthenticatedDensePoly(g)
+        res["poly_mul"] = poly.poly_mul(fabric, pf, pg).coeffs
+        res["poly_inverse_mod_t"] = poly.poly_inverse_mod_t(fabric, pf, POLY_T).coeffs
+        res["poly_div"] = poly.poly_div(
+            fabric, pf, poly.DensePoly.from_ints(inp["poly_h"], device=dev)).coeffs
+        opened = {name: fabric.open_authenticated(v, defer=True) for name, v in res.items()}
+        fabric.verify_deferred()
+        out = {}
+        for name, v in res.items():
+            v = whole(v, fabric)
+            out[name] = (whole(opened[name], fabric).to_ints(), limbs(v.share), limbs(v.mac))
+        out["traced_opens"] = [whole(h.value, fabric).to_ints() for h in handles]
+        return out
+
+    return prog
+
+
+def case_ops(mesh, inp):
+    return execute_mock_mpc_dealer(ops_program(inp, mesh.size), mesh=mesh)
+
+
+def case_traced_mixed_levels(mesh, inp):
+    """A level whose muls mix placements (two sums' product beside a
+    sharded product) and whose inversions do too: -> both parties' opens."""
+    xs, ys = inp["xs"], inp["ys"]
+
+    def prog(fabric):
+        tr = fabric.tracer()
+        tx, ty = tr.wrap(share_in(fabric, xs, 0)), tr.wrap(share_in(fabric, ys, 1))
+        sums = tx.sum() * ty.sum()
+        handles = [h.open() for h in (tx * ty, sums, sums.inverse(), tx.inverse())]
+        tr.run()
+        return [whole(h.value, fabric).to_ints() for h in handles]
+
+    return execute_mock_mpc_dealer(prog, mesh=mesh)
+
+
+def point_batch(points, fabric):
+    """The rank's slice of a public point batch held whole."""
+    if fabric.mesh is None:
+        return points
+    return points[batch_sharding(fabric.mesh, points.size)]
+
+
+def point_limbs(pt) -> np.ndarray:
+    return np.stack([limbs(c) for c in pt._coords()])
+
+
+def affine_ints(pt) -> list:
+    x, y = pt.to_affine()
+    return [x.to_ints(), y.to_ints()]
+
+
+def points_program(inp):
+    """The point protocols: share_points, mul_generator, mul_public_point,
+    the Beaver scalar x point product, the authenticated MSM and the MSM
+    with public points, each opened (deferred) and checked; -> {name:
+    (opened affine ints, share coordinate limbs, MAC coordinate limbs)},
+    gathered.  Runs with or without a mesh."""
+    gs, ks = inp["gs"], inp["ks"]
+
+    def prog(fabric):
+        dev, n = fabric.device, len(gs)
+        pub = CurvePoint.generator((n,), device=dev).mul(Scalar.from_ints(gs, device=dev))
+        sp = fabric.share_points(pub if fabric.party_id == 0 else None, sender=0, n=n)
+        sk = share_in(fabric, ks, 1)
+        mine = point_batch(pub, fabric)
+        res = {"share_points": sp, "mul_generator": fabric.mul_generator(sk),
+               "mul_public_point": mul_public_point(sk, mine),
+               "beaver_mul_points": fabric.mul_points(sk, sp),
+               "msm_authenticated": fabric.msm(sk, sp).reshape(1),
+               "msm_public_points": msm_public_points(sk, mine).reshape(1)}
+        opened = {k: fabric.open_authenticated_points(v, defer=True) for k, v in res.items()}
+        fabric.verify_deferred()
+        out = {}
+        for name, v in res.items():
+            v = whole(v, fabric)
+            out[name] = (affine_ints(whole(opened[name], fabric)), point_limbs(v.share),
+                         point_limbs(v.mac))
+        return out
+
+    return prog
+
+
+def g1_program(gs, ks):
+    """The Beaver scalar x point product and the authenticated MSM at
+    BN254's G1 over Fr (the same code as Ed25519's), opened and checked;
+    -> the `points_program` record."""
+
+    def prog(fabric):
+        dev, n = fabric.device, len(gs)
+        pub = G1.generator((n,), device=dev).mul(Fr.from_ints(gs, device=dev))
+        sp = fabric.share_points(pub if fabric.party_id == 0 else None, sender=0, n=n)
+        sk = fabric.share_values(Fr.from_ints(ks, device=dev) if fabric.party_id == 1
+                                 else None, sender=1, n=n)
+        res = {"beaver_mul_points": fabric.mul_points(sk, sp),
+               "msm_authenticated": fabric.msm(sk, sp).reshape(1)}
+        opened = {k: fabric.open_authenticated_points(v, defer=True) for k, v in res.items()}
+        fabric.verify_deferred()
+        out = {}
+        for name, v in res.items():
+            v = whole(v, fabric)
+            out[name] = (affine_ints(whole(opened[name], fabric)), point_limbs(v.share),
+                         point_limbs(v.mac))
+        return out
+
+    return prog
+
+
+def run_g1(gs, ks, mesh=None, device="cpu"):
+    """`g1_program` under a dealer at Fr, on `mesh` or unsharded."""
+    device = mesh.device if mesh is not None else device
+    return execute_mock_mpc(
+        g1_program(gs, ks), mesh=mesh, device=device,
+        offline_factory=lambda pid: TrustedDealerSource(pid, seed=11, field=Fr, device=device))
+
+
+def g1_rank(mesh, gs, ks):
+    return run_g1(gs, ks, mesh)
+
+
+def case_points(mesh, inp):
+    return execute_mock_mpc_dealer(points_program(inp), mesh=mesh)
+
+
+def case_point_cheat_one_rank_pair(mesh, inp):
+    """Party 1 of the last rank alone adds G to its point MAC shares: that
+    rank pair's point check fails, and every rank of both parties aborts."""
+    n = 2 * mesh.size
+
+    def prog(fabric):
+        gen = CurvePoint.generator((n,), device=fabric.device)
+        sp = fabric.share_points(gen if fabric.party_id == 0 else None, sender=0, n=n)
+        if fabric.party_id == 1 and fabric.mesh.rank == fabric.mesh.size - 1:
+            sp = PointShare(sp.share, sp.mac + gen[:sp.size])
+        try:
+            fabric.open_authenticated_points(sp)
+        except AuthenticationError:
+            return "abort"
+        return "pass"
+
+    return execute_mock_mpc_dealer(prog, mesh=mesh)
+
+
+def case_mixing(mesh, inp):
+    """Each way a shard (2 elements a rank) can meet a replicated batch of 2
+    elements (a shared polynomial's first coefficients, their opened
+    value): -> {name: "TypeName: message"} in party 0."""
     n = 2 * mesh.size
 
     def prog(fabric):
         x = share_in(fabric, list(range(1, n + 1)), 0)
-        tr = fabric.tracer()
+        rep = poly.AuthenticatedDensePoly(x).coeffs[:2]
+        rep_open = fabric.open(rep)
         attempts = {
-            "ScalarShare.sum": lambda: x.sum(),
-            "inner_product": lambda: inner_product(fabric, x, x),
-            "shared_matmul": lambda: shared_matmul(fabric, x.reshape(2, -1),
-                                                   x.reshape(-1, 2)),
-            "poly_eval": lambda: poly_eval(fabric, x, Scalar.from_ints(3, device=fabric.device)),
-            "prefix_product": lambda: prefix_product(fabric, x),
-            "shared_polynomial": lambda: AuthenticatedDensePoly(x),
-            "mul_generator": lambda: fabric.mul_generator(x),
-            "traced_sum": lambda: tr.run(outputs=[tr.wrap(x).sum()]),
+            "add": lambda: x + rep,
+            "mul_public": lambda: x.mul_public(rep_open),
+            "add_public": lambda: fabric.add_public(x, rep_open),
+            "beaver_mul": lambda: fabric.mul(x, rep),
+            "concatenate": lambda: ScalarShare.concatenate([x, rep]),
+            "point_product": lambda: fabric.mul_points(rep, fabric.mul_generator(x)),
         }
         out = {}
         for name, attempt in attempts.items():
@@ -212,6 +425,28 @@ def case_refusals(mesh, inp):
                 out[name] = "no error"
             except Exception as err:  # noqa: BLE001 - the test reads the type and text
                 out[name] = f"{type(err).__name__}: {err}"
+        # what a replicated value gives: once, however many ranks
+        out["gathered_sum"] = gather(fabric.open(x.sum()), fabric.mesh).to_ints()
+        out["gathered_coeffs"] = gather(rep_open, fabric.mesh).to_ints()
+        return out
+
+    return execute_mock_mpc_dealer(prog, mesh=mesh)[0]
+
+
+def case_prefix_product_refuses(mesh, inp):
+    """prefix_product after a shared batch of 2 a rank, eager and traced:
+    -> the messages, in party 0."""
+    n = 2 * mesh.size
+
+    def prog(fabric):
+        x = share_in(fabric, list(range(1, n + 1)), 0)
+        out = []
+        for arg in (x, fabric.tracer().wrap(x)):
+            try:
+                prefix_product(fabric, arg)
+                out.append("no error")
+            except Exception as err:  # noqa: BLE001 - the test reads the type and text
+                out.append(f"{type(err).__name__}: {err}")
         return out
 
     return execute_mock_mpc_dealer(prog, mesh=mesh)[0]
@@ -245,6 +480,20 @@ def one_rank_step(mesh, inp):
             and torch.equal(z.mac.limbs, want.mac.limbs)
             and torch.equal(folded.limbs, want_fold.limbs))
     return dist.get_backend(mesh.group), same
+
+
+def one_rank_ops(mesh, inp):
+    """The card test's body for slice G: the scalar operations' and point
+    protocols' programs on the one-rank mesh and on the unsharded fabric on
+    the same card; -> the backend and the four records."""
+    import torch.distributed as dist
+
+    dev = mesh.device
+    return (dist.get_backend(mesh.group),
+            execute_mock_mpc_dealer(ops_program(inp, 1), mesh=mesh),
+            execute_mock_mpc_dealer(ops_program(inp, 1), device=dev),
+            execute_mock_mpc_dealer(points_program(inp), mesh=mesh),
+            execute_mock_mpc_dealer(points_program(inp), device=dev))
 
 
 def raise_on_rank_one(mesh):

@@ -675,3 +675,42 @@ def test_one_rank_nccl_mesh_step_matches_unsharded(dev):
     backend, same = launch(mesh_prog.one_rank_step, 1, inp, timeout=300)[0]
     assert backend == "nccl"
     assert same
+
+
+def test_one_rank_nccl_mesh_ops_match_unsharded(dev):
+    """Slice G's operations on a one-rank NCCL mesh over the card against
+    the unsharded fabric on the card, on the same inputs: the sum, the
+    inner product, the traced sum, shared matmul and the polynomial
+    operations bit for bit, the point protocols bit for bit element-wise
+    and the authenticated MSM (and the public-point one) projectively."""
+    import _torch_mesh_prog as mesh_prog
+    from ark_mpc_tpu_torch import BaseFelt, CurvePoint
+    from ark_mpc_tpu_torch.parallel import launch
+
+    rng = np.random.default_rng(91)
+    n = 1 << 10
+    inp = mesh_prog.op_inputs(rng, n)
+    inp.update(xs=[int(v) for v in rng.integers(1, 1 << 62, size=n)],
+               ys=[int(v) for v in rng.integers(1, 1 << 62, size=n)])
+    backend, ops, ops_plain, pts, pts_plain = launch(mesh_prog.one_rank_ops, 1, inp,
+                                                     timeout=600)[0]
+    assert backend == "nccl"
+    for pid in (0, 1):
+        got, want = ops[pid], ops_plain[pid]
+        assert got.pop("traced_opens") == want.pop("traced_opens")
+        for name, (v, sh, mac) in got.items():
+            wv, wsh, wmac = want[name]
+            assert v == wv, name
+            np.testing.assert_array_equal(sh, wsh)
+            np.testing.assert_array_equal(mac, wmac)
+        assert ops[pid]["sum"][0] == [sum(inp["xs"]) % SCALAR_FIELD.modulus]
+        for name, (opened, sh, mac) in pts[pid].items():
+            w_opened, w_sh, w_mac = pts_plain[pid][name]
+            assert opened == w_opened, name
+            for g, w in ((sh, w_sh), (mac, w_mac)):
+                if name.startswith("msm"):
+                    pg, pw = (CurvePoint(*(BaseFelt(torch.from_numpy(c.astype(np.int32)))
+                                           for c in a)) for a in (g, w))
+                    assert bool(pg.equals(pw).all()), name
+                else:
+                    np.testing.assert_array_equal(g, w)

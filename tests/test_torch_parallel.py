@@ -1,15 +1,21 @@
-"""The port's mesh (slice F) against the JAX package, on gloo CPU ranks.
+"""The port's mesh (slices F and G) against the JAX package, on gloo CPU ranks.
 
-The sharded step, the mesh-attached fabric and its aborts run in a fresh
-interpreter (`tests/_torch_mesh_prog.py`, torch only) that spawns N gloo
-ranks, one process each.  This module makes their inputs from numpy seeds;
-the JAX side runs on the same inputs on a one-device CPU mesh, where the
-reference's sharded code path computes the same values as on N devices, in
-a JAX-only interpreter beside it (`tests/_jax_mesh_ref.py`), so that its
-~2 GiB of XLA compilations do not stay in the test worker.  Every
-comparison is exact (tolerance 0): gathered limbs are equal bit for bit,
-opened values equal Python ints.  N = 8 is marked slow, as the reference's
-own 8-device mesh test is.
+The sharded step, the mesh-attached fabric, the operations slice G gave it
+(sums, inner products, traced sums, shared matmul, shared polynomials, the
+curve-point protocols and MSM) and its aborts run in a fresh interpreter
+(`tests/_torch_mesh_prog.py`, torch only) that spawns N gloo ranks, one
+process each.  This module makes their inputs from numpy seeds; the JAX
+side runs on the same inputs on an N-device virtual CPU mesh
+(`jax_num_cpu_devices` = N) in a JAX-only interpreter beside it
+(`tests/_jax_mesh_ref.py`), so that its XLA compilations do not stay in
+the test worker.  Every comparison is exact (tolerance 0): gathered limbs
+are equal bit for bit, opened values equal Python ints.  The point
+protocols are held to the port's unsharded fabric on the same inputs
+(`tests/test_torch_points.py` holds that to the JAX package): bit for bit
+element-wise, projectively for sums; the JAX mesh's point program (minutes
+of XLA compilation; projectively, as the two packages' curve formulas
+leave different coordinates) and G1 at Fr are slow tests.  N = 8 is
+marked slow, as the reference's own 8-device mesh test is.
 """
 
 import os
@@ -26,6 +32,7 @@ import torch
 import _torch_mesh_prog as mesh_prog
 import ark_mpc_tpu_torch as port
 from ark_mpc_tpu_torch.algebra.fields import SCALAR_FIELD
+from ark_mpc_tpu_torch.fabric.simulator import execute_mock_mpc_dealer
 from ark_mpc_tpu_torch.offline.base import ShardedSource, TrustedDealerSource
 from ark_mpc_tpu_torch.parallel import Mesh, launch, make_mesh
 from tests.test_multichip import _cpu_env
@@ -63,9 +70,10 @@ FABRIC_N = 8  # the mesh-fabric program's batch (`test_multichip.py`'s in-proces
 
 
 def make_inputs() -> dict:
-    """The sharded step's limb arrays and the mesh-fabric program's values
-    (`tests/_mesh_fabric_prog.py`'s program), from numpy seeds; every mesh
-    size splits the same global inputs, so the JAX side runs once."""
+    """The sharded step's limb arrays, the mesh-fabric program's values
+    (`tests/_mesh_fabric_prog.py`'s program) and the scalar operations' and
+    point protocols' values (`_torch_mesh_prog.op_inputs`), from numpy
+    seeds; every mesh size splits the same global inputs."""
     n = STEP_N
     rng = np.random.default_rng(700)
 
@@ -77,45 +85,57 @@ def make_inputs() -> dict:
     prng = random.Random(500)
     inp["xs"] = [prng.randrange(1, L) for _ in range(FABRIC_N)]
     inp["ys"] = [prng.randrange(1, L) for _ in range(FABRIC_N)]
+    inp.update(mesh_prog.op_inputs(rng, FABRIC_N))
     return inp
 
 
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
-    """-> (the inputs, their file, the JAX side's process, started on them
-    so that it runs beside the first mesh)."""
+    """-> (the inputs, their file)."""
     tmp = tmp_path_factory.mktemp("mesh")
     inp = make_inputs()
     with open(tmp / "in.pkl", "wb") as fh:
         pickle.dump(inp, fh)
-    jax_side = start([sys.executable, os.path.join(REPO, "tests", "_jax_mesh_ref.py"),
-                      str(tmp / "in.pkl"), str(tmp / "ref.pkl")], env=_cpu_env())
-    yield inp, tmp / "in.pkl", jax_side
-    if jax_side.poll() is None:
-        os.killpg(jax_side.pid, signal.SIGKILL)
-        jax_side.communicate()
+    return inp, tmp / "in.pkl"
+
+
+def jax_mesh(n_ranks: int, in_path, out_path, *extra) -> subprocess.Popen:
+    """The JAX package's side on an n-device CPU mesh, started."""
+    return start([sys.executable, os.path.join(REPO, "tests", "_jax_mesh_ref.py"),
+                  str(n_ranks), str(in_path), str(out_path), *extra], env=_cpu_env())
+
+
+def torch_mesh(n_ranks: int, in_path, out_path) -> subprocess.Popen:
+    return start([sys.executable, os.path.join(REPO, "tests", "_torch_mesh_prog.py"),
+                  str(n_ranks), str(in_path), str(out_path)])
+
+
+def load(path):
+    with open(path, "rb") as fh:
+        return pickle.load(fh)
 
 
 @pytest.fixture(scope="module", params=[
     2, 4, pytest.param(8, marks=pytest.mark.slow)], ids=lambda n: f"{n}ranks")
 def mesh_run(request, inputs, tmp_path_factory):
     """-> (N, inputs, [rank r's {case: ("ok", result) | ("error", tb)}],
-    the JAX package's results on the same inputs)."""
+    the JAX package's results on the same inputs on an N-device mesh).
+    The two sides run side by side, each in a fresh interpreter; a side
+    that fails or hangs is killed with its session."""
     n_ranks = request.param
-    inp, in_path, jax_side = inputs
-    out_path = tmp_path_factory.mktemp(f"mesh{n_ranks}") / "out.pkl"
-    finish(start([sys.executable, os.path.join(REPO, "tests", "_torch_mesh_prog.py"),
-                  str(n_ranks), str(in_path), str(out_path)]),
-           f"MESH_PROG_OK {n_ranks}")
-    if jax_side.returncode is None:
-        finish(jax_side, "JAX_MESH_REF_OK")
-    assert jax_side.returncode == 0
-    with open(out_path, "rb") as fh:
-        ranks = pickle.load(fh)
-    with open(in_path.parent / "ref.pkl", "rb") as fh:
-        jax_ref = pickle.load(fh)
+    inp, in_path = inputs
+    tmp = tmp_path_factory.mktemp(f"mesh{n_ranks}")
+    jax_side = jax_mesh(n_ranks, in_path, tmp / "ref.pkl")
+    try:
+        finish(torch_mesh(n_ranks, in_path, tmp / "out.pkl"), f"MESH_PROG_OK {n_ranks}")
+        finish(jax_side, f"JAX_MESH_REF_OK {n_ranks}")
+    finally:
+        if jax_side.poll() is None:
+            os.killpg(jax_side.pid, signal.SIGKILL)
+            jax_side.communicate()
+    ranks = load(tmp / "out.pkl")
     assert len(ranks) == n_ranks
-    return n_ranks, inp, ranks, jax_ref
+    return n_ranks, inp, ranks, load(tmp / "ref.pkl")
 
 
 def case(ranks, name) -> list:
@@ -129,8 +149,8 @@ def case(ranks, name) -> list:
 
 
 def test_sharded_step_matches_reference(mesh_run):
-    """Gathered z and the fold equal JAX's `sharded_mul_mac_step` on a
-    one-device mesh and its unsharded `beaver_mul_step` + `mac_check_fold`,
+    """Gathered z and the fold equal JAX's `sharded_mul_mac_step` on an
+    N-device mesh and its unsharded `beaver_mul_step` + `mac_check_fold`,
     for both parties, on every rank."""
     _, _, ranks, jax_ref = mesh_run
     for pid in (0, 1):
@@ -152,7 +172,7 @@ def test_sharded_rlc_fold_matches_reference(mesh_run):
 def test_mesh_fabric_program_matches_reference(mesh_run):
     """Share -> Beaver mul -> masked-open inverse -> folded deferred check:
     the opens equal Python ints, and the product's gathered shares equal
-    the JAX fabric's on a one-device mesh (each rank drew its slice of the
+    the JAX fabric's on an N-device mesh (each rank drew its slice of the
     same dealer stream)."""
     _, inp, ranks, jax_ref = mesh_run
     xs, ys = inp["xs"], inp["ys"]
@@ -232,22 +252,208 @@ def test_batch_rule_on_a_mesh(mesh_run):
             assert res[key].startswith("ValueError") and "mesh" in res[key], res[key]
 
 
-def test_batch_axis_reductions_refuse_on_a_mesh(mesh_run):
-    """No reduction over the batch axis returns a rank's partial: each one
-    the mesh fabric lacks raises `NotImplementedError` naming the mesh."""
+def test_prefix_product_still_refuses_on_a_mesh(mesh_run):
+    """The one operation the mesh fabric refuses, eager and traced: it
+    draws n + 1 inverse pairs, and the reference raises there too."""
     _, _, ranks, _ = mesh_run
-    for res in case(ranks, "refusals"):
-        assert len(res) == 8
+    for res in case(ranks, "prefix_product_refuses"):
+        assert len(res) == 2
+        for msg in res:
+            assert msg.startswith("NotImplementedError") and "mesh" in msg, msg
+            assert "ark_mpc_tpu/gadgets/products.py:52" in msg, msg
+
+
+OPS = ("sum", "inner_product", "traced_sum", "shared_matmul", "poly_eval", "poly_mul",
+       "poly_inverse_mod_t", "poly_div")
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_scalar_op_matches_the_jax_mesh(mesh_run, op):
+    """The opened value and the gathered share and MAC limbs of each party,
+    on every rank, equal the JAX package's on an N-device mesh (the traced
+    sum brings the traced circuit's other output and its opens along)."""
+    _, _, ranks, jax_ref = mesh_run
+    names = (op, "traced_w") if op == "traced_sum" else (op,)
+    for parties in case(ranks, "ops"):
+        for pid in (0, 1):
+            got, want = parties[pid], jax_ref["ops"][pid]
+            for name in names:
+                (v, sh, mac), (wv, wsh, wmac) = got[name], want[name]
+                assert v == wv, name
+                np.testing.assert_array_equal(sh, wsh)
+                np.testing.assert_array_equal(mac, wmac)
+            if op == "traced_sum":
+                assert got["traced_opens"] == want["traced_opens"]
+
+
+def poly_mul_ints(a, b):
+    out = [0] * (len(a) + len(b) - 1)
+    for i, x in enumerate(a):
+        for j, y in enumerate(b):
+            out[i + j] += x * y
+    return [v % L for v in out]
+
+
+def test_scalar_ops_equal_python_ints(mesh_run):
+    n_ranks, inp, ranks, _ = mesh_run
+    xs, ys, f = inp["xs"], inp["ys"], inp["poly_f"]
+    prod = [x * y % L for x, y in zip(xs, ys)]
+    m, k, n = mesh_prog.matmul_dims(n_ranks)
+    a, b = inp["mat_a"][:m * k], inp["mat_b"][:k * n]
+    want = {
+        "sum": [sum(xs) % L], "inner_product": [sum(prod) % L],
+        "traced_sum": [sum(prod) % L],
+        "traced_w": [(x * p + sum(prod)) % L for x, p in zip(xs, prod)],
+        "shared_matmul": [sum(a[i * k + j] * b[j * n + c] for j in range(k)) % L
+                          for i in range(m) for c in range(n)],
+        "poly_eval": [sum(c * pow(inp["x_eval"], i, L) for i, c in enumerate(f)) % L],
+        "poly_mul": poly_mul_ints(f, inp["poly_g"]),
+    }
+    t = mesh_prog.POLY_T
+    for parties in case(ranks, "ops"):
+        for got in parties:
+            for name, w in want.items():
+                assert got[name][0] == w, name
+            assert got["traced_opens"] == [want["traced_sum"], prod, want["traced_w"]]
+            inv = got["poly_inverse_mod_t"][0]
+            assert poly_mul_ints(f, inv)[:t] == [1] + [0] * (t - 1)
+            q, h = got["poly_div"][0], inp["poly_h"]
+            rem = [(u - v) % L for u, v in zip(f, poly_mul_ints(q, h) + [0] * len(f))]
+            assert len(q) == len(f) - len(h) + 1 and not any(rem[len(h) - 1:])
+
+
+def test_traced_levels_that_mix_placements(mesh_run):
+    """A level whose muls and inversions mix a product of two sums with
+    shards takes one fused call per placement: the opens equal Python ints
+    on every rank."""
+    _, inp, ranks, _ = mesh_run
+    xs, ys = inp["xs"], inp["ys"]
+    sums = sum(xs) * sum(ys) % L
+    want = [[x * y % L for x, y in zip(xs, ys)], [sums], [pow(sums, -1, L)],
+            [pow(x, -1, L) for x in xs]]
+    assert case(ranks, "traced_mixed_levels") == [(want, want)] * len(ranks)
+
+
+@pytest.fixture(scope="module")
+def unsharded_points(inputs):
+    """The point protocols' program on the port's unsharded fabric."""
+    inp, _ = inputs
+    return execute_mock_mpc_dealer(mesh_prog.points_program(inp), device="cpu")
+
+
+def points_of(arr) -> port.CurvePoint:
+    return port.CurvePoint(*(port.BaseFelt(torch.from_numpy(c.astype(np.int32)))
+                             for c in arr))
+
+
+ELEMENTWISE = ("share_points", "mul_generator", "mul_public_point", "beaver_mul_points")
+SUMS = ("msm_authenticated", "msm_public_points")
+
+
+def test_point_protocols_match_the_unsharded_fabric(mesh_run, unsharded_points):
+    """Gathered over the party's ranks, the element-wise protocols' shares
+    and MACs equal the unsharded fabric's bit for bit, the two MSMs' sums
+    equal them projectively, and every opened point is the same; on every
+    rank, for both parties."""
+    _, inp, ranks, _ = mesh_run
+    for parties in case(ranks, "points"):
+        for pid in (0, 1):
+            got, want = parties[pid], unsharded_points[pid]
+            assert sorted(got) == sorted(ELEMENTWISE + SUMS)
+            for name in ELEMENTWISE + SUMS:
+                (opened, sh, mac), (w_opened, w_sh, w_mac) = got[name], want[name]
+                assert opened == w_opened, name
+                if name in ELEMENTWISE:
+                    np.testing.assert_array_equal(sh, w_sh)
+                    np.testing.assert_array_equal(mac, w_mac)
+                else:
+                    for g, w in ((sh, w_sh), (mac, w_mac)):
+                        assert g.shape == w.shape == (4, 16, 1), name
+                        assert bool(points_of(g).equals(points_of(w)).all()), name
+
+
+def test_one_cheating_rank_pair_aborts_every_rank_on_points(mesh_run):
+    """Party 1 of the last rank alone corrupts its point MACs: every rank of
+    both parties raises `AuthenticationError`, and nothing hangs."""
+    _, _, ranks, _ = mesh_run
+    assert case(ranks, "point_cheat_one_rank_pair") == [("abort", "abort")] * len(ranks)
+
+
+def test_mixing_a_shard_with_a_replicated_batch_raises(mesh_run):
+    """Every element-wise way a shard can meet a replicated batch of two
+    elements raises `ValueError` naming the mesh, and a concatenation of
+    the two does too; `gather` returns a replicated value once."""
+    n_ranks, _, ranks, _ = mesh_run
+    n = 2 * n_ranks
+    for res in case(ranks, "mixing"):
+        assert res.pop("gathered_sum") == [n * (n + 1) // 2]
+        assert res.pop("gathered_coeffs") == [1, 2]
+        assert len(res) == 6
         for name, msg in res.items():
-            assert msg.startswith("NotImplementedError") and "mesh" in msg, (name, msg)
+            assert msg.startswith("ValueError") and f"{n_ranks}-rank mesh" in msg, (name, msg)
+
+
+@pytest.mark.slow
+def test_point_protocols_match_the_jax_mesh(inputs, tmp_path):
+    """The point protocols on a 2-rank port mesh against the JAX package's
+    on a 2-device mesh: opened points equal, and every share and MAC equal
+    projectively (the two packages' curve formulas leave different
+    projective coordinates, unsharded too; minutes of XLA compilation on
+    the JAX side)."""
+    inp, in_path = inputs
+    jax_side = jax_mesh(2, in_path, tmp_path / "ref.pkl", "points")
+    try:
+        finish(torch_mesh(2, in_path, tmp_path / "out.pkl"), "MESH_PROG_OK 2")
+        out, err = jax_side.communicate(timeout=900)
+        assert jax_side.returncode == 0 and "JAX_MESH_REF_OK 2" in out, err[-3000:]
+    finally:
+        if jax_side.poll() is None:
+            os.killpg(jax_side.pid, signal.SIGKILL)
+            jax_side.communicate()
+    want = load(tmp_path / "ref.pkl")["points"]
+    for parties in case(load(tmp_path / "out.pkl"), "points"):
+        for pid in (0, 1):
+            for name in ELEMENTWISE + SUMS:
+                (opened, sh, mac), (w_opened, w_sh, w_mac) = parties[pid][name], want[pid][name]
+                assert opened == w_opened, name
+                for g, w in ((sh, w_sh), (mac, w_mac)):
+                    assert g.shape == w.shape, name
+                    assert bool(points_of(g).equals(points_of(w)).all()), name
+
+
+@pytest.mark.slow
+def test_g1_point_protocols_on_a_mesh_match_the_unsharded_fabric():
+    """G1 shares at Fr go through the same mesh code: on 2 gloo ranks the
+    Beaver product's gathered shares equal the unsharded fabric's bit for
+    bit and the MSM's projectively, and the opened points are equal (a few
+    minutes: G1 arithmetic is plain torch)."""
+    gs, ks = [3, 5, 7, 11], [1, 2, 3, 4]
+    want = mesh_prog.run_g1(gs, ks)
+    for parties in launch(mesh_prog.g1_rank, 2, gs, ks, device="cpu", timeout=900):
+        for got, w in zip(parties, want):
+            (o, sh, mac), (wo, wsh, wmac) = got["beaver_mul_points"], w["beaver_mul_points"]
+            assert o == wo
+            np.testing.assert_array_equal(sh, wsh)
+            np.testing.assert_array_equal(mac, wmac)
+            (o, sh, mac), (wo, wsh, wmac) = got["msm_authenticated"], w["msm_authenticated"]
+            assert o == wo
+            for g, x in ((sh, wsh), (mac, wmac)):
+                pg, px = (port.G1(*(port.Fq(torch.from_numpy(c.astype(np.int32))) for c in a))
+                          for a in (g, x))
+                assert bool(pg.equals(px).all())
 
 
 def test_sharded_source_slices_the_global_draws():
     """Rank r of N keeps columns r n : (r + 1) n of the global draw of n N,
-    with the same MAC key share on every rank."""
-    n, size = 3, 4
+    with the same MAC key share on every rank; a matrix triple keeps the
+    rank's rows of P and C and the whole Q, and a polynomial triple is
+    whole, both marked replicated where whole.  A matrix triple whose rows
+    do not divide the mesh raises `ValueError` naming it."""
+    n, size, (m, k, c) = 3, 4, (8, 3, 2)
     whole = TrustedDealerSource(1, seed=9, device="cpu")
     want = whole.next_triplet_batch(n * size) + (whole.next_shared_value_batch(n * size),)
+    want_mat = whole.next_matrix_triplet(m, k, c)
+    want_poly = whole.next_poly_triplet(2, 3)
     for rank in range(size):
         mesh = Mesh(None, size, rank, torch.device("cpu"))
         src = ShardedSource(TrustedDealerSource(1, seed=9, device="cpu"), mesh)
@@ -255,9 +461,20 @@ def test_sharded_source_slices_the_global_draws():
         assert torch.equal(src.get_mac_key_share().limbs, whole.get_mac_key_share().limbs)
         for g, w in zip(got, want):
             cols = slice(rank * n, (rank + 1) * n)
+            assert not g.replicated
             assert torch.equal(g.share.limbs, w.share.limbs[:, cols])
             assert torch.equal(g.mac.limbs, w.mac.limbs[:, cols])
-    with pytest.raises(NotImplementedError, match="mesh"):
+        rows = slice(rank * m // size, (rank + 1) * m // size)
+        (p, q, pq), (wp, wq, wpq) = src.next_matrix_triplet(m, k, c), want_mat
+        assert (p.replicated, q.replicated, pq.replicated) == (False, True, False)
+        for g, w in ((p, wp[rows]), (q, wq), (pq, wpq[rows])):
+            assert torch.equal(g.share.limbs, w.share.limbs)
+            assert torch.equal(g.mac.limbs, w.mac.limbs)
+        for g, w in zip(src.next_poly_triplet(2, 3), want_poly):
+            assert g.replicated
+            assert torch.equal(g.share.limbs, w.share.limbs)
+            assert torch.equal(g.mac.limbs, w.mac.limbs)
+    with pytest.raises(ValueError, match="4-rank mesh"):
         src.next_matrix_triplet(2, 2, 2)
 
 
