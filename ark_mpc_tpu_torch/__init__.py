@@ -8,7 +8,9 @@ products, Ed25519 point protocols and MSM, a TCP transport with TLS between
 two processes (`python -m ark_mpc_tpu_torch.integration`), and hand-written
 CUDA kernels (sm_90a) for the authenticated Beaver multiplication path and
 the curve layer, and the dealer-free LowGear offline phase over BGV
-(`LowGear`, `LowGearPrep`).  Entry points run on the CUDA card
+(`LowGear`, `LowGearPrep`) beside the reference's t-generic prototype BGV
+stack (`ops/ntt.py`, `offline/bgv/`, `offline/lowgear/triplets_bgv.py`).
+Entry points run on the CUDA card
 unless the caller passes another `device` (the tests pass "cpu").
 """
 

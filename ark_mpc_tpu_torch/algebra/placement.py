@@ -4,8 +4,8 @@ A mesh-attached fabric (`fabric/context.py`) runs one process a rank, and
 every value a rank holds is one of two placements:
 
   - a shard: the rank's columns of a global batch (leading axis).  Every
-    multi-element value the fabric makes from a global batch is one, and
-    so is a value made locally (a 0-d value is a constant and mixes with
+    multi-element share the fabric makes from a global batch is one, and so
+    is the value opened from it (a 0-d value is a constant and mixes with
     either placement);
   - replicated: a value every rank of the party holds whole, with the same
     limbs, marked by `replicated = True`.  Reductions over the batch axis
@@ -14,15 +14,22 @@ every value a rank holds is one of two placements:
     values opened from replicated shares, and what element-wise operations
     make of replicated operands.
 
-Off a mesh nothing is marked, so none of this applies.  Share types carry
-the mark as a field; public values (`FieldArray`, `CurvePoint`, `G1`) as an
-attribute whose class default is False.  An element-wise operation on
-shares takes its placement from `placement`, which raises `ValueError`
-naming the mesh where a shard meets a replicated batch of more than one
-element: element i of a shard is not element i of the whole.  A public
-operand counts only when it is marked: an unmarked public batch beside a
-replicated share is taken as whole (a public value every rank computed
-alike, such as a polynomial's coefficients).
+Off a mesh every share is a shard and no mark changes a result.  Share types carry
+the mark as a bool field.  Public values (`FieldArray`, `CurvePoint`,
+`G1`) carry it as an attribute with three states: True (replicated), False
+(a shard: a value opened from a shard, or the rank's slice of a global
+batch) and None, the class default (a value made locally, whose placement
+the rule cannot read).  An element-wise operation on shares takes its
+placement from `placement`, which raises `ValueError` naming the mesh
+where a shard meets a replicated batch of more than one element: element i
+of a shard is not element i of the whole.  A public operand counts where
+it is marked either way, so a replicated share of one element beside an
+opened shard gives a shard, and a wider one raises; an unmarked public
+batch beside a replicated share is taken as whole (a public value every
+rank computed alike, such as a polynomial's coefficients).  Public results
+keep a mark: replicated where `FieldArray._bin` says so, else a shard where
+an operand is one.  A fabric slices only an unmarked batch it is given
+whole (`share_public`): a shard is never cut again.
 
 The mesh of the fabric a thread runs (`MpcFabric` sets it) is what
 batch-axis reductions that take no fabric (`ScalarShare.sum`) reduce over.
@@ -46,7 +53,7 @@ def thread_mesh():
 
 
 def mark(x, replicated: bool = True):
-    """x, marked replicated (or not); -> x."""
+    """x, marked replicated (or, with False, a shard); -> x."""
     x.replicated = replicated
     return x
 
@@ -80,11 +87,12 @@ def placement(*operands) -> bool:
 
 def with_public(share, public) -> bool:
     """The placement of a share operated on with a public value (a field
-    array, a point batch or a plain integer): the public value counts only
-    when it is marked replicated."""
-    if getattr(public, "replicated", False):
-        return placement(share, public)
-    return share.replicated
+    array, a point batch or a plain integer): the public value counts where
+    it is marked, replicated or shard; unmarked, the share's placement
+    stands."""
+    if getattr(public, "replicated", None) is None:
+        return share.replicated
+    return placement(share, public)
 
 
 def same_placement(items) -> bool:

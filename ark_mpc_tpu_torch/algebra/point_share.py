@@ -50,6 +50,9 @@ class PointShare:
     mac: CurvePoint
     replicated: bool = False
 
+    def __post_init__(self):
+        self.replicated = bool(self.replicated)  # a public value's mark may be None
+
     @property
     def shape(self):
         return self.share.shape
@@ -82,7 +85,13 @@ class PointShare:
         """Add a public point: party 0 updates the share; both parties add
         mac_key_share * rhs to the MAC."""
         rep = with_public(self, rhs)
-        share = self.share + rhs if party_id == PARTY0 else self.share
+        if party_id == PARTY0:
+            share = self.share + rhs
+        else:  # party 1's share takes the result's shape, as party 0's does
+            shape = tuple(torch.broadcast_shapes(self.shape, rhs.shape))
+            share = self.share if shape == self.shape else type(self.share)(
+                *(type(c)(c.limbs.contiguous())
+                  for c in self.share.broadcast_to(shape)._coords()))
         return PointShare(share, self.mac + rhs.mul(mac_key), rep)
 
     def sub_public(self, rhs: CurvePoint, mac_key: Scalar, party_id: int):

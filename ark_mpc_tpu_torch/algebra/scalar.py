@@ -18,6 +18,9 @@ from .fields import BASE_FIELD, SCALAR_FIELD
 from .limbs import NLIMBS
 
 
+_KEEP = object()  # `_like`: keep the operand's placement
+
+
 def _shape(shape) -> tuple:
     return (shape,) if isinstance(shape, int) else tuple(shape)
 
@@ -26,7 +29,9 @@ class FieldArray:
     """An array of elements of one prime field (Montgomery-form limbs)."""
 
     spec = None  # set by subclass
-    replicated = False  # on a mesh: held whole by every rank (`placement.py`)
+    # on a mesh: True held whole by every rank, False a shard, None unmarked
+    # (made locally; `placement.py`)
+    replicated = None
 
     __array_priority__ = 1000  # win against numpy operator dispatch
 
@@ -93,11 +98,12 @@ class FieldArray:
     def device(self) -> torch.device:
         return self.limbs.device
 
-    def _like(self, limbs: torch.Tensor, replicated: bool | None = None):
+    def _like(self, limbs: torch.Tensor, replicated=_KEEP):
         """A value of this field and placement (or of `replicated`)."""
         out = type(self)(limbs)
-        if self.replicated if replicated is None else replicated:
-            out.replicated = True
+        flag = self.replicated if replicated is _KEEP else replicated
+        if flag is not None:
+            out.replicated = flag
         return out
 
     def reshape(self, *shape):
@@ -115,6 +121,8 @@ class FieldArray:
         out = cls(torch.cat([it.limbs for it in items], dim=axis + 1))
         if all(it.replicated for it in items):
             out.replicated = True
+        elif any(it.replicated is False for it in items):
+            out.replicated = False
         return out
 
     def broadcast_to(self, shape):
@@ -141,9 +149,12 @@ class FieldArray:
         if a.shape != b.shape:
             a, b = _broadcast_limbs(a, b)
         # a public result is marked replicated where each operand is marked
-        # or 0-d (public values never raise on mixing: `placement.py`)
+        # or 0-d, else a shard where an operand is one (public values never
+        # raise on mixing: `placement.py`)
         rep = (self.replicated or other.replicated) and (
             (self.replicated or not self.shape) and (other.replicated or not other.shape))
+        if not rep:
+            rep = False if False in (self.replicated, other.replicated) else None
         return self._like(fn(self.spec, a, b), rep)
 
     def __add__(self, other):

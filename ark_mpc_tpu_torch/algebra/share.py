@@ -18,6 +18,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from .placement import placement, same_placement, thread_mesh, with_public
 from .scalar import FieldArray, Scalar
 
@@ -36,6 +38,9 @@ class ScalarShare:
     share: Scalar
     mac: Scalar
     replicated: bool = False
+
+    def __post_init__(self):
+        self.replicated = bool(self.replicated)  # a public value's mark may be None
 
     @property
     def field(self):
@@ -83,7 +88,12 @@ class ScalarShare:
         """Add a public value: party 0 updates the share, both parties
         update the MAC by `mac_key_share * rhs`."""
         rep = with_public(self, rhs)
-        share = self.share + rhs if party_id == PARTY0 else self.share
+        if party_id == PARTY0:
+            share = self.share + rhs
+        else:  # party 1's share takes the result's shape, as party 0's does
+            shape = tuple(torch.broadcast_shapes(self.shape, rhs.shape))
+            share = self.share if shape == self.shape else type(self.share)(
+                self.share.broadcast_to(shape).limbs.contiguous())
         return ScalarShare(share, self.mac + mac_key * rhs, rep)
 
     def sub_public(self, rhs: Scalar, mac_key: Scalar, party_id: int):

@@ -23,8 +23,9 @@ random linear combination).
 Mesh (`mesh=`, a `parallel.step.Mesh`): the process is one rank of a mesh,
 and every value it holds has one of two placements (`algebra/placement.py`):
 
-  - a shard: the rank's columns of a global batch.  Values held whole enter
-    through `_place` (the rank's slice); sizes given to the fabric (`n` of
+  - a shard: the rank's columns of a global batch.  Values held whole
+    (unmarked) enter through `_place` (the rank's slice); a value already
+    marked a shard, such as one opened from a shard, stays as it is; sizes given to the fabric (`n` of
     `share_values`, the offline passthroughs, `share_public`'s batch) are
     global and must be multiples of the mesh size, else `ValueError` naming
     the mesh (a 0-d value is a constant and stays as it is); offline
@@ -145,10 +146,11 @@ class MpcFabric:
 
     # -- mesh placement ----------------------------------------------------
     def _place(self, x: Scalar) -> Scalar:
-        """The rank's slice of a batch held whole (leading axis); a single
-        element is a constant and a replicated value stays whole.  No-op
-        without a mesh."""
-        if self.mesh is None or not x.shape or x.replicated:
+        """The rank's slice of a batch held whole (leading axis): an
+        unmarked value (`algebra/placement.py`).  A single element is a
+        constant, and a replicated value or a shard (a value opened from a
+        shard, say) stays as it is.  No-op without a mesh."""
+        if self.mesh is None or not x.shape or x.replicated is not None:
             return x
         return shard(x, self.mesh)
 
@@ -234,9 +236,9 @@ class MpcFabric:
 
     def share_public(self, values: Scalar) -> ScalarShare:
         """Both parties know `values`; produce a valid authenticated sharing
-        (zero share + add_public), no communication.  On a mesh a batch is
-        the global one and each rank keeps its slice (a replicated value
-        stays whole)."""
+        (zero share + add_public), no communication.  On a mesh an unmarked
+        batch is the global one and each rank keeps its slice (a replicated
+        value or a shard stays as it is)."""
         values = self._place(values)
         zero = ScalarShare.zeros(values.shape, field=self.field, device=self.device,
                                  replicated=values.replicated)

@@ -127,9 +127,9 @@ def share_points(fabric, points=None, sender: int = 0,
 
 def share_public_points(fabric, points) -> PointShare:
     """Both parties know the points; make a valid authenticated sharing.
-    On a mesh a batch is the global one and each rank keeps its slice (a
-    replicated batch stays whole)."""
-    if fabric.mesh is not None and points.shape and not points.replicated:
+    On a mesh an unmarked batch is the global one and each rank keeps its
+    slice (a replicated batch or a shard stays as it is)."""
+    if fabric.mesh is not None and points.shape and points.replicated is None:
         points = type(points)(*(shard(c, fabric.mesh) for c in points._coords()))
     return PointShare.identity(points.shape, curve=type(points), device=fabric.device,
                                replicated=points.replicated).add_public(

@@ -1,9 +1,30 @@
-"""BGV over the Curve25519 order l: the rings, the cryptosystem and the
-word-form ZK proof of plaintext knowledge (the LowGear offline phase's
-homomorphic layer).  Counterpart of the l-side of
-`ark_mpc_tpu/offline/bgv/`; the reference's t-generic prototype (`bgv.py`,
-`params.py`, `rns.py`, `zkpok.py`) is not ported."""
+"""The BGV layer of the offline phase.  Counterpart of
+`ark_mpc_tpu/offline/bgv/`, both of its halves:
 
+  - the t-generic prototype over power-of-two rings with an NTT-friendly
+    plaintext prime (`params.py`, `rns.py`, `bgv.py`, the proof
+    `zkpok.py`), whose names this package exports as the reference's does;
+  - BGV over the Curve25519 order l, the LowGear offline phase's
+    homomorphic layer: the rings (`cyclotomic.py`, `powerful.py`), the
+    cryptosystem (`bgv_l.py`), the word-form ZK proof of plaintext
+    knowledge (`zkpok_words.py`) and the prototype proof over l
+    (`zkpok_l.py`)."""
+
+from .bgv import (
+    Ciphertext,
+    Keypair,
+    add_ct,
+    add_pt,
+    decode_slots,
+    decrypt,
+    decrypt_slots,
+    encode_slots,
+    encrypt,
+    encrypt_slots,
+    keygen,
+    mul_pt,
+    rerandomize,
+)
 from .bgv_l import (
     CiphertextL,
     KeypairL,
@@ -27,6 +48,7 @@ from .bgv_l import (
     rlwe_secure_128,
 )
 from .cyclotomic import CyclotomicRing
+from .params import BgvParams, test_params
 from .powerful import PowerfulRing
 from .zkpok_words import (
     CiphertextWithProofW,
@@ -37,6 +59,21 @@ from .zkpok_words import (
 )
 
 __all__ = [
+    "BgvParams",
+    "test_params",
+    "Ciphertext",
+    "Keypair",
+    "keygen",
+    "encrypt",
+    "decrypt",
+    "encrypt_slots",
+    "decrypt_slots",
+    "encode_slots",
+    "decode_slots",
+    "add_ct",
+    "add_pt",
+    "mul_pt",
+    "rerandomize",
     "CyclotomicRing",
     "PowerfulRing",
     "CiphertextL",

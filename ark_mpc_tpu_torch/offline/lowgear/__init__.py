@@ -1,7 +1,8 @@
 """LowGear offline phase (`offline-phase/src/lowgear/`): the dealer-free
 triple generation over BGV-over-l and the two-party protocols downstream of
-it.  Counterpart of `ark_mpc_tpu/offline/lowgear/`; the t-generic
-prototype (`triplets_bgv.py`, `setup.run_key_exchange`) is not ported."""
+it, and the t-generic prototype over the BGV test plaintext field
+(`setup.run_key_exchange`, `triplets_bgv.py`).  Counterpart of
+`ark_mpc_tpu/offline/lowgear/`."""
 
 from .core import LowGear, resolve_bgv_ring
 from .protocols import (

@@ -51,7 +51,6 @@ from ..bgv.bgv_l import (
     mul_pt_l,
     rerandomize_l,
 )
-from ..bgv.cyclotomic import I64
 from ..bgv.zkpok_words import (
     encrypt_and_prove_batch,
     proof_from_arrays,
@@ -59,7 +58,8 @@ from ..bgv.zkpok_words import (
     verify_proof,
 )
 from ..errors import KeyExchangeError
-from .setup import _exchange
+from ...ops.modular32 import to_uint32
+from .setup import _exchange, peer_residues
 
 ZK_ROWS = 128  # Fiat-Shamir binary challenge rows: knowledge error 2^-128
 #                per exchange (`mp-spdz-rs/src/fhe/keys.rs:74-81`,
@@ -103,26 +103,6 @@ def _mark(st: SetupL, label: str, t0: float) -> float:
     return now
 
 
-def _peer_residues(ring, arr, lead: tuple) -> torch.Tensor:
-    """The peer's residues as an int64 tensor on the ring's device; raises
-    `KeyExchangeError` unless they are a uint32 array of shape (*lead, L,
-    phi) with every residue below its prime."""
-    want = tuple(lead) + (len(ring.q_primes), ring.phi)
-    if not isinstance(arr, np.ndarray) or arr.dtype != np.uint32 or arr.shape != want:
-        raise KeyExchangeError(f"peer sent residues {getattr(arr, 'shape', None)} "
-                               f"{getattr(arr, 'dtype', type(arr))}, expected {want} uint32")
-    t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32)).to(ring.device).to(I64)
-    if bool(((t < 0) | (t >= ring._q)).any()):
-        raise KeyExchangeError("peer sent residues that are not below their RNS primes")
-    return t
-
-
-def _wire_residues(x: torch.Tensor) -> np.ndarray:
-    """Canonical residues (< 2^31) -> the uint32 numpy array on the wire,
-    with one device-to-host copy."""
-    return x.to(torch.int32).cpu().numpy().view(np.uint32)
-
-
 def key_exchange_l(transport: Transport, ring, rng: np.random.Generator,
                    gen: torch.Generator) -> SetupL:
     """Sample a MAC key share, generate a BGV keypair, exchange PKs and
@@ -132,9 +112,9 @@ def key_exchange_l(transport: Transport, ring, rng: np.random.Generator,
     kp = keygen_l(ring, gen)
     mac_key_share = Scalar.random((), rng, device=ring.device)
 
-    other_a, other_b = _exchange(transport, _wire_residues(kp.pk_a), _wire_residues(kp.pk_b))
-    st = SetupL(ring, kp, _peer_residues(ring, other_a, ()),
-                _peer_residues(ring, other_b, ()), None, mac_key_share)
+    other_a, other_b = _exchange(transport, to_uint32(kp.pk_a), to_uint32(kp.pk_b))
+    st = SetupL(ring, kp, peer_residues(ring._q, ring.phi, other_a, ()),
+                peer_residues(ring._q, ring.phi, other_b, ()), None, mac_key_share)
     key_slots = Scalar(mac_key_share.broadcast_to((ring.slots,)).limbs.contiguous())
     st.other_mac_enc = _exchange_encryption_proven(
         transport, st, encode_slots_l(ring, key_slots), rng, gen)
@@ -187,7 +167,7 @@ def share_products_grouped_l(transport: Transport, st: SetupL, groups: list,
             c0s.append(out.c0)
             c1s.append(out.c1)
     t0 = _mark(st, "grouped/compute-dispatch", t0)
-    frame = _wire_residues(torch.stack([torch.cat(c0s), torch.cat(c1s)]))
+    frame = to_uint32(torch.stack([torch.cat(c0s), torch.cat(c1s)]))
     del c0s, c1s
     t0 = _mark(st, "grouped/readback", t0)
 
@@ -195,8 +175,8 @@ def share_products_grouped_l(transport: Transport, st: SetupL, groups: list,
     t0 = _mark(st, "grouped/exchange", t0)
 
     total = sum(sizes)
-    th0 = _peer_residues(ring, their0, (total,))
-    th1 = _peer_residues(ring, their1, (total,))
+    th0 = peer_residues(ring._q, ring.phi, their0, (total,))
+    th1 = peer_residues(ring._q, ring.phi, their1, (total,))
     decs, off = [], 0
     for n in sizes:
         parts = [_decrypt_decode_l(ring, st.keypair.sk,
@@ -249,7 +229,7 @@ def _exchange_encryptions_proven(transport: Transport, st: SetupL,
     t0 = time.perf_counter()
     if len(peer_items) != 8:
         raise KeyExchangeError(f"peer's proof has {len(peer_items)} arrays, expected 8")
-    cts = [_peer_residues(ring, c, (u,)) for c in peer_items[:2]]
+    cts = [peer_residues(ring._q, ring.phi, c, (u,)) for c in peer_items[:2]]
     peer = proof_from_arrays(cts + list(peer_items[2:]), device=ring.device)
     # v and expected_u are PINNED to the protocol's values, never read from
     # the peer's proof (a short proof would shrink soundness)

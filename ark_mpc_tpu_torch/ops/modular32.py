@@ -58,7 +58,8 @@ def mont_mul32(spec: PrimeSpec, a, b) -> torch.Tensor:
     """Montgomery product a*b*2^-32 mod q of int64 tensors with values below
     2^32, as the reference computes it in uint32 (outputs < q whenever
     a*b < q*2^32, e.g. for inputs below q)."""
-    a, b = torch.as_tensor(a, dtype=torch.int64), torch.as_tensor(b, dtype=torch.int64)
+    dev = next((x.device for x in (a, b) if isinstance(x, torch.Tensor)), None)
+    a, b = (torch.as_tensor(x, dtype=torch.int64, device=dev) for x in (a, b))
     a, b = torch.broadcast_tensors(a, b)
     # a*b as (hi, lo) 32-bit words: a = a1 2^16 + a0, each partial < 2^48
     a0, a1 = a & 0xFFFF, a >> 16
@@ -71,6 +72,12 @@ def mont_mul32(spec: PrimeSpec, a, b) -> torch.Tensor:
     # lo + (mq mod 2^32) == 0 (mod 2^32): a carry unless lo was zero
     t = (hi + (mq >> 32) + (lo != 0).to(torch.int64)) & MASK32
     return torch.where(t >= spec.q, t - spec.q, t)
+
+
+def to_uint32(x: torch.Tensor):
+    """Residues below 2^31 (on any device) -> the reference's uint32 numpy
+    array (its wire form and hash input), with one device-to-host copy."""
+    return x.to(torch.int32).cpu().numpy().view("uint32")
 
 
 def to_mont32(spec: PrimeSpec, x) -> torch.Tensor:

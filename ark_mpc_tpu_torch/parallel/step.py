@@ -129,12 +129,13 @@ def batch_sharding(mesh: Mesh, n: int) -> slice:
 
 
 def shard(x: FieldArray, mesh: Mesh) -> FieldArray:
-    """The rank's shard of a global batch (leading axis), on its device."""
+    """The rank's shard of a global batch (leading axis), on its device,
+    marked a shard."""
     if not x.shape:
         raise ValueError(f"a single element cannot be split over the "
                          f"{mesh.size}-rank mesh")
     cols = batch_sharding(mesh, x.shape[0])
-    return type(x)(x.limbs[:, cols].contiguous().to(mesh.device))
+    return mark(type(x)(x.limbs[:, cols].contiguous().to(mesh.device)), False)
 
 
 def shard_share(share: ScalarShare, mesh: Mesh) -> ScalarShare:

@@ -148,7 +148,18 @@ Phases (any failure exits non-zero; there is no CPU path):
               mul_generator's equal bit for bit and the MSM's
               projectively); a corrupted point MAC on one rank pair aborts
               both parties, and `prefix_product` still raises; and the
-              path's `mont_mul`, `beaver_round` and `windowed_mul` launches.
+              path's `mont_mul`, `beaver_round` and `windowed_mul` launches;
+ 18. proto    the t-generic prototype BGV stack at `test_params()` (N = 1024,
+              t a 29-bit prime, 6 x 30-bit q): both parties' key exchange
+              (`offline/lowgear/setup.run_key_exchange`) and a triple pair
+              (`triplets_bgv.generate_triple_pairs`: the enc(a) exchange
+              gated on its V = 32 proof, the homomorphic cross products,
+              the MACs) through `execute_mock_mpc`, c = a b, c' = a b' and
+              every MAC against Python ints in all 1024 slots; a tampered
+              proof must raise `KeyExchangeError`; the seconds of the key
+              exchange, the pair, and the enc(a) proof's prove and verify
+              alone; one `poly_mul_mod` batch (64 x 6 x 1024) on the card
+              (CUDA events) against the same batch on the host CPU, equal.
 
 Each phase logs its seconds.  The launch counts of the field kernels are
 those of phases 3-5, those of the curve kernels those of phases 8-9 (each
@@ -161,7 +172,9 @@ protocols a fourth, which must launch `mont_mul` at Fq and at Fr and
 `beaver_round` at Fr (counted by field), phase 15 a fifth, which must
 launch `mont_mul` at l, and phase 16 a sixth, which must launch `mont_mul`
 and `beaver_round`, phase 17 a seventh (counted on each rank and added),
-which must launch both and `windowed_mul`.  The last line is `{"ok": true, "device":
+which must launch both and `windowed_mul`; phase 18's path reaches none of
+the kernels (the reference's prototype has no Pallas kernel), and its
+counts are logged.  The last line is `{"ok": true, "device":
 {...}}`.
 """
 
@@ -204,22 +217,28 @@ from ark_mpc_tpu_torch.algebra.domain import EvaluationDomain
 from ark_mpc_tpu_torch.algebra.fields import SCALAR_FIELD as SPEC
 from ark_mpc_tpu_torch.algebra.limbs import NLIMBS
 from ark_mpc_tpu_torch.device import resolve_device
-from ark_mpc_tpu_torch.fabric import commitment
+from ark_mpc_tpu_torch.fabric import commitment, messages
 from ark_mpc_tpu_torch.fabric.transport import NoRecvTransport
 from ark_mpc_tpu_torch.gadgets import bit_xor, prefix_product
 from ark_mpc_tpu_torch.integration import REGISTRY
 from ark_mpc_tpu_torch.integration import cases as _cases  # noqa: F401  (fills REGISTRY)
 from ark_mpc_tpu_torch.models.circuits import inner_product, poly_eval, shared_matmul
 from ark_mpc_tpu_torch.offline import bgv
+from ark_mpc_tpu_torch.offline.bgv import bgv as proto_bgv
+from ark_mpc_tpu_torch.offline.bgv import params as proto_params
+from ark_mpc_tpu_torch.offline.bgv import zkpok as proto_zk
 from ark_mpc_tpu_torch.offline.bgv import zkpok_words
-from ark_mpc_tpu_torch.offline.errors import SacrificeError
+from ark_mpc_tpu_torch.offline.errors import KeyExchangeError, SacrificeError
 from ark_mpc_tpu_torch.offline.lowgear import resolve_bgv_ring
+from ark_mpc_tpu_torch.offline.lowgear import setup as proto_setup
+from ark_mpc_tpu_torch.offline.lowgear import triplets_bgv as proto_triples
 from ark_mpc_tpu_torch.offline.lowgear.triplets_l import stack_chunk
 from ark_mpc_tpu_torch.ops import _build
 from ark_mpc_tpu_torch.ops import curve_kernels as ck
 from ark_mpc_tpu_torch.ops import fp_kernels as fk
 from ark_mpc_tpu_torch.ops import matmul
 from ark_mpc_tpu_torch.ops import msm_kernels as mk
+from ark_mpc_tpu_torch.ops import ntt
 from ark_mpc_tpu_torch.parallel import launch
 from ark_mpc_tpu_torch.parallel.dryrun import sharded_ct_x_pt
 from ark_mpc_tpu_torch.parallel.launch import run_rank
@@ -2490,6 +2509,127 @@ def phase_mesh(dev, fabric_ref, mats: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the t-generic prototype BGV stack
+# ---------------------------------------------------------------------------
+
+PROTO_KEYS = (12345, 12444)  # the parties' MAC key shares (slot values)
+PROTO_BATCH = 64             # polynomials in the timed poly_mul_mod batch
+
+
+class TamperProof:
+    """Party 1's transport: its enc(a) proof (the third frame, after the key
+    exchange's two) leaves with one ternary response raised by 1."""
+
+    def __init__(self, inner):
+        self.inner, self.count = inner, 0
+
+    def exchange(self, data: bytes) -> bytes:
+        self.count += 1
+        if self.count == 3:
+            items = messages.decode_arrays(data)
+            items[5] = items[5].copy()
+            items[5][0, 0] += 1
+            data = messages.encode_arrays(items)
+        return self.inner.exchange(data)
+
+
+def proto_program(params, tamper: bool = False):
+    """Both parties: the prototype key exchange, then a triple pair; ->
+    the slot vectors as Python ints and the host seconds of each step."""
+
+    def prog(fabric):
+        pid, dev = fabric.party_id, params.device
+        transport = TamperProof(fabric.transport) if tamper and pid == 1 else fabric.transport
+        gen = torch.Generator(device=dev).manual_seed(1800 + pid)
+        key_slots = np.full(params.n, PROTO_KEYS[pid], dtype=np.uint32)
+        t0 = time.time()
+        st = proto_setup.run_key_exchange(transport, params, key_slots, gen)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        trip, pair = proto_triples.generate_triple_pairs(
+            transport, st, PROTO_KEYS[pid], gen)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        # the enc(a) proof alone, at the protocol's size (U = 1, V = 32)
+        coeffs = proto_bgv.encode_slots(params, trip.a)[None]
+        proof = proto_zk.encrypt_and_prove_batch(params, st.keypair.pk_a, st.keypair.pk_b,
+                                                 coeffs, gen, v=proto_triples.ZK_V)
+        torch.cuda.synchronize()
+        t3 = time.time()
+        ok = proto_zk.verify_proof(params, st.keypair.pk_a, st.keypair.pk_b, proof)
+        t4 = time.time()
+        vals = {name: {k: getattr(t, k).tolist() for k in
+                       ("a", "b", "c", "a_mac", "b_mac", "c_mac")}
+                for name, t in (("trip", trip), ("pair", pair))}
+        return vals, ok, {"key_exchange_s": t1 - t0, "triple_pair_s": t2 - t1,
+                          "prove_s": t3 - t2, "verify_s": t4 - t3}
+
+    return prog
+
+
+def check_proto_triples(r0, r1, t: int) -> None:
+    key = sum(PROTO_KEYS) % t
+    for name in ("trip", "pair"):
+        x0, x1 = r0[name], r1[name]
+        a, b, c = ([(u + v) % t for u, v in zip(x0[k], x1[k])] for k in "abc")
+        check(c == [u * v % t for u, v in zip(a, b)], f"prototype {name}: c != a b mod t")
+        for k, vals in (("a", a), ("b", b), ("c", c)):
+            macs = [(u + v) % t for u, v in zip(x0[f"{k}_mac"], x1[f"{k}_mac"])]
+            check(macs == [v * key % t for v in vals], f"prototype {name}: mac({k}) != key {k}")
+    check(r0["trip"]["a"] == r0["pair"]["a"] and r1["trip"]["a"] == r1["pair"]["a"],
+          "the prototype pair does not share a")
+
+
+def phase_proto_bgv(dev) -> dict:
+    """The prototype BGV stack at `test_params()` (N = 1024, 6 x 30-bit q):
+    both parties' key exchange and triple pair through `execute_mock_mpc`,
+    every slot against Python ints; a tampered proof aborts; the enc(a)
+    proof's prove and verify alone; one `poly_mul_mod` batch on the card
+    against the same batch on the host CPU (equal, and each timed)."""
+    t0 = time.time()
+    params = proto_params.test_params(device=dev)
+    setup_s = time.time() - t0
+    (r0, ok0, s0), (r1, ok1, s1) = execute_mock_mpc(proto_program(params), device=dev)
+    check_proto_triples(r0, r1, params.t)
+    check(ok0 and ok1, "a prototype enc(a) proof did not verify")
+    try:
+        execute_mock_mpc(proto_program(params, tamper=True), device=dev)
+        check(False, "a tampered prototype proof was accepted")
+    except KeyExchangeError as err:
+        check("proof of knowledge failed" in str(err), f"tampered proof: {err}")
+
+    cpu = proto_params.test_params(device="cpu")
+    rng = np.random.default_rng(1820)
+    shape = (PROTO_BATCH, len(cpu.q_primes), cpu.n)
+    a, b = (torch.from_numpy(np.stack([rng.integers(0, q, size=(PROTO_BATCH, cpu.n))
+                                       for q in cpu.q_primes], axis=1)) for _ in range(2))
+    want = ntt.poly_mul_mod(cpu.q_ntt, a, b)
+    t0 = time.perf_counter()
+    for _ in range(BGV_RUNS):
+        ntt.poly_mul_mod(cpu.q_ntt, a, b)
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / BGV_RUNS
+    ad, bd = a.to(dev), b.to(dev)
+    got = ntt.poly_mul_mod(params.q_ntt, ad, bd)
+    check(torch.equal(got.cpu(), want), "poly_mul_mod on the card differs from the CPU's")
+    card_ms = median_event_ms(lambda: ntt.poly_mul_mod(params.q_ntt, ad, bd))
+    out = {"n": params.n, "t": params.t, "q_primes": params.q_primes, "params_s": setup_s,
+           "party0": s0, "party1": s1, "poly_mul_mod_shape": list(shape),
+           "poly_mul_mod_card_ms": card_ms, "poly_mul_mod_host_cpu_ms": cpu_ms}
+    log(f"[18 proto] test_params(): N = {params.n}, t = {params.t}, {len(params.q_primes)} x "
+        f"30-bit q (plans built in {setup_s:.3f} s)")
+    for pid, st in ((0, s0), (1, s1)):
+        log(f"[18 proto] party {pid}: key exchange {st['key_exchange_s']:.3f} s, triple pair "
+            f"(enc(a) proof exchange, 7 cross products) {st['triple_pair_s']:.3f} s; the enc(a) "
+            f"proof alone: prove {st['prove_s']:.3f} s, verify {st['verify_s']:.3f} s "
+            f"(host clock)")
+    log(f"[18 proto] c = a b, c' = a b' and every MAC equal Python ints in all {params.n} "
+        f"slots; a tampered proof raised KeyExchangeError")
+    log(f"[18 proto] poly_mul_mod {shape}: card {card_ms:.3f} ms (CUDA events, median of "
+        f"{BGV_RUNS}), host CPU {cpu_ms:.1f} ms (mean of {BGV_RUNS}), equal")
+    return out
+
+
 def timed(label: str, fn, *args):
     """Run one phase; log its seconds (host clock, after a synchronize)."""
     torch.cuda.synchronize()
@@ -2578,6 +2718,17 @@ def main(argv: list) -> int:
     check(all(mesh["launches"][k] > 0 for k in ("mont_mul", "beaver_round", "windowed_mul")),
           "mont_mul, beaver_round or windowed_mul was never launched on the mesh path")
 
+    fk.reset_launches()
+    mk.reset_launches()
+    proto = timed("18 proto", phase_proto_bgv, dev)
+    proto["launches"] = {**fk.launch_counts(), **mk.launch_counts()}
+    fk.reset_launches()
+    execute_mock_mpc(lambda fabric: None, device=dev)  # the mock fabrics' own set-up
+    proto["launches_of_an_empty_mock_mpc"] = fk.launch_counts()
+    log(f"proto-bgv-path launches: {proto['launches']}; an empty execute_mock_mpc launches "
+        f"{proto['launches_of_an_empty_mock_mpc']} (phase 18 runs it twice; the prototype "
+        f"itself reaches no hand kernel, as the reference computes it in XLA)")
+
     log(json.dumps({"headline": headline}))
     log(json.dumps({"points_n_10000": points}))
     log(json.dumps({"msm_n_2^16": msm_times}))
@@ -2587,6 +2738,7 @@ def main(argv: list) -> int:
     log(json.dumps({"bgv_production": bgv_out}))
     log(json.dumps({"lowgear": lowgear}))
     log(json.dumps({"mesh": mesh}))
+    log(json.dumps({"proto_bgv": proto}))
     log(f"total {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -41,7 +41,7 @@ from ark_mpc_tpu.models.circuits import inner_product, poly_eval, shared_matmul 
 from ark_mpc_tpu.parallel import step  # noqa: E402
 
 ARRAYS = ("x", "y", "a", "b", "c")
-MAT_N = 3  # as `_torch_mesh_prog.py`'s
+MAT_DIMS = (8, 8, 3)  # as `_torch_mesh_prog.py`'s
 POLY_T = 8
 
 
@@ -96,13 +96,17 @@ def share_in(fabric, vals, sender):
     return fabric.share_values(values, sender=sender, n=len(vals))
 
 
-def ops_program(inp, n_dev):
+def ops_program(inp):
     """`_torch_mesh_prog.ops_program`'s calls in the same order, on global
     arrays; -> the same record."""
 
     def prog(fabric):
         x, y = share_in(fabric, inp["xs"], 0), share_in(fabric, inp["ys"], 1)
-        res = {"sum": x.sum(), "inner_product": inner_product(fabric, x, y)}
+        res = {"sum": x.sum()}
+        x_open = fabric.open(x)
+        res["sum_times_open"] = fabric.mul_public(res["sum"], x_open)
+        res["sum_plus_open"] = fabric.add_public(res["sum"], x_open)
+        res["inner_product"] = inner_product(fabric, x, y)
         tr = fabric.tracer()
         tx, ty = tr.wrap(x), tr.wrap(y)
         prod = tx * ty
@@ -110,7 +114,7 @@ def ops_program(inp, n_dev):
         w = tx * prod.open().as_public() + tsum.open().as_public()
         handles = [tsum.open(), prod.open(), w.open()]
         res["traced_sum"], res["traced_w"] = tr.run(outputs=[tsum, w])
-        m, k, n = 2 * n_dev, n_dev, MAT_N
+        m, k, n = MAT_DIMS
         a = share_in(fabric, inp["mat_a"][:m * k], 0).reshape(m, k)
         b = share_in(fabric, inp["mat_b"][:k * n], 1).reshape(k, n)
         res["shared_matmul"] = shared_matmul(fabric, a, b)
@@ -171,7 +175,7 @@ if __name__ == "__main__":
         out = {"step": step_refs(inputs, mesh),
                "fabric": execute_mock_mpc_dealer(
                    honest_program(inputs["xs"], inputs["ys"]), mesh=mesh),
-               "ops": execute_mock_mpc_dealer(ops_program(inputs, N_DEV), mesh=mesh)}
+               "ops": execute_mock_mpc_dealer(ops_program(inputs), mesh=mesh)}
     with open(sys.argv[3], "wb") as fh:
         pickle.dump(out, fh)
     print(f"JAX_MESH_REF_OK {N_DEV}")

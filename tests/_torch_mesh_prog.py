@@ -53,7 +53,7 @@ from ark_mpc_tpu_torch.parallel.step import (  # noqa: E402
 )
 
 ARRAYS = ("x", "y", "a", "b", "c")
-MAT_N = 3  # shared_matmul: (2N, N) @ (N, MAT_N) on an N-rank mesh
+MAT_DIMS = (8, 8, 3)  # shared_matmul: (8, 8) @ (8, 3), rows a multiple of every mesh size
 MAX_RANKS = 8
 POLY_N = 8  # shared polynomials' coefficients (a multiple of every mesh size)
 POLY_T = 8  # poly_inverse_mod_t's precision (likewise)
@@ -61,14 +61,14 @@ POLY_T = 8  # poly_inverse_mod_t's precision (likewise)
 
 def op_inputs(rng: np.random.Generator, n: int) -> dict:
     """Values for `ops_program` and `points_program` besides the batches
-    xs and ys: matrices for every mesh size up to MAX_RANKS (each takes its
-    leading entries), polynomials (f(0) != 0), a point x, and n points'
-    discrete logs gs and scalars ks."""
+    xs and ys: the matrices (2 MAX_RANKS^2 and 3 MAX_RANKS entries, of which
+    the program takes the leading ones), polynomials (f(0) != 0), a point
+    x, and n points' discrete logs gs and scalars ks."""
 
     def ints(k, low=0):
         return [int(v) for v in rng.integers(low, 1 << 62, size=k)]
 
-    return dict(mat_a=ints(2 * MAX_RANKS * MAX_RANKS), mat_b=ints(MAX_RANKS * MAT_N),
+    return dict(mat_a=ints(2 * MAX_RANKS * MAX_RANKS), mat_b=ints(MAX_RANKS * 3),
                 poly_f=ints(POLY_N, 1), poly_g=ints(POLY_N), poly_h=ints(3, 1),
                 x_eval=ints(1)[0], gs=ints(n, 1), ks=ints(n))
 
@@ -224,23 +224,26 @@ def whole(x, fabric):
     return x if fabric.mesh is None else gather(x, fabric.mesh)
 
 
-def matmul_dims(n_ranks: int) -> tuple:
-    return 2 * n_ranks, n_ranks, MAT_N
-
-
-def ops_program(inp, n_ranks):
-    """The scalar operations a mesh fabric gained (sum, inner product, a
-    traced circuit whose levels open a sum beside a sharded product,
-    shared matmul with m = 2N, poly_eval, poly_mul, poly_inverse_mod_t,
-    poly_div), then one deferred open of each result and one folded check;
-    -> {name: (opened ints, share limbs, MAC limbs)}, gathered, plus the
-    traced circuit's opens.  `_jax_mesh_ref.ops_program` makes the same
-    calls in the same order."""
+def ops_program(inp):
+    """The scalar operations a mesh fabric gained (sum, a one-element sum
+    times and plus the opened batch, inner product, a traced circuit whose
+    levels open a sum beside a sharded product, shared matmul, poly_eval,
+    poly_mul, poly_inverse_mod_t, poly_div, and the port's own
+    share_public of the opened batch and x^0), then one deferred open of
+    each result and one folded check; -> {name: (opened ints, share limbs,
+    MAC limbs)}, gathered, plus the traced circuit's opens.  No shape
+    depends on the mesh size, so the record is the same on every mesh.
+    `_jax_mesh_ref.ops_program` makes the same calls in the same order, but
+    the last two."""
 
     def prog(fabric):
         dev = fabric.device
         x, y = share_in(fabric, inp["xs"], 0), share_in(fabric, inp["ys"], 1)
-        res = {"sum": x.sum(), "inner_product": inner_product(fabric, x, y)}
+        res = {"sum": x.sum()}
+        x_open = fabric.open(x)  # a shard: the sum's products with it are shards
+        res["sum_times_open"] = fabric.mul_public(res["sum"], x_open)
+        res["sum_plus_open"] = fabric.add_public(res["sum"], x_open)
+        res["inner_product"] = inner_product(fabric, x, y)
         tr = fabric.tracer()
         tx, ty = tr.wrap(x), tr.wrap(y)
         prod = tx * ty
@@ -250,7 +253,7 @@ def ops_program(inp, n_ranks):
         w = tx * prod.open().as_public() + tsum.open().as_public()
         handles = [tsum.open(), prod.open(), w.open()]
         res["traced_sum"], res["traced_w"] = tr.run(outputs=[tsum, w])
-        m, k, n = matmul_dims(n_ranks)
+        m, k, n = MAT_DIMS
         a = share_in(fabric, inp["mat_a"][:m * k], 0).reshape(-1, k)
         b = share_in(fabric, inp["mat_b"][:k * n], 1).reshape(-1, n)
         res["shared_matmul"] = shared_matmul(fabric, a, b)
@@ -261,6 +264,10 @@ def ops_program(inp, n_ranks):
         res["poly_inverse_mod_t"] = poly.poly_inverse_mod_t(fabric, pf, POLY_T).coeffs
         res["poly_div"] = poly.poly_div(
             fabric, pf, poly.DensePoly.from_ints(inp["poly_h"], device=dev)).coeffs
+        # the port's alone (no draw, no exchange): public values made from a
+        # shard are shards, not cut again
+        res["share_public_of_open"] = fabric.share_public(x_open)
+        res["pow_zero"] = fabric.pow(x, 0)
         opened = {name: fabric.open_authenticated(v, defer=True) for name, v in res.items()}
         fabric.verify_deferred()
         out = {}
@@ -274,7 +281,7 @@ def ops_program(inp, n_ranks):
 
 
 def case_ops(mesh, inp):
-    return execute_mock_mpc_dealer(ops_program(inp, mesh.size), mesh=mesh)
+    return execute_mock_mpc_dealer(ops_program(inp), mesh=mesh)
 
 
 def case_traced_mixed_levels(mesh, inp):
@@ -312,9 +319,10 @@ def affine_ints(pt) -> list:
 def points_program(inp):
     """The point protocols: share_points, mul_generator, mul_public_point,
     the Beaver scalar x point product, the authenticated MSM and the MSM
-    with public points, each opened (deferred) and checked; -> {name:
-    (opened affine ints, share coordinate limbs, MAC coordinate limbs)},
-    gathered.  Runs with or without a mesh."""
+    with public points (`_jax_mesh_ref.points_program`'s), then the port's
+    own share_public_points of the opened shared batch, each opened
+    (deferred) and checked; -> {name: (opened affine ints, share coordinate
+    limbs, MAC coordinate limbs)}, gathered.  Runs with or without a mesh."""
     gs, ks = inp["gs"], inp["ks"]
 
     def prog(fabric):
@@ -328,6 +336,8 @@ def points_program(inp):
                "beaver_mul_points": fabric.mul_points(sk, sp),
                "msm_authenticated": fabric.msm(sk, sp).reshape(1),
                "msm_public_points": msm_public_points(sk, mine).reshape(1)}
+        # the port's alone: the opened shard, shared as public points
+        res["share_public_points"] = fabric.share_public_points(fabric.open_points(sp))
         opened = {k: fabric.open_authenticated_points(v, defer=True) for k, v in res.items()}
         fabric.verify_deferred()
         out = {}
@@ -403,17 +413,20 @@ def case_point_cheat_one_rank_pair(mesh, inp):
 def case_mixing(mesh, inp):
     """Each way a shard (2 elements a rank) can meet a replicated batch of 2
     elements (a shared polynomial's first coefficients, their opened
-    value): -> {name: "TypeName: message"} in party 0."""
+    value), and the replicated share with the shard's opened value:
+    -> {name: "TypeName: message"} in party 0."""
     n = 2 * mesh.size
 
     def prog(fabric):
         x = share_in(fabric, list(range(1, n + 1)), 0)
         rep = poly.AuthenticatedDensePoly(x).coeffs[:2]
-        rep_open = fabric.open(rep)
+        rep_open, x_open = fabric.open(rep), fabric.open(x)
         attempts = {
             "add": lambda: x + rep,
             "mul_public": lambda: x.mul_public(rep_open),
             "add_public": lambda: fabric.add_public(x, rep_open),
+            "mul_public_of_an_opened_shard": lambda: rep.mul_public(x_open),
+            "add_public_of_an_opened_shard": lambda: fabric.add_public(rep, x_open),
             "beaver_mul": lambda: fabric.mul(x, rep),
             "concatenate": lambda: ScalarShare.concatenate([x, rep]),
             "point_product": lambda: fabric.mul_points(rep, fabric.mul_generator(x)),
@@ -490,8 +503,8 @@ def one_rank_ops(mesh, inp):
 
     dev = mesh.device
     return (dist.get_backend(mesh.group),
-            execute_mock_mpc_dealer(ops_program(inp, 1), mesh=mesh),
-            execute_mock_mpc_dealer(ops_program(inp, 1), device=dev),
+            execute_mock_mpc_dealer(ops_program(inp), mesh=mesh),
+            execute_mock_mpc_dealer(ops_program(inp), device=dev),
             execute_mock_mpc_dealer(points_program(inp), mesh=mesh),
             execute_mock_mpc_dealer(points_program(inp), device=dev))
 
@@ -507,7 +520,7 @@ if __name__ == "__main__":
     n_ranks, in_path, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     with open(in_path, "rb") as fh:
         inputs = pickle.load(fh)
-    results = launch(run_cases, n_ranks, inputs, device="cpu", timeout=600)
+    results = launch(run_cases, n_ranks, inputs, device="cpu", timeout=180)
     with open(out_path, "wb") as fh:
         pickle.dump(results, fh)
     print(f"MESH_PROG_OK {n_ranks}")

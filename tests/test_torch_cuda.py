@@ -714,3 +714,75 @@ def test_one_rank_nccl_mesh_ops_match_unsharded(dev):
                     assert bool(pg.equals(pw).all()), name
                 else:
                     np.testing.assert_array_equal(g, w)
+
+
+def test_proto_bgv_on_the_card_matches_the_cpu(dev):
+    """The t-generic prototype at `test_params()` (N = 1024): the NTT,
+    `poly_mul_mod` over the stacked plan and `encrypt_with_randomness` on
+    the card equal the CPU's bit for bit, a card ciphertext decrypts on
+    the CPU, and a proof made on the card verifies on the CPU and back."""
+    from ark_mpc_tpu_torch.offline.bgv import bgv, rns, zkpok
+    from ark_mpc_tpu_torch.offline.bgv.params import test_params
+    from ark_mpc_tpu_torch.ops import ntt
+
+    card, cpu = test_params(device=dev), test_params(device="cpu")
+    rng = np.random.default_rng(93)
+    x = torch.from_numpy(np.stack([rng.integers(0, q, size=(8, cpu.n)) for q in cpu.q_primes],
+                                  axis=1))
+    for inverse in (False, True):
+        assert torch.equal(ntt.ntt(card.q_ntt, x.to(dev), inverse).cpu(),
+                           ntt.ntt(cpu.q_ntt, x, inverse))
+    assert torch.equal(ntt.poly_mul_mod(card.q_ntt, x.to(dev), x.flip(0).to(dev)).cpu(),
+                       ntt.poly_mul_mod(cpu.q_ntt, x, x.flip(0)))
+    kp = bgv.keygen(cpu, torch.Generator().manual_seed(3))
+    kp_card = bgv.Keypair(card, kp.sk.to(dev), kp.pk_a.to(dev), kp.pk_b.to(dev))
+    slots = rng.integers(0, cpu.t, size=(2, cpu.n))
+    gen = torch.Generator().manual_seed(4)
+    u, e0, e1 = (rns.ternary_coeffs(cpu, gen, (2,)), rns.cbd_coeffs(cpu, gen, (2,)),
+                 rns.cbd_coeffs(cpu, gen, (2,)))
+
+    def enc(p, keys):
+        return bgv.encrypt_with_randomness(
+            p, keys.pk_a, keys.pk_b, rns.from_plaintext(p, bgv.encode_slots(p, slots)),
+            *(rns.from_signed_coeffs(p, r.to(p.device)) for r in (u, e0, e1)))
+
+    ct_card, ct_cpu = enc(card, kp_card), enc(cpu, kp)
+    assert torch.equal(ct_card.c0.cpu(), ct_cpu.c0) and torch.equal(ct_card.c1.cpu(), ct_cpu.c1)
+    one = bgv.Ciphertext(ct_card.c0[0].cpu(), ct_card.c1[0].cpu())
+    assert bgv.decrypt_slots(cpu, kp.sk, one).tolist() == slots[0].tolist()
+    pts = bgv.encode_slots(cpu, slots).numpy()
+    proof = zkpok.encrypt_and_prove_batch(card, kp_card.pk_a, kp_card.pk_b, pts,
+                                          torch.Generator(device=dev).manual_seed(5), v=32)
+    on_cpu = zkpok.proof_from_arrays(zkpok.proof_to_arrays(proof), 32, cpu.n, device="cpu")
+    assert zkpok.verify_proof(cpu, kp.pk_a, kp.pk_b, on_cpu)
+    back = zkpok.proof_from_arrays(zkpok.proof_to_arrays(on_cpu), 32, cpu.n, device=dev)
+    assert zkpok.verify_proof(card, kp_card.pk_a, kp_card.pk_b, back)
+
+
+def test_proto_lowgear_triples_on_the_card(dev):
+    """Both parties' prototype key exchange and triple pair on the card at
+    `test_params()`: c = a b, c' = a b' and the MACs by Python ints."""
+    from ark_mpc_tpu_torch import execute_mock_mpc
+    from ark_mpc_tpu_torch.offline.bgv.params import test_params
+    from ark_mpc_tpu_torch.offline.lowgear.setup import run_key_exchange
+    from ark_mpc_tpu_torch.offline.lowgear.triplets_bgv import generate_triple_pairs
+
+    p = test_params(device=dev)
+    keys = (3, 4)
+
+    def prog(fabric):
+        pid = fabric.party_id
+        gen = torch.Generator(device=dev).manual_seed(60 + pid)
+        st = run_key_exchange(fabric.transport, p, np.full(p.n, keys[pid], dtype=np.uint32), gen)
+        trip, pair = generate_triple_pairs(fabric.transport, st, keys[pid], gen)
+        return [{k: getattr(t, k).cpu().numpy().astype(object)
+                 for k in ("a", "b", "c", "a_mac", "b_mac", "c_mac")} for t in (trip, pair)]
+
+    (t0, p0), (t1, p1) = execute_mock_mpc(prog, device=dev)
+    key = sum(keys)
+    for x0, x1 in ((t0, t1), (p0, p1)):
+        a, b, c = ((x0[k] + x1[k]) % p.t for k in "abc")
+        assert (c == a * b % p.t).all()
+        for k, v in (("a", a), ("b", b), ("c", c)):
+            assert ((x0[k + "_mac"] + x1[k + "_mac"]) % p.t == v * key % p.t).all()
+    assert ((t0["a"] + t1["a"]) % p.t == (p0["a"] + p1["a"]) % p.t).all()

@@ -25,7 +25,7 @@ from ark_mpc_tpu_torch.fabric import messages
 from ark_mpc_tpu_torch.offline.bgv.bgv_l import default_ring
 from ark_mpc_tpu_torch.offline.bgv.powerful import PowerfulRing
 from ark_mpc_tpu_torch.offline.errors import KeyExchangeError
-from ark_mpc_tpu_torch.offline.lowgear import triplets_l
+from ark_mpc_tpu_torch.offline.lowgear import setup, triplets_l
 from ark_mpc_tpu_torch.offline.lowgear.core import LowGear
 from ark_mpc_tpu_torch.offline.structs import OfflineSizingParams
 
@@ -179,14 +179,14 @@ def test_peer_residues_are_checked():
     q = np.asarray(ring.q_primes, np.uint32)[:, None]
     good = (np.arange(2 * len(ring.q_primes) * ring.phi, dtype=np.uint32)
             .reshape(2, len(ring.q_primes), ring.phi) % q)
-    got = triplets_l._peer_residues(ring, good, (2,))
+    got = setup.peer_residues(ring._q, ring.phi, good, (2,))
     assert got.dtype == torch.int64 and torch.equal(got, torch.from_numpy(good.astype(np.int64)))
     high = good.copy()
     high[1, 3, 5] = q[3, 0]
     for bad, lead in ((good, (3,)), (good[0], (2,)), (good.astype(np.int64), (2,)),
                       (high, (2,)), ((good | np.uint32(1 << 31)), (2,))):
         with pytest.raises(KeyExchangeError):
-            triplets_l._peer_residues(ring, bad, lead)
+            setup.peer_residues(ring._q, ring.phi, bad, lead)
 
 
 def run_with_tampered_proof(edit):

@@ -132,6 +132,17 @@ def prog_inner_product(fabric):
     return {"open": fabric.open_authenticated(prod.sum()).to_ints()}
 
 
+def prog_add_public_batch_to_one_element(fabric):
+    """A batch added to (and taken from) a one-element share: party 1's
+    share takes the batch's shape, so the open sees equal shapes."""
+    x = share_in(fabric, [1, 2, 3, 4], 0)
+    s, opened = x.sum(), fabric.open(x)
+    plus, minus = fabric.add_public(s, opened), fabric.sub_public(s, opened)
+    out = [fabric.open_authenticated(v, defer=True) for v in (plus, minus)]
+    fabric.verify_deferred()
+    return {"open": out[0].to_ints() + out[1].to_ints(), "mac": limbs(plus.mac)}
+
+
 def prog_bad_mac(fabric):
     sx = share_in(fabric, [5], 0)
     if fabric.party_id == 1:
@@ -163,6 +174,8 @@ CASES = {
     "pow": (prog_pow, True, [pow(XS[0], e, L) for e in (13, 1, 2, 0, 97)]),
     "inner_product": (prog_inner_product, True,
                       [sum(x * y for x, y in zip(XS[:16], YS[:16])) % L]),
+    "add_public_batch_to_one_element": (prog_add_public_batch_to_one_element, True,
+                                        [11, 12, 13, 14, 9, 8, 7, 6]),
 }
 
 

@@ -5,11 +5,17 @@ The sharded step, the mesh-attached fabric, the operations slice G gave it
 curve-point protocols and MSM) and its aborts run in a fresh interpreter
 (`tests/_torch_mesh_prog.py`, torch only) that spawns N gloo ranks, one
 process each.  This module makes their inputs from numpy seeds; the JAX
-side runs on the same inputs on an N-device virtual CPU mesh
-(`jax_num_cpu_devices` = N) in a JAX-only interpreter beside it
+side runs on the same inputs on a 4-device virtual CPU mesh
+(`jax_num_cpu_devices` = 4) in a JAX-only interpreter
 (`tests/_jax_mesh_ref.py`), so that its XLA compilations do not stay in
-the test worker.  Every comparison is exact (tolerance 0): gathered limbs
-are equal bit for bit, opened values equal Python ints.  The point
+the test worker.  No shape of the programs depends on the mesh size, so
+the JAX package's gathered record is the same on every mesh (a slow test
+holds its 2-device record to its 4-device one): it runs once, started
+before either torch mesh and beside them, and every torch mesh is held to
+it.  It runs with XLA's CPU backend at optimization level 0, which
+compiles faster and computes the same integers (the slow test compares
+with the default level too).  Every comparison is exact (tolerance 0):
+gathered limbs are equal bit for bit, opened values equal Python ints.  The point
 protocols are held to the port's unsharded fabric on the same inputs
 (`tests/test_torch_points.py` holds that to the JAX package): bit for bit
 element-wise, projectively for sums; the JAX mesh's point program (minutes
@@ -24,6 +30,7 @@ import random
 import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -41,7 +48,14 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = SCALAR_FIELD.modulus
-PROG_TIMEOUT = 300  # seconds: a stuck collective fails the test, never hangs it
+# seconds: a stuck collective fails the test, never hangs it.  The JAX side
+# (~180 s alone from an empty compile cache) runs beside the two torch
+# meshes (~40 s each, one after the other), so with every subprocess timing
+# out the mesh tests end within JAX_TIMEOUT of the module's start.
+PROG_TIMEOUT = 200
+JAX_TIMEOUT = 500
+JAX_DEVICES = 4
+FAST_XLA = "--xla_backend_optimization_level=0 --xla_llvm_disable_expensive_passes=true"
 
 
 def start(cmd: list, env=None) -> subprocess.Popen:
@@ -50,16 +64,16 @@ def start(cmd: list, env=None) -> subprocess.Popen:
                             text=True, cwd=REPO, env=env, start_new_session=True)
 
 
-def finish(proc: subprocess.Popen, ok_line: str) -> str:
+def finish(proc: subprocess.Popen, ok_line: str, timeout: float = PROG_TIMEOUT) -> str:
     """Wait for `proc`; -> its stdout, which must hold `ok_line`.  On
     timeout the whole session is killed, spawned ranks included: a stuck
     collective fails the test and leaves nothing running."""
     try:
-        out, err = proc.communicate(timeout=PROG_TIMEOUT)
+        out, err = proc.communicate(timeout=max(timeout, 1))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
-        pytest.fail(f"{proc.args} did not finish within {PROG_TIMEOUT} s:\n{err[-3000:]}")
+        pytest.fail(f"{proc.args} did not finish within its {timeout:.0f} s:\n{err[-3000:]}")
     assert proc.returncode == 0, (err[-3000:], out[-500:])
     assert ok_line in out
     return out
@@ -99,10 +113,14 @@ def inputs(tmp_path_factory):
     return inp, tmp / "in.pkl"
 
 
-def jax_mesh(n_ranks: int, in_path, out_path, *extra) -> subprocess.Popen:
-    """The JAX package's side on an n-device CPU mesh, started."""
+def jax_mesh(n_ranks: int, in_path, out_path, *extra, fast: bool = True) -> subprocess.Popen:
+    """The JAX package's side on an n-device CPU mesh, started (with
+    `fast`, at XLA optimization level 0)."""
+    env = _cpu_env()
+    if fast:
+        env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {FAST_XLA}".strip()
     return start([sys.executable, os.path.join(REPO, "tests", "_jax_mesh_ref.py"),
-                  str(n_ranks), str(in_path), str(out_path), *extra], env=_cpu_env())
+                  str(n_ranks), str(in_path), str(out_path), *extra], env=env)
 
 
 def torch_mesh(n_ranks: int, in_path, out_path) -> subprocess.Popen:
@@ -115,27 +133,73 @@ def load(path):
         return pickle.load(fh)
 
 
+class Side:
+    """One subprocess whose record the tests share: `result()` waits for
+    it (within `timeout` of its start) and keeps the record."""
+
+    def __init__(self, proc: subprocess.Popen, out_path, ok_line: str, timeout: float):
+        self.proc, self.out_path, self.ok_line = proc, out_path, ok_line
+        self.started, self.timeout = time.monotonic(), timeout
+        self.record = None
+
+    def result(self):
+        if self.record is None:
+            left = self.timeout - (time.monotonic() - self.started)
+            finish(self.proc, self.ok_line, timeout=left)
+            self.record = load(self.out_path)
+        return self.record
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.communicate()
+
+
+class Sides:
+    """The module's subprocesses: the JAX side on a JAX_DEVICES-device
+    mesh, started with the module, and one torch mesh a size, each started
+    when asked for or when the size before it has finished."""
+
+    def __init__(self, in_path, tmp):
+        self.in_path, self.tmp = in_path, tmp
+        self.jax = Side(jax_mesh(JAX_DEVICES, in_path, tmp / "ref.pkl"), tmp / "ref.pkl",
+                        f"JAX_MESH_REF_OK {JAX_DEVICES}", JAX_TIMEOUT)
+        self.torch = {}
+
+    def torch_side(self, n_ranks: int) -> Side:
+        if n_ranks not in self.torch:
+            out = self.tmp / f"out{n_ranks}.pkl"
+            self.torch[n_ranks] = Side(torch_mesh(n_ranks, self.in_path, out), out,
+                                       f"MESH_PROG_OK {n_ranks}", PROG_TIMEOUT)
+        return self.torch[n_ranks]
+
+    def stop(self) -> None:
+        for side in (self.jax, *self.torch.values()):
+            side.stop()
+
+
+@pytest.fixture(scope="module")
+def sides(inputs, tmp_path_factory):
+    sides = Sides(inputs[1], tmp_path_factory.mktemp("mesh"))
+    yield sides
+    sides.stop()
+
+
 @pytest.fixture(scope="module", params=[
     2, 4, pytest.param(8, marks=pytest.mark.slow)], ids=lambda n: f"{n}ranks")
-def mesh_run(request, inputs, tmp_path_factory):
+def mesh_run(request, inputs, sides):
     """-> (N, inputs, [rank r's {case: ("ok", result) | ("error", tb)}],
-    the JAX package's results on the same inputs on an N-device mesh).
-    The two sides run side by side, each in a fresh interpreter; a side
-    that fails or hangs is killed with its session."""
+    the JAX package's results on the same inputs).  The torch side runs in
+    a fresh interpreter while the JAX side computes, and the next mesh size
+    starts as soon as this one is done; a side that fails or hangs is
+    killed with its session."""
     n_ranks = request.param
-    inp, in_path = inputs
-    tmp = tmp_path_factory.mktemp(f"mesh{n_ranks}")
-    jax_side = jax_mesh(n_ranks, in_path, tmp / "ref.pkl")
-    try:
-        finish(torch_mesh(n_ranks, in_path, tmp / "out.pkl"), f"MESH_PROG_OK {n_ranks}")
-        finish(jax_side, f"JAX_MESH_REF_OK {n_ranks}")
-    finally:
-        if jax_side.poll() is None:
-            os.killpg(jax_side.pid, signal.SIGKILL)
-            jax_side.communicate()
-    ranks = load(tmp / "out.pkl")
+    ranks = sides.torch_side(n_ranks).result()
+    if n_ranks == 2:
+        sides.torch_side(4)  # runs beside the rest of the JAX side
+    record = sides.jax.result()
     assert len(ranks) == n_ranks
-    return n_ranks, inp, ranks, load(tmp / "ref.pkl")
+    return n_ranks, inputs[0], ranks, record
 
 
 def case(ranks, name) -> list:
@@ -263,15 +327,18 @@ def test_prefix_product_still_refuses_on_a_mesh(mesh_run):
             assert "ark_mpc_tpu/gadgets/products.py:52" in msg, msg
 
 
-OPS = ("sum", "inner_product", "traced_sum", "shared_matmul", "poly_eval", "poly_mul",
-       "poly_inverse_mod_t", "poly_div")
+OPS = ("sum", "sum_times_open", "sum_plus_open", "inner_product", "traced_sum",
+       "shared_matmul", "poly_eval", "poly_mul", "poly_inverse_mod_t", "poly_div")
 
 
 @pytest.mark.parametrize("op", OPS)
 def test_scalar_op_matches_the_jax_mesh(mesh_run, op):
     """The opened value and the gathered share and MAC limbs of each party,
-    on every rank, equal the JAX package's on an N-device mesh (the traced
-    sum brings the traced circuit's other output and its opens along)."""
+    on every rank, equal the JAX package's on its mesh (the traced sum
+    brings the traced circuit's other output and its opens along).  Where
+    a batch is added to a one-element share, the reference keeps party 1's
+    share 0-d and the port broadcasts it to the batch: the limbs equal the
+    reference's broadcast."""
     _, _, ranks, jax_ref = mesh_run
     names = (op, "traced_w") if op == "traced_sum" else (op,)
     for parties in case(ranks, "ops"):
@@ -280,6 +347,9 @@ def test_scalar_op_matches_the_jax_mesh(mesh_run, op):
             for name in names:
                 (v, sh, mac), (wv, wsh, wmac) = got[name], want[name]
                 assert v == wv, name
+                if name == "sum_plus_open" and pid == 1:
+                    assert wsh.shape == (16,) and sh.shape == mac.shape
+                    wsh = np.broadcast_to(wsh[:, None], sh.shape)
                 np.testing.assert_array_equal(sh, wsh)
                 np.testing.assert_array_equal(mac, wmac)
             if op == "traced_sum":
@@ -298,16 +368,19 @@ def test_scalar_ops_equal_python_ints(mesh_run):
     n_ranks, inp, ranks, _ = mesh_run
     xs, ys, f = inp["xs"], inp["ys"], inp["poly_f"]
     prod = [x * y % L for x, y in zip(xs, ys)]
-    m, k, n = mesh_prog.matmul_dims(n_ranks)
+    m, k, n = mesh_prog.MAT_DIMS
     a, b = inp["mat_a"][:m * k], inp["mat_b"][:k * n]
     want = {
         "sum": [sum(xs) % L], "inner_product": [sum(prod) % L],
+        "sum_times_open": [sum(xs) * x % L for x in xs],
+        "sum_plus_open": [(sum(xs) + x) % L for x in xs],
         "traced_sum": [sum(prod) % L],
         "traced_w": [(x * p + sum(prod)) % L for x, p in zip(xs, prod)],
         "shared_matmul": [sum(a[i * k + j] * b[j * n + c] for j in range(k)) % L
                           for i in range(m) for c in range(n)],
         "poly_eval": [sum(c * pow(inp["x_eval"], i, L) for i, c in enumerate(f)) % L],
         "poly_mul": poly_mul_ints(f, inp["poly_g"]),
+        "share_public_of_open": [x % L for x in xs], "pow_zero": [1] * len(xs),
     }
     t = mesh_prog.POLY_T
     for parties in case(ranks, "ops"):
@@ -348,22 +421,24 @@ def points_of(arr) -> port.CurvePoint:
 
 ELEMENTWISE = ("share_points", "mul_generator", "mul_public_point", "beaver_mul_points")
 SUMS = ("msm_authenticated", "msm_public_points")
+PORT_ONLY = ("share_public_points",)  # not in the JAX mesh's record
 
 
 def test_point_protocols_match_the_unsharded_fabric(mesh_run, unsharded_points):
     """Gathered over the party's ranks, the element-wise protocols' shares
-    and MACs equal the unsharded fabric's bit for bit, the two MSMs' sums
+    and MACs (and those of the opened shared batch, shared again as public
+    points) equal the unsharded fabric's bit for bit, the two MSMs' sums
     equal them projectively, and every opened point is the same; on every
     rank, for both parties."""
     _, inp, ranks, _ = mesh_run
     for parties in case(ranks, "points"):
         for pid in (0, 1):
             got, want = parties[pid], unsharded_points[pid]
-            assert sorted(got) == sorted(ELEMENTWISE + SUMS)
-            for name in ELEMENTWISE + SUMS:
+            assert sorted(got) == sorted(ELEMENTWISE + SUMS + PORT_ONLY)
+            for name in ELEMENTWISE + SUMS + PORT_ONLY:
                 (opened, sh, mac), (w_opened, w_sh, w_mac) = got[name], want[name]
                 assert opened == w_opened, name
-                if name in ELEMENTWISE:
+                if name not in SUMS:
                     np.testing.assert_array_equal(sh, w_sh)
                     np.testing.assert_array_equal(mac, w_mac)
                 else:
@@ -381,16 +456,29 @@ def test_one_cheating_rank_pair_aborts_every_rank_on_points(mesh_run):
 
 def test_mixing_a_shard_with_a_replicated_batch_raises(mesh_run):
     """Every element-wise way a shard can meet a replicated batch of two
-    elements raises `ValueError` naming the mesh, and a concatenation of
-    the two does too; `gather` returns a replicated value once."""
+    elements raises `ValueError` naming the mesh, a replicated share of two
+    elements operated on with a shard's opened value does too (the
+    reference raises on the shapes), and a concatenation of the two does
+    too; `gather` returns a replicated value once."""
     n_ranks, _, ranks, _ = mesh_run
     n = 2 * n_ranks
     for res in case(ranks, "mixing"):
         assert res.pop("gathered_sum") == [n * (n + 1) // 2]
         assert res.pop("gathered_coeffs") == [1, 2]
-        assert len(res) == 6
+        assert len(res) == 8
         for name, msg in res.items():
             assert msg.startswith("ValueError") and f"{n_ranks}-rank mesh" in msg, (name, msg)
+
+
+@pytest.mark.slow
+def test_jax_record_does_not_depend_on_the_mesh_or_the_xla_level(inputs, sides, tmp_path):
+    """The JAX side's record on a 2-device mesh at XLA's default
+    optimization level equals the module's (4 devices, level 0) exactly:
+    what lets one JAX run hold every torch mesh."""
+    _, in_path = inputs
+    finish(jax_mesh(2, in_path, tmp_path / "ref2.pkl", fast=False), "JAX_MESH_REF_OK 2",
+           timeout=900)
+    assert pickle.dumps(load(tmp_path / "ref2.pkl")) == pickle.dumps(sides.jax.result())
 
 
 @pytest.mark.slow
