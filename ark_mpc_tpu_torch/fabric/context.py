@@ -23,24 +23,27 @@ random linear combination).
 Mesh (`mesh=`, a `parallel.step.Mesh`): the process is one rank of a mesh,
 and every value it holds has one of two placements (`algebra/placement.py`):
 
-  - a shard: the rank's columns of a global batch.  Values held whole
-    (unmarked) enter through `_place` (the rank's slice); a value already
-    marked a shard, such as one opened from a shard, stays as it is; sizes given to the fabric (`n` of
+  - a shard: the rank's columns of a global batch at least as large as
+    the mesh.  Values held whole (unmarked) enter through `_place` (the
+    rank's slice); a value already marked a shard, such as one opened from
+    a shard, stays as it is; sizes given to the fabric (`n` of
     `share_values`, the offline passthroughs, `share_public`'s batch) are
-    global and must be multiples of the mesh size, else `ValueError` naming
-    the mesh (a 0-d value is a constant and stays as it is); offline
+    global, and one at least the mesh size must be a multiple of it, else
+    `ValueError` naming the mesh (the reference raises there too); offline
     material is drawn through `ShardedSource` (each rank draws the global
     batch and keeps its slice, so every position holds the reference's
-    material).  The reference's replication of batches smaller than the
-    mesh is not kept;
+    material);
   - replicated (`replicated = True`): every rank of the party holds the
-    whole, with the same limbs: the result of a reduction over the batch
-    axis (`ScalarShare.sum` through `parallel.step.sharded_sum`, point sums
-    and MSM through `sharded_point_sum`), a shared polynomial (its
-    coefficients gathered over the party's ranks), a matrix triple's Q,
-    and what opening or element-wise operations make of such values.
+    whole, with the same limbs: a global batch smaller than the mesh, or
+    a single value (`parallel.step.small`: nothing to shard, as the
+    reference's `_place` leaves it), the result of a reduction over the
+    batch axis (`ScalarShare.sum` through `parallel.step.sharded_sum`,
+    point sums and MSM through `sharded_point_sum`), a shared polynomial
+    (its coefficients gathered over the party's ranks), a matrix triple's
+    Q, and what opening or element-wise operations make of such values.
     `_place` leaves a replicated value whole, and offline material for
-    replicated operands is drawn whole (`ShardedSource.draw_whole`).
+    replicated operands is drawn whole (`ShardedSource.draw_whole`), so
+    its limbs are the reference dealer's for that global batch.
 
 Element-wise operations carry the placement and raise `ValueError` naming
 the mesh where a shard meets a replicated batch of more than one element;
@@ -77,7 +80,7 @@ from ..algebra.share import PARTY0, PARTY1, ScalarShare
 from ..device import resolve_device
 from ..offline.base import PreprocessingPhase, ShardedSource
 from ..ops import fp_kernels
-from ..parallel.step import all_ranks_ok, batch_sharding, shard, sharded_rlc_fold
+from ..parallel.step import all_ranks_ok, batch_sharding, shard, sharded_rlc_fold, small
 from ..utils.csprng import CSPRNG, default_crypto_rng
 from ..utils.stats import FabricStats
 from . import commitment, messages
@@ -147,19 +150,13 @@ class MpcFabric:
     # -- mesh placement ----------------------------------------------------
     def _place(self, x: Scalar) -> Scalar:
         """The rank's slice of a batch held whole (leading axis): an
-        unmarked value (`algebra/placement.py`).  A single element is a
+        unmarked value (`algebra/placement.py`); a batch smaller than the
+        mesh stays whole, marked replicated.  A single element is a
         constant, and a replicated value or a shard (a value opened from a
         shard, say) stays as it is.  No-op without a mesh."""
         if self.mesh is None or not x.shape or x.replicated is not None:
             return x
         return shard(x, self.mesh)
-
-    def _local_n(self, n: int) -> int:
-        """The rank's share of a global batch size."""
-        if self.mesh is None:
-            return n
-        cols = batch_sharding(self.mesh, n)
-        return cols.stop - cols.start
 
     def _draw(self, method: str, n: int, replicated: bool = False):
         """`n` elements of offline material (`method` of the source) for
@@ -168,6 +165,15 @@ class MpcFabric:
         if replicated and self.mesh is not None:
             return self.offline.draw_whole(method, n)
         return getattr(self.offline, method)(n)
+
+    def _draw_global(self, method: str, n: int):
+        """`_draw` for a global batch of `n`: the rank's slice, or the whole
+        of a batch smaller than the mesh (`ValueError` naming the mesh for
+        a larger batch that does not divide it)."""
+        if self.mesh is None:
+            return self._draw(method, n)
+        cols = batch_sharding(self.mesh, n)
+        return self._draw(method, cols.stop - cols.start, small(self.mesh, n))
 
     def _timed(self, op: str, n: int = 0):
         if self.stats is None:
@@ -210,22 +216,23 @@ class MpcFabric:
         The sender masks with an offline input mask and sends v - mask; both
         parties add the public masked value onto their mask share.  On a
         mesh, `values` and `n` are the global batch's; each rank shares its
-        slice."""
+        slice, or all of a batch smaller than the mesh (replicated)."""
         if self.party_id == sender:
             if values is None:
                 raise ValueError("the sender must pass its values")
             if self.mesh is not None:
                 values = shard(values, self.mesh)
             n = values.size
-            mask, mask_share = self.offline.next_local_input_mask_batch(n)
+            mask, mask_share = self._draw("next_local_input_mask_batch", n,
+                                          bool(values.replicated))
             masked = values.reshape(n) - mask
             self.send_arrays([_wire(masked)])
             shape = values.shape
         else:
             if n is None:
                 raise ValueError("the receiver must pass n")
-            n = self._local_n(n)
-            mask_share = self.offline.next_counterparty_input_mask_batch(n)
+            mask_share = self._draw_global("next_counterparty_input_mask_batch", n)
+            n = mask_share.size
             (raw,) = self.recv_arrays()
             masked = self._from_wire(raw, (n,))
             shape = masked.shape
@@ -253,7 +260,10 @@ class MpcFabric:
     def open_many(self, xs: list) -> list:
         """Open several shares in ONE exchange (one array each, so shards
         and replicated values travel side by side unmixed); -> their values,
-        each with its share's placement."""
+        each with its share's placement.  A replicated share (a batch
+        smaller than the mesh, say) is exchanged and combined whole on
+        every rank, as the reference combines an open whose width does not
+        divide the mesh (`ark_mpc_tpu/fabric/context.py:239-257`)."""
         with self._timed("open", sum(x.size for x in xs)):
             theirs = self._exchange_arrays([_wire(x.share) for x in xs])
             return [mark(x.share + self._from_wire(t, x.shape), x.replicated)
@@ -492,24 +502,24 @@ class MpcFabric:
         return pts.msm_authenticated(self, scalars, points)
 
     # -- offline sampling passthroughs (n: the global batch; on a mesh each
-    # rank gets its slice) ------------------------------------------------
+    # rank gets its slice, or all of a batch smaller than the mesh) -------
     def next_triple_batch(self, n: int):
-        return self.offline.next_triplet_batch(self._local_n(n))
+        return self._draw_global("next_triplet_batch", n)
 
     def random_shared_scalars(self, n: int) -> ScalarShare:
-        return self.offline.next_shared_value_batch(self._local_n(n))
+        return self._draw_global("next_shared_value_batch", n)
 
     def random_inverse_pairs(self, n: int):
-        return self.offline.next_shared_inverse_pair_batch(self._local_n(n))
+        return self._draw_global("next_shared_inverse_pair_batch", n)
 
     def random_shared_bits(self, n: int) -> ScalarShare:
-        return self.offline.next_shared_bit_batch(self._local_n(n))
+        return self._draw_global("next_shared_bit_batch", n)
 
     # -- constants (shapes: the global batch's) ----------------------------
     def zero_authenticated(self, shape=()) -> ScalarShare:
-        zero = self.field.zeros(shape, device=self.device)
-        return ScalarShare.zeros(self._place(zero).shape, field=self.field,
-                                 device=self.device)
+        zero = self._place(self.field.zeros(shape, device=self.device))
+        return ScalarShare.zeros(zero.shape, field=self.field, device=self.device,
+                                 replicated=bool(zero.replicated))
 
     def one_authenticated(self, shape=()) -> ScalarShare:
         return self.share_public(self.field.ones(shape, device=self.device))

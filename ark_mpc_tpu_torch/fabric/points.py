@@ -14,11 +14,12 @@ by the order l).  A failure raises `AuthenticationError`.
 
 On a mesh point shares are sharded like scalars (`fabric/context.py`):
 `share_points` shards the sender's global points and both parties take
-their mask slices from `ShardedSource`; the element-wise protocols run on
-the rank's shard (the `windowed_mul` kernel on each rank's shard on the
-card); `PointShare.sum`, and so both MSMs, add the party's ranks' partials
-into a replicated result; a point MAC check's outcome is agreed over the
-party's ranks before any rank raises.
+their mask slices from `ShardedSource` (a batch smaller than the mesh is
+held whole, replicated, with masks drawn whole); the element-wise
+protocols run on the rank's shard (the `windowed_mul` kernel on each
+rank's shard on the card); `PointShare.sum`, and so both MSMs, add the
+party's ranks' partials into a replicated result; a point MAC check's
+outcome is agreed over the party's ranks before any rank raises.
 """
 
 from __future__ import annotations
@@ -106,7 +107,8 @@ def share_points(fabric, points=None, sender: int = 0,
             points = type(points)(*(shard(c, fabric.mesh)
                                     for c in points.reshape(points.size)._coords()))
         n = points.size
-        mask, mask_share = fabric.offline.next_local_input_mask_batch(n)
+        mask, mask_share = fabric._draw("next_local_input_mask_batch", n,
+                                        bool(points.replicated))
         gen = curve.generator((n,), device=fabric.device)
         masked = points.reshape(n) - gen.mul(mask)
         fabric.send_arrays(list(_wire_arrays(masked)))
@@ -114,8 +116,8 @@ def share_points(fabric, points=None, sender: int = 0,
     else:
         if n is None:
             raise ValueError("the receiver must pass n")
-        n = fabric._local_n(n)
-        mask_share = fabric.offline.next_counterparty_input_mask_batch(n)
+        mask_share = fabric._draw_global("next_counterparty_input_mask_batch", n)
+        n = mask_share.size
         xc, yc = fabric.recv_arrays()
         masked = _point_from_wire_checked(fabric, curve, xc, yc)
         shape = (n,)

@@ -633,6 +633,24 @@ class Tracer:
         return [eval_local(o.node) for o in outputs]
 
 
+def replicated_at_trace(traced) -> bool:
+    """Whether a traced share's value will be replicated on a mesh, read
+    at trace time as `algebra/placement.py` sets it: a sum is, an input or
+    a constant is as it is marked (an unmarked constant counts for
+    neither), and any other node is where none of its operands is a
+    shard."""
+    stack, seen = [traced.node], set()
+    while stack:
+        n = stack.pop()
+        if n.nid in seen or n.op in ("sum", "psum"):
+            continue
+        seen.add(n.nid)
+        if getattr(n.payload, "replicated", None) is False:
+            return False  # a shard's input, or a constant marked a shard
+        stack.extend(n.deps)
+    return True
+
+
 def _groups(keys: list) -> list:
     """Item indices by placement key (shards first), empty groups left out."""
     return [idx for idx in ([i for i, k in enumerate(keys) if k == key]

@@ -25,7 +25,7 @@ from ..algebra.placement import mark
 from ..algebra.scalar import Scalar
 from ..algebra.share import ScalarShare
 from ..device import resolve_device
-from ..parallel.step import batch_sharding, shard, shard_share
+from ..parallel.step import batch_sharding, shard, shard_share, small
 
 
 class PreprocessingPhase:
@@ -257,10 +257,12 @@ class ShardedSource(PreprocessingPhase):
     stream, so the rank holds the material at its own global positions,
     which is what the reference's dealer places there, and no triple is
     used on two ranks.  `draw_whole` draws a batch whole instead, marked
-    replicated (material for replicated operands); polynomial triples are
-    always whole, and a matrix triple keeps the rank's rows of P and C and
-    the whole Q.  The MAC key share is the wrapped source's, the same on
-    every rank."""
+    replicated (material for replicated operands, a global batch smaller
+    than the mesh among them: the fabric, which knows a batch's global
+    size, chooses); polynomial triples are always whole, and a matrix
+    triple keeps the rank's rows of P and C and the whole Q (all of it
+    where its rows are fewer than the ranks).  The MAC key share is the
+    wrapped source's, the same on every rank."""
 
     def __init__(self, inner: PreprocessingPhase, mesh):
         self.inner, self.mesh, self.size = inner, mesh, mesh.size
@@ -302,8 +304,12 @@ class ShardedSource(PreprocessingPhase):
 
     def next_matrix_triplet(self, m: int, k: int, n: int):
         """The global triple ([P](m, k), [Q](k, n), [P@Q](m, n)): the rank's
-        rows of P and C, and the whole Q, marked replicated.  `m` must be a
-        multiple of the mesh size (`ValueError` naming the mesh)."""
+        rows of P and C, and the whole Q, marked replicated; all of it,
+        replicated, where m is smaller than the mesh (`parallel.step.small`).
+        A larger `m` must be a multiple of the mesh size (`ValueError`
+        naming the mesh)."""
+        if small(self.mesh, m):
+            return self.draw_whole("next_matrix_triplet", m, k, n)
         rows = batch_sharding(self.mesh, m)
         p, q, c = self.inner.next_matrix_triplet(m, k, n)
         return p[rows], mark(q), c[rows]

@@ -114,33 +114,47 @@ def make_mesh(n_devices: int | None = None, group=None, device=None,
     return Mesh(group, size, rank, device, axis, parties)
 
 
+def small(mesh: Mesh, n: int) -> bool:
+    """Whether a global batch of `n` elements is held replicated on `mesh`:
+    it is smaller than the mesh, so there is nothing to shard (the
+    reference's `_place`, `ark_mpc_tpu/fabric/context.py:139-160`, leaves
+    such a batch on every device)."""
+    return n < mesh.size
+
+
 def batch_sharding(mesh: Mesh, n: int) -> slice:
-    """The rank's columns of a batch of `n` (the counterpart of the
+    """The rank's columns of a global batch of `n` (the counterpart of the
     reference's `NamedSharding`: a torch tensor carries no sharding, the
-    rank just holds these columns).  Raises `ValueError` naming the mesh
-    unless `n` is a multiple of its size."""
+    rank just holds these columns): all of them for a batch smaller than
+    the mesh (`small`).  Raises `ValueError` naming the mesh for a larger
+    batch that is no multiple of its size, as the reference does."""
+    if small(mesh, n):
+        return slice(0, n)
     if n % mesh.size:
         raise ValueError(
             f"a batch of {n} elements does not divide the {mesh.size}-rank mesh; "
             f"pad the batch to a multiple of the mesh size (every rank of a "
-            f"mesh holds an equal shard of each batch)")
+            f"mesh holds an equal shard of each batch at least as large as "
+            f"the mesh)")
     k = n // mesh.size
     return slice(mesh.rank * k, (mesh.rank + 1) * k)
 
 
 def shard(x: FieldArray, mesh: Mesh) -> FieldArray:
     """The rank's shard of a global batch (leading axis), on its device,
-    marked a shard."""
-    if not x.shape:
-        raise ValueError(f"a single element cannot be split over the "
-                         f"{mesh.size}-rank mesh")
+    marked a shard; a single element or a batch smaller than the mesh
+    (`small`) comes back whole, marked replicated."""
+    if not x.shape or small(mesh, x.shape[0]):
+        return mark(type(x)(x.limbs.to(mesh.device)))
     cols = batch_sharding(mesh, x.shape[0])
     return mark(type(x)(x.limbs[:, cols].contiguous().to(mesh.device)), False)
 
 
 def shard_share(share: ScalarShare, mesh: Mesh) -> ScalarShare:
-    """The rank's columns of a (16, n) share and its MAC."""
-    return ScalarShare(shard(share.share, mesh), shard(share.mac, mesh))
+    """The rank's columns of a (16, n) share and its MAC (whole and
+    replicated where `shard` keeps a value whole)."""
+    sh, mac = shard(share.share, mesh), shard(share.mac, mesh)
+    return ScalarShare(sh, mac, sh.replicated)
 
 
 def replicate(x: FieldArray, mesh: Mesh) -> FieldArray:

@@ -147,8 +147,16 @@ Phases (any failure exits non-zero; there is no CPU path):
               beside the same program on the unsharded fabric, whose shares
               mul_generator's equal bit for bit and the MSM's
               projectively); a corrupted point MAC on one rank pair aborts
-              both parties, and `prefix_product` still raises; and the
-              path's `mont_mul`, `beaver_round` and `windowed_mul` launches;
+              both parties, and `prefix_product` of 2 x size elements still
+              raises; the small-batch program (batches of 1 and size - 1,
+              held replicated where smaller than the mesh, a one-point
+              batch, and `prefix_product` at n = size - 1, eager and
+              traced): opens equal Python ints, and the gathered shares and
+              MACs equal the same program's on the unsharded fabric on the
+              card bit for bit (on a one-card host the one-rank mesh holds
+              no batch smaller than itself, and a log line says the branch
+              needs >= 2 cards); and the path's `mont_mul`, `beaver_round`
+              and `windowed_mul` launches;
  18. proto    the t-generic prototype BGV stack at `test_params()` (N = 1024,
               t a 29-bit prime, 6 x 30-bit q): both parties' key exchange
               (`offline/lowgear/setup.run_key_exchange`) and a triple pair
@@ -2364,6 +2372,113 @@ def mesh_prefix_program(fabric):
     return "no error"
 
 
+SMALL_XS = [3, 5, 7, 11]     # the small-batch program's values: party 0's ...
+SMALL_YS = [13, 17, 19, 23]  # ... and party 1's (n <= 4 of each)
+SMALL_G = 29                 # the one-point batch: SMALL_G * G
+
+
+def small_sizes(size: int) -> tuple:
+    """The small-batch program's batch sizes on a mesh of `size` ranks: 1
+    and size - 1 (both smaller than the mesh, so replicated, from 2 ranks
+    on; capped at 4), and prefix_product's n = size - 1 where it is >= 1."""
+    n_small = min(max(size - 1, 1), 4)
+    return n_small, (n_small if size > 1 else 0)
+
+
+def mesh_small_program(size: int):
+    """The small-batch program, with or without a mesh of `size` ranks:
+    batches of 1 and of `small_sizes(size)[0]` elements shared by both
+    parties, multiplied, summed and inner-multiplied, and a one-point batch
+    shared, each opened (deferred) and checked; then prefix_product at n =
+    size - 1, eager and traced, where n >= 1.  -> {name: (opened ints,
+    [the gathered share and MAC limb tensors])}."""
+    n_small, n_prefix = small_sizes(size)
+
+    def prog(fabric):
+        dev = fabric.device
+        res, opened = {}, {}
+        for n in sorted({1, n_small}):
+            x = fabric.share_values(Scalar.from_ints(SMALL_XS[:n], device=dev)
+                                    if fabric.party_id == 0 else None, sender=0, n=n)
+            y = fabric.share_values(Scalar.from_ints(SMALL_YS[:n], device=dev)
+                                    if fabric.party_id == 1 else None, sender=1, n=n)
+            for name, v in (("share", x), ("mul", fabric.mul(x, y)), ("sum", x.sum()),
+                            ("inner_product", inner_product(fabric, x, y))):
+                res[f"{name}_{n}"] = v
+                opened[f"{name}_{n}"] = fabric.open_authenticated(v, defer=True)
+        pub = CurvePoint.generator((1,), device=dev).mul(Scalar.from_ints([SMALL_G], device=dev))
+        sp = fabric.share_points(pub if fabric.party_id == 0 else None, sender=0, n=1)
+        sp_open = fabric.open_authenticated_points(sp, defer=True)
+        fabric.verify_deferred()
+        if n_prefix:
+            x = fabric.share_values(Scalar.from_ints(SMALL_XS[:n_prefix], device=dev)
+                                    if fabric.party_id == 0 else None, sender=0, n=n_prefix)
+            res["prefix_eager"] = prefix_product(fabric, x)
+            opened["prefix_eager"] = fabric.open_authenticated(res["prefix_eager"])
+            tr = fabric.tracer()
+            handle = prefix_product(fabric, tr.wrap(x)).open()
+            (res["prefix_traced"],) = tr.run(outputs=[handle.source])
+            opened["prefix_traced"] = handle.value
+        out = {}
+        for name, v in res.items():
+            v = whole(v, fabric)
+            out[name] = (whole(opened[name], fabric).to_ints(), [v.share.limbs, v.mac.limbs])
+        sp = whole(sp, fabric)
+        out["share_points"] = (affine(whole(sp_open, fabric), [0]),
+                               [c.limbs for c in sp.share._coords() + sp.mac._coords()])
+        return out
+    return prog
+
+
+def small_want(size: int) -> dict:
+    """The small-batch program's opens as Python ints."""
+    n_small, n_prefix = small_sizes(size)
+    want = {}
+    for n in sorted({1, n_small}):
+        xs, ys = SMALL_XS[:n], SMALL_YS[:n]
+        prod = [x * y % L for x, y in zip(xs, ys)]
+        want.update({f"share_{n}": xs, f"mul_{n}": prod, f"sum_{n}": [sum(xs) % L],
+                     f"inner_product_{n}": [sum(prod) % L]})
+    prefixes = [SMALL_XS[0]]
+    for v in SMALL_XS[1:n_prefix]:
+        prefixes.append(prefixes[-1] * v % L)
+    if n_prefix:
+        want["prefix_eager"] = want["prefix_traced"] = prefixes
+    want["share_points"] = [ed_mul(SMALL_G)]
+    return want
+
+
+def mesh_small(mesh) -> tuple[dict, tuple]:
+    """The small-batch program on the mesh, its opens against Python ints;
+    -> its numbers, and both parties' records for `mesh_small_vs_unsharded`."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = execute_mock_mpc_dealer(mesh_small_program(mesh.size), seed=18, mesh=mesh)
+    secs = synced_s(t0)
+    want = small_want(mesh.size)
+    for r in res:
+        got = {name: v[0] for name, v in r.items()}
+        check(got == want, f"the mesh's small-batch program differs from Python ints: {got}")
+    n_small, n_prefix = small_sizes(mesh.size)
+    return {"n_small": n_small, "n_prefix": n_prefix, "host_s": secs}, res
+
+
+def mesh_small_vs_unsharded(dev, size: int, mesh_res) -> float:
+    """The small-batch program on the unsharded fabric on this card: every
+    open equal and every gathered share and MAC limb equal bit for bit;
+    -> its host seconds."""
+    t0 = time.time()
+    plain = execute_mock_mpc_dealer(mesh_small_program(size), seed=18, device=dev)
+    secs = synced_s(t0)
+    for got, want in zip(mesh_res, plain):
+        check(sorted(got) == sorted(want), "the small-batch programs' records differ")
+        for name in want:
+            check(got[name][0] == want[name][0]
+                  and all(torch.equal(u, v) for u, v in zip(got[name][1], want[name][1])),
+                  f"the mesh's small-batch {name} differs from the unsharded fabric's")
+    return secs
+
+
 def mesh_ops(mesh) -> tuple[dict, tuple]:
     """The operations slice G gave the mesh, at the unsharded phases'
     sizes, each against Python ints; -> their numbers, and the point
@@ -2447,11 +2562,13 @@ def mesh_rank(mesh, phase4_vals) -> dict:
            "backends": backends, "step": mesh_step(mesh, N_MESH_STEP),
            "fabric": mesh_fabric(mesh, phase4_vals), "ct_x_pt": mesh_ct(mesh)}
     out["ops"], (prog, points) = mesh_ops(mesh)
+    out["small"], small = mesh_small(mesh)
     torch.cuda.synchronize()
     out["launches"] = {**fk.launch_counts(), **mk.launch_counts()}
     if mesh.rank == 0:
         out["ops"]["points_2^16_unsharded_party0_s"] = mesh_points_vs_unsharded(
             mesh.device, prog, points)
+        out["small"]["unsharded_host_s"] = mesh_small_vs_unsharded(mesh.device, mesh.size, small)
     return out
 
 
@@ -2504,8 +2621,19 @@ def phase_mesh(dev, fabric_ref, mats: dict) -> dict:
         f"fabric's bit for bit and the MSM's projectively; party 0 steps (s): "
         f"{ {k: round(v, 3) for k, v in pts.items()} }, unsharded "
         f"{ {k: round(v, 3) for k, v in ops['points_2^16_unsharded_party0_s'].items()} }; "
-        f"a corrupted point MAC on one rank pair aborted both parties; prefix_product still "
-        f"raises NotImplementedError")
+        f"a corrupted point MAC on one rank pair aborted both parties; prefix_product of "
+        f"2 x {n_ranks} elements still raises NotImplementedError")
+    sm = out["small"]
+    batches = "a batch of 1" if sm["n_small"] == 1 else f"batches of 1 and {sm['n_small']}"
+    log(f"[17 mesh] small-batch program ({batches}, a one-point batch"
+        + (f", prefix_product at n={sm['n_prefix']} eager and traced" if sm["n_prefix"] else "")
+        + f"): opens equal Python ints, gathered shares and MACs equal the unsharded fabric's "
+        f"bit for bit ({sm['host_s']:.2f} s on the mesh, {sm['unsharded_host_s']:.2f} s "
+        f"unsharded, host time)")
+    if n_ranks == 1:
+        log("[17 mesh] the small-batch branch (a batch smaller than the mesh held replicated, "
+            "prefix_product at n = size - 1) needs >= 2 cards: on this one-card host every "
+            "batch is the one rank's shard")
     return out
 
 

@@ -1,6 +1,6 @@
 """Subprocess body for the JAX side of the port's mesh tests.
 
-    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [points]
+    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [points | small]
 
 reads the inputs `test_torch_parallel.py` made (`_torch_mesh_prog.py`'s
 IN.pkl) and writes what the JAX package computes from them on an N-device
@@ -11,7 +11,9 @@ beside the unsharded `beaver_mul_step` + `mac_check_fold`,
 honest program and the scalar operations' program (`ops_program`, the
 calls of `_torch_mesh_prog.ops_program` in the same order), each through
 `execute_mock_mpc_dealer(..., mesh=)`.  With `points` it runs the point
-protocols' program (`_torch_mesh_prog.points_program`) alone.  It runs in
+protocols' program (`_torch_mesh_prog.points_program`) alone, and with
+`small` the small-batch programs (batches smaller than the mesh,
+`small_records`) alone.  It runs in
 a process of its own so that the XLA compilations (a few GiB) do not stay
 in the test worker.
 """
@@ -37,6 +39,7 @@ from ark_mpc_tpu.algebra import poly  # noqa: E402
 from ark_mpc_tpu.algebra.curve import CurvePoint  # noqa: E402
 from ark_mpc_tpu.fabric import points  # noqa: E402
 from ark_mpc_tpu.fabric.simulator import execute_mock_mpc_dealer  # noqa: E402
+from ark_mpc_tpu.gadgets import prefix_product  # noqa: E402
 from ark_mpc_tpu.models.circuits import inner_product, poly_eval, shared_matmul  # noqa: E402
 from ark_mpc_tpu.parallel import step  # noqa: E402
 
@@ -135,6 +138,77 @@ def ops_program(inp):
     return prog
 
 
+def small_program(inp, n):
+    """`_torch_mesh_prog.small_program`'s calls in the same order."""
+
+    def prog(fabric):
+        x, y = share_in(fabric, inp["small_xs"][:n], 0), share_in(fabric, inp["small_ys"][:n], 1)
+        res = {"share": x, "mul": fabric.mul(x, y), "sum": x.sum(),
+               "inner_product": inner_product(fabric, x, y)}
+        opened = {name: fabric.open_authenticated(v, defer=True) for name, v in res.items()}
+        if n == 1:
+            pub = CurvePoint.generator((1,)).mul(ref.Scalar.from_ints(inp["gs"][:1]))
+            sp = fabric.share_points(pub if fabric.party_id == 0 else None, sender=0, n=1)
+            sp_open = fabric.open_authenticated_points(sp, defer=True)
+        fabric.verify_deferred()
+        out = {name: (opened[name].to_ints(), limbs(v.share), limbs(v.mac))
+               for name, v in res.items()}
+        if n == 1:
+            x_aff, y_aff = sp_open.to_affine()
+            out["share_points"] = ([x_aff.to_ints(), y_aff.to_ints()], point_limbs(sp.share),
+                                   point_limbs(sp.mac))
+        return out
+
+    return prog
+
+
+def prefix_program(inp, n):
+    """`_torch_mesh_prog.prefix_program`'s calls in the same order."""
+
+    def prog(fabric):
+        x = share_in(fabric, inp["small_xs"][:n], 0)
+        out = {}
+        eager = prefix_product(fabric, x)
+        opened = {"eager": fabric.open_authenticated(eager)}
+        before = fabric.n_rounds
+        tr = fabric.tracer()
+        handle = prefix_product(fabric, tr.wrap(x)).open()
+        (traced,) = tr.run(outputs=[handle.source])
+        out["traced_rounds"] = fabric.n_rounds - before
+        opened["traced"] = handle.value
+        for name, v in (("eager", eager), ("traced", traced)):
+            out[name] = (opened[name].to_ints(), limbs(v.share), limbs(v.mac))
+        return out
+
+    return prog
+
+
+def single_value(fabric):
+    """`_torch_mesh_prog.single_value`."""
+    x = fabric.share_values(ref.Scalar.from_ints(5) if fabric.party_id == 0 else None,
+                            sender=0, n=1)
+    opened = fabric.open_authenticated(x.reshape(1))
+    return opened.to_ints(), limbs(x.share), limbs(x.mac)
+
+
+def small_records(inputs, mesh) -> dict:
+    """The small-batch programs on `mesh` (`_torch_mesh_prog`'s
+    `case_small_one`, `case_small_three`, `case_prefix_small` and
+    `single_value`), and what a 2-device mesh makes of the 3-element
+    batch: the error's "TypeName: message"."""
+    out = {"one": execute_mock_mpc_dealer(small_program(inputs, 1), mesh=mesh),
+           "three": execute_mock_mpc_dealer(small_program(inputs, 3), mesh=mesh),
+           "prefix": {n: execute_mock_mpc_dealer(prefix_program(inputs, n), mesh=mesh)
+                      for n in (2, 3)},
+           "single_value": execute_mock_mpc_dealer(single_value, mesh=mesh)}
+    try:
+        execute_mock_mpc_dealer(small_program(inputs, 3), mesh=step.make_mesh(2))
+        out["three_on_2"] = "no error"
+    except Exception as err:  # noqa: BLE001 - the test reads the type and text
+        out["three_on_2"] = f"{type(err).__name__}: {err}"
+    return out
+
+
 def point_limbs(pt) -> np.ndarray:
     return np.stack([limbs(c) for c in (pt.X, pt.Y, pt.Z, pt.T)])
 
@@ -171,6 +245,8 @@ if __name__ == "__main__":
     mesh = step.make_mesh(N_DEV)
     if sys.argv[4:] == ["points"]:
         out = {"points": execute_mock_mpc_dealer(points_program(inputs), mesh=mesh)}
+    elif sys.argv[4:] == ["small"]:
+        out = {"small": small_records(inputs, mesh)}
     else:
         out = {"step": step_refs(inputs, mesh),
                "fabric": execute_mock_mpc_dealer(

@@ -3,8 +3,11 @@
     python tests/_torch_mesh_prog.py N IN.pkl OUT.pkl
 
 spawns N gloo CPU ranks (`ark_mpc_tpu_torch.parallel.launch`) and runs every
-case below on each rank; each case's result, or its traceback, is kept by
-name, and the list of the ranks' results is written to OUT.pkl.  IN.pkl
+case below on each rank, in two launches (`GROUPS`: the point cases
+second), each within `LAUNCH_TIMEOUT`; each rank notes the case it is in,
+so a launch that times out names it.  Each case's result, or its
+traceback, is kept by name, and the list of the ranks' results is written
+to OUT.pkl.  IN.pkl
 holds the inputs the test made from numpy seeds: the sharded step's limb
 arrays, the mesh-fabric program's values (`tests/_mesh_fabric_prog.py`),
 and the values of the scalar operations' and point protocols' programs
@@ -16,6 +19,7 @@ JAX package and against the port's unsharded fabric.
 import os
 import pickle
 import sys
+import time
 import traceback
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -40,6 +44,7 @@ from ark_mpc_tpu_torch.fabric.simulator import execute_mock_mpc_dealer  # noqa: 
 from ark_mpc_tpu_torch.gadgets import prefix_product  # noqa: E402
 from ark_mpc_tpu_torch.models.circuits import inner_product, poly_eval, shared_matmul  # noqa: E402
 from ark_mpc_tpu_torch.parallel import launch  # noqa: E402
+from ark_mpc_tpu_torch.parallel.launch import note  # noqa: E402
 from ark_mpc_tpu_torch.parallel.step import (  # noqa: E402
     batch_sharding,
     beaver_mul_step,
@@ -199,9 +204,21 @@ def case_fold_default(mesh, inp):
     return execute_mock_mpc_dealer(prog, mesh=mesh)
 
 
+def single_value(fabric):
+    """Party 0 shares the single value 5 (0-d; party 1 passes n = 1), and
+    both open it as a one-element batch: -> (the opened ints, share limbs,
+    MAC limbs), which on a mesh are replicated."""
+    x = fabric.share_values(Scalar.from_ints(5, device=fabric.device)
+                            if fabric.party_id == 0 else None, sender=0, n=1)
+    opened = fabric.open_authenticated(x.reshape(1))
+    return opened.to_ints(), limbs(x.share), limbs(x.mac)
+
+
 def case_batch_rule(mesh, inp):
-    """A batch of one element a rank works; a batch that is no multiple of
-    the mesh size, or a single value, raises."""
+    """A batch of one element a rank works, and so does a single value
+    (replicated, as the reference keeps it); a batch larger than the mesh
+    that is no multiple of its size raises, as does an offline draw of
+    such a size."""
     vals = list(range(2, 2 + mesh.size))
 
     def aligned(fabric):
@@ -212,9 +229,7 @@ def case_batch_rule(mesh, inp):
     return {
         "aligned": execute_mock_mpc_dealer(aligned, mesh=mesh),
         "odd_sizes": raised(lambda f: share_in(f, vals + [1], 1), mesh),
-        "single_value": raised(
-            lambda f: f.share_values(Scalar.from_ints(5, device=f.device)
-                                     if f.party_id == 0 else None, sender=0, n=1), mesh),
+        "single_value": execute_mock_mpc_dealer(single_value, mesh=mesh),
         "passthrough": raised(lambda f: f.random_shared_scalars(mesh.size + 1), mesh),
     }
 
@@ -465,17 +480,129 @@ def case_prefix_product_refuses(mesh, inp):
     return execute_mock_mpc_dealer(prog, mesh=mesh)[0]
 
 
+def small_program(inp, n: int):
+    """A batch of n elements, smaller than a mesh of more than n ranks and
+    so replicated on it: both parties share n values, multiply them, sum
+    one and take their inner product, each opened (deferred) and checked;
+    with n = 1 also a one-point batch shared and opened.  -> {name:
+    (opened ints, share limbs, MAC limbs)} (points: (affine ints, share
+    coordinate limbs, MAC coordinate limbs)), gathered.
+    `_jax_mesh_ref.small_program` makes the same calls in the same order."""
+
+    def prog(fabric):
+        dev = fabric.device
+        x = share_in(fabric, inp["small_xs"][:n], 0)
+        y = share_in(fabric, inp["small_ys"][:n], 1)
+        res = {"share": x, "mul": fabric.mul(x, y), "sum": x.sum(),
+               "inner_product": inner_product(fabric, x, y)}
+        opened = {name: fabric.open_authenticated(v, defer=True) for name, v in res.items()}
+        if n == 1:
+            pub = CurvePoint.generator((1,), device=dev).mul(
+                Scalar.from_ints(inp["gs"][:1], device=dev))
+            sp = fabric.share_points(pub if fabric.party_id == 0 else None, sender=0, n=1)
+            sp_open = fabric.open_authenticated_points(sp, defer=True)
+        fabric.verify_deferred()
+        out = {}
+        for name, v in res.items():
+            v = whole(v, fabric)
+            out[name] = (whole(opened[name], fabric).to_ints(), limbs(v.share), limbs(v.mac))
+        if n == 1:
+            sp = whole(sp, fabric)
+            out["share_points"] = (affine_ints(whole(sp_open, fabric)), point_limbs(sp.share),
+                                   point_limbs(sp.mac))
+        return out
+
+    return prog
+
+
+def prefix_program(inp, n: int):
+    """prefix_product of a shared batch of n, eager and then traced, each
+    opened: -> {"eager" | "traced": (opened ints, share limbs, MAC limbs),
+    "traced_rounds": the traced circuit's rounds}, gathered.  On a mesh it
+    runs where n + 1 <= the mesh size.  `_jax_mesh_ref.prefix_program`
+    makes the same calls."""
+
+    def prog(fabric):
+        x = share_in(fabric, inp["small_xs"][:n], 0)
+        out = {}
+        eager = prefix_product(fabric, x)
+        out["eager"] = eager
+        opened = {"eager": fabric.open_authenticated(eager)}
+        before = fabric.n_rounds
+        tr = fabric.tracer()
+        handle = prefix_product(fabric, tr.wrap(x)).open()
+        (traced,) = tr.run(outputs=[handle.source])
+        out["traced_rounds"] = fabric.n_rounds - before
+        out["traced"], opened["traced"] = traced, handle.value
+        for name in ("eager", "traced"):
+            v = whole(out[name], fabric)
+            out[name] = (whole(opened[name], fabric).to_ints(), limbs(v.share), limbs(v.mac))
+        return out
+
+    return prog
+
+
+def case_small_one(mesh, inp):
+    """`small_program` at n = 1: replicated on every mesh."""
+    return execute_mock_mpc_dealer(small_program(inp, 1), mesh=mesh)
+
+
+def case_small_three(mesh, inp):
+    """`small_program` at n = 3: replicated on a mesh of more than 3 ranks;
+    on a smaller one, a batch that does not divide it: the error's
+    "TypeName: message" in both parties."""
+    if mesh.size > 3:
+        return execute_mock_mpc_dealer(small_program(inp, 3), mesh=mesh)
+    return raised(small_program(inp, 3), mesh)
+
+
+def prefix_sizes(size: int) -> tuple:
+    """The n `case_prefix_small` runs on a mesh of `size` ranks: 1 on two
+    ranks (held to Python ints), else 2 and 3 (held to the JAX package's
+    4-device mesh), where n + 1 <= size."""
+    return (1,) if size == 2 else tuple(n for n in (2, 3) if n < size)
+
+
+def case_prefix_small(mesh, inp):
+    """`prefix_program` at each of `prefix_sizes`: -> {n: both parties'
+    records}."""
+    return {n: execute_mock_mpc_dealer(prefix_program(inp, n), mesh=mesh)
+            for n in prefix_sizes(mesh.size)}
+
+
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}
+# the cases by launch, each launch with its own time limit: the point
+# protocols take most of the time (their curve arithmetic is launch-bound
+# plain torch on every rank)
+POINT_CASES = ("points", "point_cheat_one_rank_pair")
+GROUPS = (tuple(c for c in CASES if c not in POINT_CASES), POINT_CASES)
+LAUNCH_TIMEOUT = 210  # seconds a launch (and a collective) may take
 
 
-def run_cases(mesh, inp):
+def run_cases(mesh, inp, names=tuple(CASES)):
     out = {}
-    for name, fn in CASES.items():
+    for name in names:
+        note(f"case {name!r}")
         try:
-            out[name] = ("ok", fn(mesh, inp))
+            out[name] = ("ok", CASES[name](mesh, inp))
         except Exception:  # noqa: BLE001 - reported by name to the test
             out[name] = ("error", traceback.format_exc())
+    note(f"done with {len(names)} cases")
     return out
+
+
+def run_groups(n_ranks: int, inp) -> list:
+    """Every case on `n_ranks` gloo ranks, one launch a group of `GROUPS`;
+    -> each rank's {case: result}."""
+    ranks = [{} for _ in range(n_ranks)]
+    for k, names in enumerate(GROUPS):
+        t0 = time.monotonic()
+        for got, res in zip(ranks, launch(run_cases, n_ranks, inp, names, device="cpu",
+                                          timeout=LAUNCH_TIMEOUT)):
+            got.update(res)
+        print(f"launch {k + 1} of {len(GROUPS)} ({len(names)} cases): "
+              f"{time.monotonic() - t0:.1f} s of {LAUNCH_TIMEOUT}", flush=True)
+    return ranks
 
 
 def one_rank_step(mesh, inp):
@@ -510,17 +637,25 @@ def one_rank_ops(mesh, inp):
 
 
 def raise_on_rank_one(mesh):
-    """A rank body that fails on rank 1 while rank 0 waits in a collective."""
+    """A rank body that fails on rank 1 while rank 0 waits in a collective
+    (each rank notes its case first)."""
+    note(f"case 'raise_on_rank_one' on rank {mesh.rank}")
     if mesh.rank == 1:
         raise ValueError("rank 1 fails on purpose")
     torch.distributed.barrier(group=mesh.group)
+
+
+def stall(mesh):
+    """A rank body that notes its case and never finishes."""
+    note(f"case 'stall' on rank {mesh.rank}")
+    time.sleep(3600)
 
 
 if __name__ == "__main__":
     n_ranks, in_path, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     with open(in_path, "rb") as fh:
         inputs = pickle.load(fh)
-    results = launch(run_cases, n_ranks, inputs, device="cpu", timeout=180)
+    results = run_groups(n_ranks, inputs)
     with open(out_path, "wb") as fh:
         pickle.dump(results, fh)
     print(f"MESH_PROG_OK {n_ranks}")

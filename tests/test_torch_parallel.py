@@ -21,7 +21,12 @@ protocols are held to the port's unsharded fabric on the same inputs
 element-wise, projectively for sums; the JAX mesh's point program (minutes
 of XLA compilation; projectively, as the two packages' curve formulas
 leave different coordinates) and G1 at Fr are slow tests.  N = 8 is
-marked slow, as the reference's own 8-device mesh test is.
+marked slow, as the reference's own 8-device mesh test is.  Batches
+smaller than the mesh (1 and 3 elements, and `prefix_product` at n + 1 <=
+the mesh size) are held replicated, as the reference holds them: their
+draws are whole, so the JAX package's 4-device record holds them on every
+mesh where they are smaller than it (its small-batch programs run in a
+second JAX process beside the first).
 """
 
 import os
@@ -49,10 +54,13 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = SCALAR_FIELD.modulus
 # seconds: a stuck collective fails the test, never hangs it.  The JAX side
-# (~180 s alone from an empty compile cache) runs beside the two torch
-# meshes (~40 s each, one after the other), so with every subprocess timing
-# out the mesh tests end within JAX_TIMEOUT of the module's start.
-PROG_TIMEOUT = 200
+# (~200 s alone from an empty compile cache) and the two torch meshes (~45
+# and ~80 s alone) all start with the module, so with every subprocess
+# timing out the mesh tests end within JAX_TIMEOUT of the module's start.
+# A torch side is one launch a group of cases, each within its own
+# `mesh_prog.LAUNCH_TIMEOUT`, whose error names each rank's case; its own
+# limit leaves room for them all.
+PROG_TIMEOUT = len(mesh_prog.GROUPS) * mesh_prog.LAUNCH_TIMEOUT + 40
 JAX_TIMEOUT = 500
 JAX_DEVICES = 4
 FAST_XLA = "--xla_backend_optimization_level=0 --xla_llvm_disable_expensive_passes=true"
@@ -100,6 +108,9 @@ def make_inputs() -> dict:
     inp["xs"] = [prng.randrange(1, L) for _ in range(FABRIC_N)]
     inp["ys"] = [prng.randrange(1, L) for _ in range(FABRIC_N)]
     inp.update(mesh_prog.op_inputs(rng, FABRIC_N))
+    # the small-batch programs' values (batches of 1 and 3)
+    inp["small_xs"] = [prng.randrange(1, L) for _ in range(3)]
+    inp["small_ys"] = [prng.randrange(1, L) for _ in range(3)]
     return inp
 
 
@@ -157,14 +168,21 @@ class Side:
 
 class Sides:
     """The module's subprocesses: the JAX side on a JAX_DEVICES-device
-    mesh, started with the module, and one torch mesh a size, each started
-    when asked for or when the size before it has finished."""
+    mesh (two processes: the main programs, and the small-batch programs,
+    whose compilations would otherwise lengthen the first), and the torch
+    meshes of the fast tests (2 and 4 ranks), all started with the module,
+    and any other torch mesh when asked for."""
 
     def __init__(self, in_path, tmp):
         self.in_path, self.tmp = in_path, tmp
+        ok = f"JAX_MESH_REF_OK {JAX_DEVICES}"
         self.jax = Side(jax_mesh(JAX_DEVICES, in_path, tmp / "ref.pkl"), tmp / "ref.pkl",
-                        f"JAX_MESH_REF_OK {JAX_DEVICES}", JAX_TIMEOUT)
+                        ok, JAX_TIMEOUT)
+        self.jax_small = Side(jax_mesh(JAX_DEVICES, in_path, tmp / "small.pkl", "small"),
+                              tmp / "small.pkl", ok, JAX_TIMEOUT)
         self.torch = {}
+        for n_ranks in (2, 4):
+            self.torch_side(n_ranks)
 
     def torch_side(self, n_ranks: int) -> Side:
         if n_ranks not in self.torch:
@@ -173,8 +191,12 @@ class Sides:
                                        f"MESH_PROG_OK {n_ranks}", PROG_TIMEOUT)
         return self.torch[n_ranks]
 
+    def record(self) -> dict:
+        """The JAX package's whole record (both of its processes')."""
+        return {**self.jax.result(), **self.jax_small.result()}
+
     def stop(self) -> None:
-        for side in (self.jax, *self.torch.values()):
+        for side in (self.jax, self.jax_small, *self.torch.values()):
             side.stop()
 
 
@@ -187,17 +209,15 @@ def sides(inputs, tmp_path_factory):
 
 @pytest.fixture(scope="module", params=[
     2, 4, pytest.param(8, marks=pytest.mark.slow)], ids=lambda n: f"{n}ranks")
-def mesh_run(request, inputs, sides):
+def mesh_run(request, inputs, sides, unsharded_points):
     """-> (N, inputs, [rank r's {case: ("ok", result) | ("error", tb)}],
-    the JAX package's results on the same inputs).  The torch side runs in
-    a fresh interpreter while the JAX side computes, and the next mesh size
-    starts as soon as this one is done; a side that fails or hangs is
-    killed with its session."""
+    the JAX package's results on the same inputs).  Each torch side runs
+    in a fresh interpreter beside the JAX side; a side that fails or hangs
+    is killed with its session.  (`unsharded_points` is computed here,
+    while the subprocesses run, rather than after them.)"""
     n_ranks = request.param
     ranks = sides.torch_side(n_ranks).result()
-    if n_ranks == 2:
-        sides.torch_side(4)  # runs beside the rest of the JAX side
-    record = sides.jax.result()
+    record = sides.record()
     assert len(ranks) == n_ranks
     return n_ranks, inputs[0], ranks, record
 
@@ -305,26 +325,128 @@ def test_verify_deferred_does_not_fold_without_a_mesh():
 
 
 def test_batch_rule_on_a_mesh(mesh_run):
-    """Every global batch given to a mesh fabric is a multiple of the mesh
-    size: one element a rank works; any other size, a single value, or an
-    offline draw of another size raises `ValueError` naming the mesh."""
-    n_ranks, _, ranks, _ = mesh_run
+    """A global batch given to a mesh fabric that is at least as large as
+    the mesh is a multiple of its size: one element a rank works; a larger
+    batch of another size, or an offline draw of one, raises `ValueError`
+    naming the mesh.  A single value is held replicated, as the reference
+    holds it: its opened value and both parties' share and MAC limbs equal
+    the JAX package's."""
+    n_ranks, _, ranks, jax_ref = mesh_run
     want = [v * v % L for v in range(2, 2 + n_ranks)]
+    single = jax_ref["small"]["single_value"]
+    assert [opened for opened, _, _ in single] == [[5], [5]]
     for res in case(ranks, "batch_rule"):
         assert res["aligned"] == (want, want)
-        for key in ("odd_sizes", "single_value", "passthrough"):
+        for key in ("odd_sizes", "passthrough"):
             assert res[key].startswith("ValueError") and "mesh" in res[key], res[key]
+        for got, w in zip(res["single_value"], single):
+            assert got[0] == w[0]
+            np.testing.assert_array_equal(got[1], w[1])
+            np.testing.assert_array_equal(got[2], w[2])
 
 
 def test_prefix_product_still_refuses_on_a_mesh(mesh_run):
-    """The one operation the mesh fabric refuses, eager and traced: it
-    draws n + 1 inverse pairs, and the reference raises there too."""
+    """prefix_product of a batch of n >= the mesh size (here a shard of 2
+    elements a rank), eager and traced, raises `NotImplementedError`
+    naming the mesh and the reference lines that draw and place its n + 1
+    inverse pairs."""
     _, _, ranks, _ = mesh_run
     for res in case(ranks, "prefix_product_refuses"):
         assert len(res) == 2
         for msg in res:
             assert msg.startswith("NotImplementedError") and "mesh" in msg, msg
             assert "ark_mpc_tpu/gadgets/products.py:52" in msg, msg
+            assert "ark_mpc_tpu/fabric/context.py:151-156" in msg, msg
+
+
+SMALL_OPS = ("share", "mul", "sum", "inner_product")
+
+
+def assert_same_record(got, want, name):
+    (v, sh, mac), (wv, wsh, wmac) = got, want
+    assert v == wv, name
+    np.testing.assert_array_equal(sh, wsh)
+    np.testing.assert_array_equal(mac, wmac)
+
+
+@pytest.mark.parametrize("op", SMALL_OPS + ("share_points",))
+def test_one_element_batch_matches_the_jax_mesh(mesh_run, op):
+    """A batch of one element is held replicated on every mesh (nothing to
+    shard, as the reference's `_place` leaves it): the opened value and
+    both parties' share and MAC limbs equal the JAX package's on its
+    4-device mesh, on every rank and every mesh size (a replicated draw
+    does not depend on the mesh size).  The one-point batch's opened point
+    is the same and its share and MAC are equal projectively (the two
+    packages' curve formulas leave different projective coordinates)."""
+    _, inp, ranks, jax_ref = mesh_run
+    x, y = inp["small_xs"][0], inp["small_ys"][0]
+    want_ints = {"share": [x], "mul": [x * y % L], "sum": [x], "inner_product": [x * y % L]}
+    for parties in case(ranks, "small_one"):
+        for pid in (0, 1):
+            got, want = parties[pid][op], jax_ref["small"]["one"][pid][op]
+            if op != "share_points":
+                assert got[0] == want_ints[op]
+                assert_same_record(got, want, op)
+                continue
+            (opened, sh, mac), (w_opened, w_sh, w_mac) = got, want
+            assert opened == w_opened
+            for g, w in ((sh, w_sh), (mac, w_mac)):
+                assert g.shape == w.shape == (4, 16, 1)
+                assert bool(points_of(g).equals(points_of(w)).all())
+
+
+def test_three_element_batch_on_a_mesh(mesh_run):
+    """A batch of 3: on a mesh of more than 3 ranks it is replicated and
+    every result (share, mul, sum, inner product) equals the JAX package's
+    on its 4-device mesh bit for bit; on 2 ranks it is larger than the
+    mesh and does not divide it, and both packages raise `ValueError`
+    naming the mesh."""
+    n_ranks, inp, ranks, jax_ref = mesh_run
+    small = jax_ref["small"]
+    if n_ranks < 4:
+        assert small["three_on_2"].startswith("ValueError"), small["three_on_2"]
+        assert "2-device mesh" in small["three_on_2"], small["three_on_2"]
+        for msg in case(ranks, "small_three"):
+            assert msg.startswith("ValueError") and f"{n_ranks}-rank mesh" in msg, msg
+        return
+    xs, ys = inp["small_xs"], inp["small_ys"]
+    prod = [a * b % L for a, b in zip(xs, ys)]
+    want_ints = {"share": xs, "mul": prod, "sum": [sum(xs) % L],
+                 "inner_product": [sum(prod) % L]}
+    for parties in case(ranks, "small_three"):
+        for pid in (0, 1):
+            assert sorted(parties[pid]) == sorted(SMALL_OPS)
+            for op in SMALL_OPS:
+                assert parties[pid][op][0] == want_ints[op], op
+                assert_same_record(parties[pid][op], small["three"][pid][op], op)
+
+
+def test_prefix_product_on_a_batch_smaller_than_the_mesh(mesh_run):
+    """prefix_product runs on a mesh where its n + 1 inverse pairs fit it,
+    eager and traced: on 2 ranks at n = 1 the opens equal Python ints; on
+    4 ranks at n = 2 and n = 3 the opens, both parties' share and MAC limbs
+    and the traced circuit's rounds equal the JAX package's on its
+    4-device mesh."""
+    n_ranks, inp, ranks, jax_ref = mesh_run
+    xs = inp["small_xs"]
+    sizes = mesh_prog.prefix_sizes(n_ranks)
+    assert sizes == ((1,) if n_ranks == 2 else (2, 3))
+    for res in case(ranks, "prefix_small"):
+        assert sorted(res) == list(sizes)
+        for n in sizes:
+            want = [xs[0]]
+            for v in xs[1:n]:
+                want.append(want[-1] * v % L)
+            for pid in (0, 1):
+                got = res[n][pid]
+                for name in ("eager", "traced"):
+                    assert got[name][0] == want, (n, name)
+                    if n_ranks > 2:
+                        assert_same_record(got[name], jax_ref["small"]["prefix"][n][pid][name],
+                                           (n, name))
+                if n_ranks > 2:
+                    assert got["traced_rounds"] == \
+                        jax_ref["small"]["prefix"][n][pid]["traced_rounds"]
 
 
 OPS = ("sum", "sum_times_open", "sum_plus_open", "inner_product", "traced_sum",
@@ -535,8 +657,10 @@ def test_sharded_source_slices_the_global_draws():
     """Rank r of N keeps columns r n : (r + 1) n of the global draw of n N,
     with the same MAC key share on every rank; a matrix triple keeps the
     rank's rows of P and C and the whole Q, and a polynomial triple is
-    whole, both marked replicated where whole.  A matrix triple whose rows
-    do not divide the mesh raises `ValueError` naming it."""
+    whole, both marked replicated where whole.  A matrix triple with fewer
+    rows than the mesh is whole and replicated (the dealer's, as the
+    reference keeps it); one with more rows that do not divide the mesh
+    raises `ValueError` naming it."""
     n, size, (m, k, c) = 3, 4, (8, 3, 2)
     whole = TrustedDealerSource(1, seed=9, device="cpu")
     want = whole.next_triplet_batch(n * size) + (whole.next_shared_value_batch(n * size),)
@@ -562,8 +686,14 @@ def test_sharded_source_slices_the_global_draws():
             assert g.replicated
             assert torch.equal(g.share.limbs, w.share.limbs)
             assert torch.equal(g.mac.limbs, w.mac.limbs)
+    small = src.next_matrix_triplet(2, 2, 2)
+    want_small = whole.next_matrix_triplet(2, 2, 2)
+    for g, w in zip(small, want_small):
+        assert g.replicated
+        assert torch.equal(g.share.limbs, w.share.limbs)
+        assert torch.equal(g.mac.limbs, w.mac.limbs)
     with pytest.raises(ValueError, match="4-rank mesh"):
-        src.next_matrix_triplet(2, 2, 2)
+        src.next_matrix_triplet(6, 2, 2)
 
 
 def test_make_mesh_needs_a_process_group():
@@ -573,14 +703,30 @@ def test_make_mesh_needs_a_process_group():
 
 def test_launch_reports_a_failing_rank():
     """A rank that raises while another waits in a collective: the launch
-    raises with its traceback and stops every rank."""
-    with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+    raises with its traceback and each rank's last note, and stops every
+    rank."""
+    with pytest.raises(RuntimeError, match="rank 1 fails on purpose") as err:
         launch(mesh_prog.raise_on_rank_one, 2, device="cpu", timeout=120)
+    assert "rank 1: case 'raise_on_rank_one' on rank 1 (" in str(err.value)
+
+
+def test_launch_names_each_ranks_note_on_timeout():
+    """Ranks that do not finish: `TimeoutError` names the mesh and, one
+    line a rank, its last note (or that it made none yet), and every rank
+    is stopped."""
+    with pytest.raises(TimeoutError) as err:
+        launch(mesh_prog.stall, 2, device="cpu", timeout=6)
+    msg = str(err.value)
+    assert "the 2-rank mesh did not finish within 6 s; each rank's last note:" in msg, msg
+    for rank in (0, 1):
+        line = next(ln for ln in msg.splitlines() if ln.startswith(f"  rank {rank}: "))
+        assert (f"case 'stall' on rank {rank} (" in line
+                or "no note (not started, or no case begun)" in line), line
 
 
 def test_dryrun_two_ranks():
     """`python -m ark_mpc_tpu_torch.parallel --dryrun 2`: the sharded step,
     the traced mesh program and the sharded ct x pt on two gloo ranks."""
     out = finish(start([sys.executable, "-m", "ark_mpc_tpu_torch.parallel", "--dryrun", "2"]),
-                 "dryrun_multichip OK: 2 ranks (gloo)")
+                 "dryrun_multichip OK: 2 ranks (gloo)", timeout=200)
     assert "offline ct*pt stack sharded over 2 ranks OK" in out
