@@ -32,6 +32,7 @@ import torch
 
 from . import limbs as lb
 from .limbs import NLIMBS, FieldSpec
+from .placement import GlobalView
 from .scalar import FieldArray, _shape
 
 BN254_Q = 21888242871839275222246405745257275088696311157297823662689037894645226208583
@@ -153,7 +154,7 @@ def _add(X1, Y1, Z1, X2, Y2, Z2):
     return X3, Y3, Z3, H, dS
 
 
-class G1:
+class G1(GlobalView):
     """BN254 G1 point batch in Jacobian coordinates (X, Y, Z); the point at
     infinity is Z == 0, represented (1, 1, 0).
 
@@ -206,11 +207,11 @@ class G1:
         for c in self._coords():
             c.replicated = flag
 
-    def __getitem__(self, idx):
-        return G1(*(c[idx] for c in self._coords()))
+    def _take(self, idx):
+        return G1(*(c.local[idx] for c in self._coords()))
 
-    def reshape(self, *shape):
-        return G1(*(c.reshape(*shape) for c in self._coords()))
+    def _reshape(self, shape: tuple):
+        return G1(*(c._reshape(shape) for c in self._coords()))
 
     @classmethod
     def concatenate(cls, items, axis=0):
@@ -218,7 +219,7 @@ class G1:
                      for i in range(3)))
 
     def _slice(self, axis, start, stop):
-        return self[(slice(None),) * axis + (slice(start, stop),)]
+        return self.local[(slice(None),) * axis + (slice(start, stop),)]
 
     def _squeeze(self, axis):
         return G1(*(Fq(c.limbs.squeeze(axis + 1)) for c in self._coords()))

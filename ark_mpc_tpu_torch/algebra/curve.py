@@ -25,6 +25,7 @@ from ..ops import curve_kernels as ck
 from . import limbs as lb
 from .fields import ED25519_PRIME
 from .limbs import NLIMBS
+from .placement import GlobalView
 from .scalar import BaseFelt, Scalar
 
 P = ED25519_PRIME
@@ -59,7 +60,7 @@ def msm_route() -> str:
 
 
 @dataclass
-class CurvePoint:
+class CurvePoint(GlobalView):
     """Batch of Ed25519 points, extended coordinates (X, Y, Z, T), T=XY/Z."""
 
     X: BaseFelt
@@ -149,11 +150,11 @@ class CurvePoint:
     def broadcast_to(self, shape):
         return CurvePoint(*(c.broadcast_to(_shape(shape)) for c in self._coords()))
 
-    def __getitem__(self, idx):
-        return CurvePoint(*(c[idx] for c in self._coords()))
+    def _take(self, idx):
+        return CurvePoint(*(c.local[idx] for c in self._coords()))
 
-    def reshape(self, *shape):
-        return CurvePoint(*(c.reshape(*shape) for c in self._coords()))
+    def _reshape(self, shape: tuple):
+        return CurvePoint(*(c._reshape(shape) for c in self._coords()))
 
     @classmethod
     def concatenate(cls, items, axis=0):
@@ -230,7 +231,7 @@ class CurvePoint:
         return CurvePoint(*(_felt(c.limbs.squeeze(axis + 1)) for c in pt._coords()))
 
     def _slice(self, axis, start, stop):
-        return self[(slice(None),) * axis + (slice(start, stop),)]
+        return self.local[(slice(None),) * axis + (slice(start, stop),)]
 
     # -- conversion / comparison ------------------------------------------
     def to_affine(self):

@@ -32,12 +32,28 @@ an operand is one.  A fabric slices only an unmarked batch it is given
 whole (`share_public`): a shard is never cut again.
 
 The mesh of the fabric a thread runs (`MpcFabric` sets it) is what
-batch-axis reductions that take no fabric (`ScalarShare.sum`) reduce over.
+batch-axis reductions that take no fabric (`ScalarShare.sum`) reduce over,
+and what a shard's global view reads.
+
+The global view: on that mesh, `x[i]`, `x[-i]`, `x[a:b]` and `x[a:b:s]` of
+a shard select global positions, as indexing the reference's global array
+does (`global_item`: one all-gather over the party's ranks, the index, then
+the small-batch rule: a result with fewer elements than the mesh is
+replicated, one whose size the mesh divides is a shard, any other size
+raises `ValueError` naming the mesh).  Any other index of a shard raises
+`ValueError` naming the mesh.  `reshape` of a shard to a shape that fits
+the global batch but not the rank's elements is the global reshape
+(`global_reshape`).  `x.local[idx]` indexes the rank's own elements with no
+collective: what the fabric's internals mean by an index.  Off a mesh, and
+on a replicated or unmarked value, `x[idx]` and `x.local[idx]` agree.
 """
 
 from __future__ import annotations
 
+import math
 import threading
+
+import numpy as np
 
 _THREAD = threading.local()
 
@@ -104,3 +120,116 @@ def same_placement(items) -> bool:
         n = next(it.size for it in items if it.replicated)
         raise mixing_error("a concatenation", n)
     return flags.pop()
+
+
+class LocalView:
+    """`x.local[idx]`: x's own elements at positions `idx` of the rank's
+    tensor, with no collective (the index before the global view)."""
+
+    __slots__ = ("_x",)
+
+    def __init__(self, x):
+        self._x = x
+
+    def __getitem__(self, idx):
+        return self._x._take(idx)
+
+
+class GlobalView:
+    """Indexing and `reshape` through the global view (module docstring)
+    for field arrays, point batches and their shares, which define the
+    rank-local forms `_take(idx)` and `_reshape(shape)`."""
+
+    __slots__ = ()
+
+    def __getitem__(self, idx):
+        return global_item(self, idx)
+
+    @property
+    def local(self) -> LocalView:
+        return LocalView(self)
+
+    def reshape(self, *shape):
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return global_reshape(self, shape)
+
+
+def shard_mesh(x):
+    """This thread's mesh where x is a shard on it (marked a shard, with a
+    batch axis), else None."""
+    mesh = thread_mesh()
+    if mesh is None or x.replicated is not False or not x.shape:
+        return None
+    return mesh
+
+
+def _place_selection(whole, mesh, what: str):
+    """A global value selected from a shard, placed by the small-batch
+    rule (`parallel.step.shard`), or `ValueError` naming the mesh where
+    its size neither is below the mesh size nor a multiple of it."""
+    from ..parallel.step import shard, small
+
+    n = whole.shape[0] if whole.shape else 1
+    if whole.shape and not small(mesh, n) and n % mesh.size:
+        unit = "elements" if len(whole.shape) == 1 else "rows"
+        raise ValueError(
+            f"{what} of a shard of the {mesh.size}-rank mesh gives {n} {unit}, "
+            f"which is neither fewer than the mesh size (held replicated) nor a "
+            f"multiple of it (sharded); gather the shard first "
+            f"(`parallel.step.gather`) to hold the result whole")
+    return shard(whole, mesh)
+
+
+def global_item(x, idx):
+    """x[idx], on a shard the global batch's positions: an integer (also
+    negative) or a slice of the batch axis; -> the selection, placed by the
+    small-batch rule.  Every rank of the party calls it alike (one
+    all-gather).  Off a shard, `x.local[idx]`."""
+    mesh = shard_mesh(x)
+    if mesh is None:
+        return x._take(idx)
+    if not (isinstance(idx, slice) or (isinstance(idx, (int, np.integer))
+                                       and not isinstance(idx, (bool, np.bool_)))):
+        raise ValueError(
+            f"index {idx!r} of a shard of the {mesh.size}-rank mesh: a shard takes "
+            f"an integer or a slice of its batch axis (global positions); gather "
+            f"it first (`parallel.step.gather`), or take the rank's own elements "
+            f"with `.local[...]`")
+    from ..parallel.step import gather
+
+    return _place_selection(gather(x, mesh)._take(idx), mesh, f"index {idx!r}")
+
+
+def _resolve(shape: tuple, n: int):
+    """`shape` with its -1 resolved for n elements, or None where it does
+    not fit them."""
+    known = math.prod(d for d in shape if d != -1)
+    if -1 in shape:
+        if known == 0 or n % known:
+            return None
+        return tuple(n // known if d == -1 else d for d in shape)
+    return shape if known == n else None
+
+
+def global_reshape(x, shape: tuple):
+    """x.reshape(*shape): the rank's elements where `shape` fits them (the
+    rank's rows of the global shape), else, on a shard whose global batch
+    it fits, the global reshape: a shape whose rows the mesh size divides
+    is the rank's rows of it (its chunk of the row-major batch, no
+    collective); any other is gathered, reshaped and placed by the
+    small-batch rule (fewer rows than the mesh: replicated; else
+    `ValueError` naming the mesh)."""
+    mesh = shard_mesh(x)
+    if mesh is None or _resolve(shape, x.size) is not None:
+        return x._reshape(shape)
+    full = _resolve(shape, x.size * mesh.size)
+    if full is None or not full:
+        return x._reshape(shape)  # fits neither: the local error
+    rows = full[0]
+    if rows >= mesh.size and rows % mesh.size == 0:
+        return x._reshape((rows // mesh.size,) + full[1:])
+    from ..parallel.step import gather
+
+    return _place_selection(gather(x, mesh)._reshape(full), mesh,
+                            f"reshape to {full}")

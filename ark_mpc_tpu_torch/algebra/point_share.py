@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .curve import CurvePoint
-from .placement import placement, same_placement, thread_mesh, with_public
+from .placement import GlobalView, placement, same_placement, thread_mesh, with_public
 from .scalar import Scalar
 from .share import PARTY0
 
@@ -38,11 +38,11 @@ def _mul_both(points, scalars):
     scs = type(scalars[0]).concatenate(
         [s.broadcast_to(shape).reshape(n) for s in scalars])
     out = pts.mul(scs)
-    return [out[i * n:(i + 1) * n].reshape(*shape) for i in range(len(points))]
+    return [out.local[i * n:(i + 1) * n].reshape(*shape) for i in range(len(points))]
 
 
 @dataclass
-class PointShare:
+class PointShare(GlobalView):
     """Additive share + MAC share of a batch of curve points; `replicated`
     as for `ScalarShare`."""
 
@@ -97,11 +97,11 @@ class PointShare:
     def sub_public(self, rhs: CurvePoint, mac_key: Scalar, party_id: int):
         return self.add_public(-rhs, mac_key, party_id)
 
-    def __getitem__(self, idx):
-        return PointShare(self.share[idx], self.mac[idx], self.replicated)
+    def _take(self, idx):
+        return PointShare(self.share.local[idx], self.mac.local[idx], self.replicated)
 
-    def reshape(self, *shape):
-        return PointShare(self.share.reshape(*shape), self.mac.reshape(*shape),
+    def _reshape(self, shape: tuple):
+        return PointShare(self.share._reshape(shape), self.mac._reshape(shape),
                           self.replicated)
 
     def sum(self, axis=0):

@@ -16,6 +16,7 @@ from ..device import resolve_device
 from . import limbs as lb
 from .fields import BASE_FIELD, SCALAR_FIELD
 from .limbs import NLIMBS
+from .placement import GlobalView
 
 
 _KEEP = object()  # `_like`: keep the operand's placement
@@ -25,7 +26,7 @@ def _shape(shape) -> tuple:
     return (shape,) if isinstance(shape, int) else tuple(shape)
 
 
-class FieldArray:
+class FieldArray(GlobalView):
     """An array of elements of one prime field (Montgomery-form limbs)."""
 
     spec = None  # set by subclass
@@ -106,12 +107,10 @@ class FieldArray:
             out.replicated = flag
         return out
 
-    def reshape(self, *shape):
-        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
-            shape = tuple(shape[0])
+    def _reshape(self, shape: tuple):
         return self._like(self.limbs.reshape((NLIMBS,) + shape))
 
-    def __getitem__(self, idx):
+    def _take(self, idx):
         if not isinstance(idx, tuple):
             idx = (idx,)
         return self._like(self.limbs[(slice(None),) + idx])

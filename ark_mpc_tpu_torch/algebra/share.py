@@ -20,7 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .placement import placement, same_placement, thread_mesh, with_public
+from .placement import GlobalView, placement, same_placement, thread_mesh, with_public
 from .scalar import FieldArray, Scalar
 
 PARTY0 = 0
@@ -28,7 +28,7 @@ PARTY1 = 1
 
 
 @dataclass
-class ScalarShare:
+class ScalarShare(GlobalView):
     """Additive share + SPDZ MAC share of a batch of field elements.
 
     Generic over the share field: the contained `FieldArray` subclass
@@ -109,11 +109,11 @@ class ScalarShare:
         return ScalarShare(lhs @ self.share, lhs @ self.mac, lhs.replicated)
 
     # -- batch structure ---------------------------------------------------
-    def __getitem__(self, idx):
-        return ScalarShare(self.share[idx], self.mac[idx], self.replicated)
+    def _take(self, idx):
+        return ScalarShare(self.share.local[idx], self.mac.local[idx], self.replicated)
 
-    def reshape(self, *shape):
-        return ScalarShare(self.share.reshape(*shape), self.mac.reshape(*shape),
+    def _reshape(self, shape: tuple):
+        return ScalarShare(self.share._reshape(shape), self.mac._reshape(shape),
                            self.replicated)
 
     @classmethod

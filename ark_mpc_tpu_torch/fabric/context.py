@@ -401,7 +401,7 @@ class MpcFabric:
                                              (y.reshape(n) - b).share])
             (theirs,) = self._exchange_arrays([_wire(masked)])
             opened = masked + self._from_wire(theirs, (2 * n,))
-            d, e = opened[:n], opened[n:]
+            d, e = opened.local[:n], opened.local[n:]
             return self._beaver_combine_dispatch(a, b, c, d, e, rep).reshape(*shape)
 
     def _beaver_combine_dispatch(self, a, b, c, d, e, replicated=False) -> ScalarShare:
@@ -454,7 +454,7 @@ class MpcFabric:
                         ScalarShare.concatenate([result, base]),
                         ScalarShare.concatenate([base, base]),
                     )
-                    result, base = both[:n], both[n:]
+                    result, base = both.local[:n], both.local[n:]
                     e >>= 1
                     continue
                 else:

@@ -104,8 +104,7 @@ def share_points(fabric, points=None, sender: int = 0,
         if points is None:
             raise ValueError("the sender must pass its points")
         if fabric.mesh is not None:
-            points = type(points)(*(shard(c, fabric.mesh)
-                                    for c in points.reshape(points.size)._coords()))
+            points = shard(points.reshape(points.size), fabric.mesh)
         n = points.size
         mask, mask_share = fabric._draw("next_local_input_mask_batch", n,
                                         bool(points.replicated))
@@ -132,7 +131,7 @@ def share_public_points(fabric, points) -> PointShare:
     On a mesh an unmarked batch is the global one and each rank keeps its
     slice (a replicated batch or a shard stays as it is)."""
     if fabric.mesh is not None and points.shape and points.replicated is None:
-        points = type(points)(*(shard(c, fabric.mesh) for c in points._coords()))
+        points = shard(points, fabric.mesh)
     return PointShare.identity(points.shape, curve=type(points), device=fabric.device,
                                replicated=points.replicated).add_public(
         points, fabric.mac_key, fabric.party_id)

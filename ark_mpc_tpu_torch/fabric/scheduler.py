@@ -663,7 +663,7 @@ def _split(result, items: list, idx: list, out: list) -> None:
     off = 0
     for i in idx:
         k = items[i].size
-        out[i] = result[off: off + k]
+        out[i] = result.local[off: off + k]
         off += k
 
 

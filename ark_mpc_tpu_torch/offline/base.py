@@ -25,7 +25,7 @@ from ..algebra.placement import mark
 from ..algebra.scalar import Scalar
 from ..algebra.share import ScalarShare
 from ..device import resolve_device
-from ..parallel.step import batch_sharding, shard, shard_share, small
+from ..parallel.step import shard, small
 
 
 class PreprocessingPhase:
@@ -269,7 +269,7 @@ class ShardedSource(PreprocessingPhase):
 
     def _keep(self, x):
         """The rank's columns of a global batch (Scalar or ScalarShare)."""
-        return shard_share(x, self.mesh) if isinstance(x, ScalarShare) else shard(x, self.mesh)
+        return shard(x, self.mesh)
 
     def draw_whole(self, method: str, *args):
         """The wrapped source's `method(*args)` as it is, every share (and
@@ -310,9 +310,8 @@ class ShardedSource(PreprocessingPhase):
         naming the mesh)."""
         if small(self.mesh, m):
             return self.draw_whole("next_matrix_triplet", m, k, n)
-        rows = batch_sharding(self.mesh, m)
         p, q, c = self.inner.next_matrix_triplet(m, k, n)
-        return p[rows], mark(q), c[rows]
+        return self._keep(p), mark(q), self._keep(c)
 
     def next_poly_triplet(self, da: int, db: int):
         """The whole triple, replicated: shared polynomials are whole on

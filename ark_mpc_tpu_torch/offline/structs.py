@@ -65,8 +65,8 @@ class _Store:
                 need -= size
             else:
                 for i, s in enumerate(batch):
-                    taken[i].append(s[:need])
-                self.items.insert(0, tuple(s[need:] for s in batch))
+                    taken[i].append(s.local[:need])
+                self.items.insert(0, tuple(s.local[need:] for s in batch))
                 need = 0
         out = tuple(ScalarShare.concatenate(parts) if len(parts) > 1 else parts[0]
                     for parts in taken)
@@ -118,8 +118,8 @@ class LowGearPrep(PreprocessingPhase):
                 taken.append(batch)
                 need -= batch.size
             else:
-                taken.append(batch[:need])
-                self.my_masks_clear.insert(0, batch[need:])
+                taken.append(batch.local[:need])
+                self.my_masks_clear.insert(0, batch.local[need:])
                 need = 0
         clear = taken[0] if len(taken) == 1 else Scalar.concatenate(taken)
         return clear, self.my_mask_shares.take(n)

@@ -140,10 +140,16 @@ def batch_sharding(mesh: Mesh, n: int) -> slice:
     return slice(mesh.rank * k, (mesh.rank + 1) * k)
 
 
-def shard(x: FieldArray, mesh: Mesh) -> FieldArray:
+def shard(x, mesh: Mesh):
     """The rank's shard of a global batch (leading axis), on its device,
     marked a shard; a single element or a batch smaller than the mesh
-    (`small`) comes back whole, marked replicated."""
+    (`small`) comes back whole, marked replicated.  Takes field arrays,
+    point batches and their shares (share and MAC alike)."""
+    if isinstance(x, (ScalarShare, PointShare)):
+        sh = shard(x.share, mesh)
+        return type(x)(sh, shard(x.mac, mesh), sh.replicated)
+    if not isinstance(x, FieldArray):  # a point batch: each coordinate
+        return type(x)(*(shard(c, mesh) for c in x._coords()))
     if not x.shape or small(mesh, x.shape[0]):
         return mark(type(x)(x.limbs.to(mesh.device)))
     cols = batch_sharding(mesh, x.shape[0])
@@ -151,10 +157,8 @@ def shard(x: FieldArray, mesh: Mesh) -> FieldArray:
 
 
 def shard_share(share: ScalarShare, mesh: Mesh) -> ScalarShare:
-    """The rank's columns of a (16, n) share and its MAC (whole and
-    replicated where `shard` keeps a value whole)."""
-    sh, mac = shard(share.share, mesh), shard(share.mac, mesh)
-    return ScalarShare(sh, mac, sh.replicated)
+    """`shard` of a share: the rank's columns of its (16, n) share and MAC."""
+    return shard(share, mesh)
 
 
 def replicate(x: FieldArray, mesh: Mesh) -> FieldArray:
@@ -178,10 +182,14 @@ def gather(x, mesh: Mesh):
     calls it alike).  Takes field arrays, curve points and their shares."""
     if x.replicated or not x.shape:
         return x
-    if isinstance(x, ScalarShare):
-        return ScalarShare(gather(x.share, mesh), gather(x.mac, mesh), True)
-    if isinstance(x, PointShare):
-        return PointShare(gather(x.share, mesh), gather(x.mac, mesh), True)
+    if isinstance(x, (ScalarShare, PointShare)):  # the share's mark rules
+        return type(x)(_whole(x.share, mesh), _whole(x.mac, mesh), True)
+    return _whole(x, mesh)
+
+
+def _whole(x, mesh: Mesh):
+    """The global batch of a shard's field array or point batch, marked
+    replicated."""
     if isinstance(x, FieldArray):
         return mark(type(x)(torch.cat(_all_gather(x.limbs, mesh), dim=1)))
     coords = torch.stack([c.limbs for c in x._coords()])  # a point batch

@@ -2479,6 +2479,119 @@ def mesh_small_vs_unsharded(dev, size: int, mesh_res) -> float:
     return secs
 
 
+VIEW_N = 1 << 12            # the global view's scalar batch ...
+VIEW_POINTS = 64           # ... and its point batch
+VIEW_INDICES = (("0", 0), ("-1", -1), ("1:3", slice(1, 3)), ("::2", slice(None, None, 2)))
+VIEW_SHAPES = ((1, 2, 1), (2, 2, 4), (1, 3, 1))  # shared_matmul's (m, k, n)
+
+
+def view_shapes(size: int) -> tuple:
+    """`VIEW_SHAPES` a mesh of `size` ranks takes: (1, 3, 1)'s 3-element
+    operand is refused by a mesh of 2 or 3 ranks (in the reference too)."""
+    return tuple(s for s in VIEW_SHAPES if not 1 < size <= 3 or s != (1, 3, 1))
+
+
+def view_inputs() -> dict:
+    rng = random.Random(19)
+    return {"xs": [rng.randrange(L) for _ in range(VIEW_N)],
+            "gs": [rng.randrange(1, L) for _ in range(VIEW_POINTS)],
+            "a": [rng.randrange(L) for _ in range(6)], "b": [rng.randrange(L) for _ in range(8)]}
+
+
+def mesh_view_program(size: int, inp: dict):
+    """The global view, with or without a mesh of `size` ranks: `VIEW_INDICES`
+    of a shared batch, of its opened value and of a shared point batch, and
+    `shared_matmul` at each of `view_shapes(size)` (operands reshaped to
+    their global shapes), each share opened (deferred) and checked.
+    -> {name: (opened ints or affine points, [the gathered share and MAC
+    limb tensors])} and {name: the opened value's selection as ints}."""
+
+    def prog(fabric):
+        dev, pid = fabric.device, fabric.party_id
+
+        def share(vals, sender):
+            return fabric.share_values(Scalar.from_ints(vals, device=dev) if pid == sender
+                                       else None, sender=sender, n=len(vals))
+
+        x = share(inp["xs"], 0)
+        x_open = fabric.open(x)
+        pub = CurvePoint.generator((VIEW_POINTS,), device=dev).mul(
+            Scalar.from_ints(inp["gs"], device=dev))
+        sp = fabric.share_points(pub if pid == 0 else None, sender=0, n=VIEW_POINTS)
+        res = {f"x[{name}]": x[idx] for name, idx in VIEW_INDICES}
+        pts = {f"points[{name}]": sp[idx] for name, idx in VIEW_INDICES}
+        publics = {name: whole(x_open[idx], fabric).to_ints() for name, idx in VIEW_INDICES}
+        for m, k, n in view_shapes(size):
+            a = share(inp["a"][:m * k], 0).reshape(m, k)
+            b = share(inp["b"][:k * n], 1).reshape(k, n)
+            res[f"matmul {m}x{k}@{k}x{n}"] = shared_matmul(fabric, a, b)
+        opened = {name: fabric.open_authenticated(v, defer=True) for name, v in res.items()}
+        opened.update({name: fabric.open_authenticated_points(v, defer=True)
+                       for name, v in pts.items()})
+        fabric.verify_deferred()
+        out = {}
+        for name, v in {**res, **pts}.items():
+            v, o = whole(v, fabric), whole(opened[name], fabric)
+            if name in pts:
+                out[name] = (affine(o.reshape(o.size)),
+                             [c.limbs for c in v.share._coords() + v.mac._coords()])
+            else:
+                out[name] = (o.to_ints(), [v.share.limbs, v.mac.limbs])
+        return out, publics
+
+    return prog
+
+
+def view_want(size: int, inp: dict) -> tuple[dict, dict]:
+    """The global view program's opens as Python ints."""
+    xs = inp["xs"]
+    sel = {name: xs[idx] if isinstance(idx, slice) else [xs[idx]] for name, idx in VIEW_INDICES}
+    want = {f"x[{name}]": v for name, v in sel.items()}
+    for name, idx in VIEW_INDICES:
+        gs = inp["gs"][idx] if isinstance(idx, slice) else [inp["gs"][idx]]
+        want[f"points[{name}]"] = [ed_mul(g) for g in gs]
+    for m, k, n in view_shapes(size):
+        a, b = inp["a"][:m * k], inp["b"][:k * n]
+        want[f"matmul {m}x{k}@{k}x{n}"] = [sum(a[i * k + j] * b[j * n + c] for j in range(k)) % L
+                                           for i in range(m) for c in range(n)]
+    return want, sel
+
+
+def mesh_view(mesh) -> tuple[dict, tuple]:
+    """The global view program on the mesh, its opens against Python ints;
+    -> its host seconds, and both parties' records for `mesh_view_vs_unsharded`."""
+    inp = view_inputs()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = execute_mock_mpc_dealer(mesh_view_program(mesh.size, inp), seed=19, mesh=mesh)
+    secs = synced_s(t0)
+    want, sel = view_want(mesh.size, inp)
+    for r, publics in res:
+        got = {name: v[0] for name, v in r.items()}
+        check(got == want, "the mesh's global view program differs from Python ints: "
+              f"{sorted(k for k in want if got.get(k) != want[k])}")
+        check(publics == sel, "the mesh's selections of an opened value differ from Python ints")
+    return {"n": VIEW_N, "points": VIEW_POINTS, "shapes": view_shapes(mesh.size),
+            "host_s": secs}, (inp, res)
+
+
+def mesh_view_vs_unsharded(dev, size: int, inp: dict, mesh_res) -> float:
+    """The global view program on the unsharded fabric on this card: every
+    open equal and every gathered share and MAC limb equal bit for bit;
+    -> its host seconds."""
+    t0 = time.time()
+    plain = execute_mock_mpc_dealer(mesh_view_program(size, inp), seed=19, device=dev)
+    secs = synced_s(t0)
+    for (got, got_pub), (want, want_pub) in zip(mesh_res, plain):
+        check(sorted(got) == sorted(want) and got_pub == want_pub,
+              "the global view programs' records differ")
+        for name in want:
+            check(got[name][0] == want[name][0]
+                  and all(torch.equal(u, v) for u, v in zip(got[name][1], want[name][1])),
+                  f"the mesh's {name} differs from the unsharded fabric's")
+    return secs
+
+
 def mesh_ops(mesh) -> tuple[dict, tuple]:
     """The operations slice G gave the mesh, at the unsharded phases'
     sizes, each against Python ints; -> their numbers, and the point
@@ -2564,11 +2677,18 @@ def mesh_rank(mesh, phase4_vals) -> dict:
     out["ops"], (prog, points) = mesh_ops(mesh)
     out["small"], small = mesh_small(mesh)
     torch.cuda.synchronize()
+    before = {**fk.launch_counts(), **mk.launch_counts()}
+    out["view"], (view_inp, view) = mesh_view(mesh)
+    torch.cuda.synchronize()
     out["launches"] = {**fk.launch_counts(), **mk.launch_counts()}
+    out["view"]["launches"] = {k: v - before[k] for k, v in out["launches"].items()
+                               if v != before[k]}
     if mesh.rank == 0:
         out["ops"]["points_2^16_unsharded_party0_s"] = mesh_points_vs_unsharded(
             mesh.device, prog, points)
         out["small"]["unsharded_host_s"] = mesh_small_vs_unsharded(mesh.device, mesh.size, small)
+        out["view"]["unsharded_host_s"] = mesh_view_vs_unsharded(
+            mesh.device, mesh.size, view_inp, view)
     return out
 
 
@@ -2634,6 +2754,15 @@ def phase_mesh(dev, fabric_ref, mats: dict) -> dict:
         log("[17 mesh] the small-batch branch (a batch smaller than the mesh held replicated, "
             "prefix_product at n = size - 1) needs >= 2 cards: on this one-card host every "
             "batch is the one rank's shard")
+    vw = out["view"]
+    keys = sorted({k for r in ranks for k in r["view"]["launches"]})
+    view_launches = {k: sum(r["view"]["launches"].get(k, 0) for r in ranks) for k in keys}
+    log(f"[17 mesh] global view: x[0], x[-1], x[1:3], x[::2] of a shared batch of {vw['n']}, "
+        f"of its opened value and of {vw['points']} shared points, and shared_matmul at "
+        f"{', '.join(f'({m}, {k}) @ ({k}, {n})' for m, k, n in vw['shapes'])}: opens equal "
+        f"Python ints, gathered shares and MACs equal the unsharded fabric's bit for bit "
+        f"({vw['host_s']:.2f} s on the mesh, {vw['unsharded_host_s']:.2f} s unsharded, host "
+        f"time); launches it adds (all ranks): {view_launches}")
     return out
 
 

@@ -1,6 +1,6 @@
 """Subprocess body for the JAX side of the port's mesh tests.
 
-    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [points | small]
+    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [points | small | view]
 
 reads the inputs `test_torch_parallel.py` made (`_torch_mesh_prog.py`'s
 IN.pkl) and writes what the JAX package computes from them on an N-device
@@ -11,9 +11,11 @@ beside the unsharded `beaver_mul_step` + `mac_check_fold`,
 honest program and the scalar operations' program (`ops_program`, the
 calls of `_torch_mesh_prog.ops_program` in the same order), each through
 `execute_mock_mpc_dealer(..., mesh=)`.  With `points` it runs the point
-protocols' program (`_torch_mesh_prog.points_program`) alone, and with
-`small` the small-batch programs (batches smaller than the mesh,
-`small_records`) alone.  It runs in
+protocols' program (`_torch_mesh_prog.points_program`, its two halves)
+and the index program with its point batch alone, with `small` the
+small-batch programs (batches smaller than the mesh, `small_records`)
+alone, and with `view` the global view's programs (indexing a shard and
+`shared_matmul` at the reference's shapes, `global_view_records`) alone.  It runs in
 a process of its own so that the XLA compilations (a few GiB) do not stay
 in the test worker.
 """
@@ -37,6 +39,7 @@ import numpy as np  # noqa: E402
 import ark_mpc_tpu as ref  # noqa: E402
 from ark_mpc_tpu.algebra import poly  # noqa: E402
 from ark_mpc_tpu.algebra.curve import CurvePoint  # noqa: E402
+from ark_mpc_tpu.algebra.point_share import PointShare  # noqa: E402
 from ark_mpc_tpu.fabric import points  # noqa: E402
 from ark_mpc_tpu.fabric.simulator import execute_mock_mpc_dealer  # noqa: E402
 from ark_mpc_tpu.gadgets import prefix_product  # noqa: E402
@@ -183,6 +186,90 @@ def prefix_program(inp, n):
     return prog
 
 
+INDICES = (("0", 0), ("-1", -1), ("1:3", slice(1, 3)), ("::2", slice(None, None, 2)))
+MATMUL_SHAPES = ((1, 2, 1), (2, 2, 4), (1, 3, 1))  # as `_torch_mesh_prog.py`'s
+
+
+def affine_ints(pt) -> list:
+    x, y = pt.to_affine()
+    return [x.to_ints(), y.to_ints()]
+
+
+def index_program(inp, with_points: bool = False):
+    """`_torch_mesh_prog.index_program`'s calls in the same order, on
+    global arrays (the placements and refusals are the port's alone), but
+    the selections of the shared batch open as one concatenation (opens
+    draw nothing, so the limbs are the same; fewer XLA compilations); the
+    point batch's only `with_points` (minutes of XLA compilation: the
+    `points` mode's)."""
+
+    def prog(fabric):
+        n = len(inp["xs"])
+        x = share_in(fabric, inp["xs"], 0)
+        x_open = fabric.open(x)
+        shares = {name: x[idx] for name, idx in INDICES}
+        opens = {name: x_open[idx] for name, idx in INDICES}
+        cat = ref.ScalarShare.concatenate([v.reshape(v.size) for v in shares.values()])
+        opened_cat = fabric.open_authenticated(cat, defer=True)
+        if with_points:
+            pub = CurvePoint.generator((n,)).mul(ref.Scalar.from_ints(inp["gs"]))
+            sp = fabric.share_points(pub if fabric.party_id == 0 else None, sender=0, n=n)
+            points = {name: sp[idx] for name, idx in INDICES}
+            flat = [v.reshape(v.size) for v in points.values()]
+            p_opened = fabric.open_authenticated_points(PointShare.concatenate(flat),
+                                                        defer=True)
+        fabric.verify_deferred()
+        out = {"share": {}, "points": {}, "open": {}}
+        xs, ys = affine_ints(p_opened) if with_points else ([], [])
+        values, at = opened_cat.to_ints(), 0
+        for name, v in shares.items():
+            k = v.size
+            out["share"][name] = (values[at:at + k], limbs(v.share), limbs(v.mac))
+            out["open"][name] = opens[name].to_ints()
+            if with_points:
+                p = points[name]
+                out["points"][name] = ([xs[at:at + k], ys[at:at + k]], point_limbs(p.share),
+                                       point_limbs(p.mac))
+            at += k
+        return out
+
+    return prog
+
+
+def matmul_program(inp, shape):
+    """`_torch_mesh_prog.matmul_program`'s calls (but the placement)."""
+    m, k, n = shape
+
+    def prog(fabric):
+        a = share_in(fabric, inp["mat_a"][:m * k], 0).reshape(m, k)
+        b = share_in(fabric, inp["mat_b"][:k * n], 1).reshape(k, n)
+        c = shared_matmul(fabric, a, b)
+        opened = fabric.open_authenticated(c, defer=True)
+        fabric.verify_deferred()
+        return opened.to_ints(), limbs(c.share), limbs(c.mac)
+
+    return prog
+
+
+def raised(prog, mesh) -> str:
+    """-> "TypeName: message" of what `prog` raised on `mesh`."""
+    try:
+        execute_mock_mpc_dealer(prog, mesh=mesh)
+    except Exception as err:  # noqa: BLE001 - the test reads the type and text
+        return f"{type(err).__name__}: {err}"
+    return "no error"
+
+
+def global_view_records(inputs, mesh) -> dict:
+    """The global view's programs on `mesh` (`_torch_mesh_prog`'s
+    `case_index` and `case_matmul_shapes`), and what a 2-device mesh makes
+    of (1, 3) @ (3, 1): the error's "TypeName: message"."""
+    return {"index": execute_mock_mpc_dealer(index_program(inputs), mesh=mesh),
+            "matmul": {s: execute_mock_mpc_dealer(matmul_program(inputs, s), mesh=mesh)
+                       for s in MATMUL_SHAPES},
+            "matmul_131_on_2": raised(matmul_program(inputs, (1, 3, 1)), step.make_mesh(2))}
+
+
 def single_value(fabric):
     """`_torch_mesh_prog.single_value`."""
     x = fabric.share_values(ref.Scalar.from_ints(5) if fabric.party_id == 0 else None,
@@ -201,11 +288,7 @@ def small_records(inputs, mesh) -> dict:
            "prefix": {n: execute_mock_mpc_dealer(prefix_program(inputs, n), mesh=mesh)
                       for n in (2, 3)},
            "single_value": execute_mock_mpc_dealer(single_value, mesh=mesh)}
-    try:
-        execute_mock_mpc_dealer(small_program(inputs, 3), mesh=step.make_mesh(2))
-        out["three_on_2"] = "no error"
-    except Exception as err:  # noqa: BLE001 - the test reads the type and text
-        out["three_on_2"] = f"{type(err).__name__}: {err}"
+    out["three_on_2"] = raised(small_program(inputs, 3), step.make_mesh(2))
     return out
 
 
@@ -213,8 +296,9 @@ def point_limbs(pt) -> np.ndarray:
     return np.stack([limbs(c) for c in (pt.X, pt.Y, pt.Z, pt.T)])
 
 
-def points_program(inp):
-    """`_torch_mesh_prog.points_program`'s calls in the same order."""
+def points_program(inp, part=None):
+    """`_torch_mesh_prog.points_program`'s calls in the same order (but the
+    port's own share_public_points)."""
     gs, ks = inp["gs"], inp["ks"]
 
     def prog(fabric):
@@ -222,11 +306,14 @@ def points_program(inp):
         pub = CurvePoint.generator((n,)).mul(ref.Scalar.from_ints(gs))
         sp = fabric.share_points(pub if fabric.party_id == 0 else None, sender=0, n=n)
         sk = share_in(fabric, ks, 1)
-        res = {"share_points": sp, "mul_generator": fabric.mul_generator(sk),
-               "mul_public_point": points.mul_public_point(sk, pub),
-               "beaver_mul_points": fabric.mul_points(sk, sp),
-               "msm_authenticated": fabric.msm(sk, sp).reshape(1),
-               "msm_public_points": points.msm_public_points(sk, pub).reshape(1)}
+        res = {}
+        if part in (None, "elementwise"):
+            res.update(share_points=sp, mul_generator=fabric.mul_generator(sk),
+                       mul_public_point=points.mul_public_point(sk, pub),
+                       beaver_mul_points=fabric.mul_points(sk, sp))
+        if part in (None, "sums"):
+            res.update(msm_authenticated=fabric.msm(sk, sp).reshape(1),
+                       msm_public_points=points.msm_public_points(sk, pub).reshape(1))
         opened = {k: fabric.open_authenticated_points(v, defer=True) for k, v in res.items()}
         fabric.verify_deferred()
         out = {}
@@ -244,9 +331,14 @@ if __name__ == "__main__":
     assert len(jax.devices()) == N_DEV, jax.devices()
     mesh = step.make_mesh(N_DEV)
     if sys.argv[4:] == ["points"]:
-        out = {"points": execute_mock_mpc_dealer(points_program(inputs), mesh=mesh)}
+        out = {"points": {part: execute_mock_mpc_dealer(points_program(inputs, part), mesh=mesh)
+                          for part in ("elementwise", "sums")},
+               "index": execute_mock_mpc_dealer(index_program(inputs, with_points=True),
+                                                mesh=mesh)}
     elif sys.argv[4:] == ["small"]:
         out = {"small": small_records(inputs, mesh)}
+    elif sys.argv[4:] == ["view"]:
+        out = {"view": global_view_records(inputs, mesh)}
     else:
         out = {"step": step_refs(inputs, mesh),
                "fabric": execute_mock_mpc_dealer(

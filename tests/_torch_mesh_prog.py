@@ -2,17 +2,18 @@
 
     python tests/_torch_mesh_prog.py N IN.pkl OUT.pkl
 
-spawns N gloo CPU ranks (`ark_mpc_tpu_torch.parallel.launch`) and runs every
-case below on each rank, in two launches (`GROUPS`: the point cases
-second), each within `LAUNCH_TIMEOUT`; each rank notes the case it is in,
-so a launch that times out names it.  Each case's result, or its
-traceback, is kept by name, and the list of the ranks' results is written
-to OUT.pkl.  IN.pkl
-holds the inputs the test made from numpy seeds: the sharded step's limb
-arrays, the mesh-fabric program's values (`tests/_mesh_fabric_prog.py`),
-and the values of the scalar operations' and point protocols' programs
-(`ops_program`, `points_program`; `tests/_jax_mesh_ref.py` mirrors them
-call for call).  `test_torch_parallel.py` holds the results against the
+spawns N gloo CPU ranks (`ark_mpc_tpu_torch.parallel.launch`, one
+intra-op thread a rank) and runs every case below on each rank, in a few
+launches (`GROUPS`), each within `LAUNCH_TIMEOUT`; each rank notes the
+case it is in, so a launch that times out names it.  Each case's result,
+or its traceback, is kept by name (a launch that fails or times out
+records its message for each of its cases), and the list of the ranks'
+results is written to OUT.pkl.  IN.pkl holds the inputs the test made
+from numpy seeds: the sharded step's limb arrays, the mesh-fabric
+program's values (`tests/_mesh_fabric_prog.py`), and the values of the
+scalar operations', point protocols' and global view's programs
+(`ops_program`, `points_program`, `index_program`, `matmul_program`;
+`tests/_jax_mesh_ref.py` mirrors them call for call).  `test_torch_parallel.py` holds the results against the
 JAX package and against the port's unsharded fabric.
 """
 
@@ -331,13 +332,19 @@ def affine_ints(pt) -> list:
     return [x.to_ints(), y.to_ints()]
 
 
-def points_program(inp):
+POINT_PARTS = ("elementwise", "sums")  # `points_program`'s two halves
+
+
+def points_program(inp, part=None):
     """The point protocols: share_points, mul_generator, mul_public_point,
     the Beaver scalar x point product, the authenticated MSM and the MSM
     with public points (`_jax_mesh_ref.points_program`'s), then the port's
     own share_public_points of the opened shared batch, each opened
     (deferred) and checked; -> {name: (opened affine ints, share coordinate
-    limbs, MAC coordinate limbs)}, gathered.  Runs with or without a mesh."""
+    limbs, MAC coordinate limbs)}, gathered.  Runs with or without a mesh.
+    `part` "elementwise" keeps the first four after the sharing, "sums"
+    the rest (each half a case of its own on a mesh: the curve arithmetic
+    of a whole program is the longest launch)."""
     gs, ks = inp["gs"], inp["ks"]
 
     def prog(fabric):
@@ -346,13 +353,16 @@ def points_program(inp):
         sp = fabric.share_points(pub if fabric.party_id == 0 else None, sender=0, n=n)
         sk = share_in(fabric, ks, 1)
         mine = point_batch(pub, fabric)
-        res = {"share_points": sp, "mul_generator": fabric.mul_generator(sk),
-               "mul_public_point": mul_public_point(sk, mine),
-               "beaver_mul_points": fabric.mul_points(sk, sp),
-               "msm_authenticated": fabric.msm(sk, sp).reshape(1),
-               "msm_public_points": msm_public_points(sk, mine).reshape(1)}
-        # the port's alone: the opened shard, shared as public points
-        res["share_public_points"] = fabric.share_public_points(fabric.open_points(sp))
+        res = {}
+        if part in (None, "elementwise"):
+            res.update(share_points=sp, mul_generator=fabric.mul_generator(sk),
+                       mul_public_point=mul_public_point(sk, mine),
+                       beaver_mul_points=fabric.mul_points(sk, sp))
+        if part in (None, "sums"):
+            res.update(msm_authenticated=fabric.msm(sk, sp).reshape(1),
+                       msm_public_points=msm_public_points(sk, mine).reshape(1))
+            # the port's alone: the opened shard, shared as public points
+            res["share_public_points"] = fabric.share_public_points(fabric.open_points(sp))
         opened = {k: fabric.open_authenticated_points(v, defer=True) for k, v in res.items()}
         fabric.verify_deferred()
         out = {}
@@ -402,8 +412,12 @@ def g1_rank(mesh, gs, ks):
     return run_g1(gs, ks, mesh)
 
 
-def case_points(mesh, inp):
-    return execute_mock_mpc_dealer(points_program(inp), mesh=mesh)
+def case_points_elementwise(mesh, inp):
+    return execute_mock_mpc_dealer(points_program(inp, "elementwise"), mesh=mesh)
+
+
+def case_points_sums(mesh, inp):
+    return execute_mock_mpc_dealer(points_program(inp, "sums"), mesh=mesh)
 
 
 def case_point_cheat_one_rank_pair(mesh, inp):
@@ -570,12 +584,136 @@ def case_prefix_small(mesh, inp):
             for n in prefix_sizes(mesh.size)}
 
 
+# the global view's selections of an 8-element batch (`index_program`)
+INDICES = (("0", 0), ("-1", -1), ("1:3", slice(1, 3)), ("::2", slice(None, None, 2)))
+# shared_matmul's (m, k, n) beside MAT_DIMS: rows and whole operands below
+# the mesh size, shards holding part of a row; (1, 3, 1) only where the
+# mesh size is above 3 (on 2 ranks both packages refuse its 3-element
+# operands)
+MATMUL_SHAPES = ((1, 2, 1), (2, 2, 4), (1, 3, 1))
+
+
+def matmul_shapes(size: int) -> tuple:
+    return tuple(s for s in MATMUL_SHAPES if size > 3 or s != (1, 3, 1))
+
+
+def split_affine(opened, sizes) -> list:
+    """The affine ints of a concatenation's consecutive parts of `sizes`."""
+    xs, ys = affine_ints(opened)
+    out, at = [], 0
+    for k in sizes:
+        out.append([xs[at:at + k], ys[at:at + k]])
+        at += k
+    return out
+
+
+def index_program(inp):
+    """`INDICES` of an 8-element shared batch, of its opened value and of an
+    8-point shared batch; each scalar selection opened (deferred), the
+    point selections gathered and opened together (one deferred open: each
+    point open costs curve arithmetic on every rank), and checked; ->
+    {"share" | "points": {name: (opened ints or affine ints, share limbs,
+    MAC limbs)}, "open": {name: ints}, "placement": {name: each
+    selection's replicated mark (None off a mesh)}, "refused": {name:
+    "TypeName: message"}}, gathered.  `_jax_mesh_ref.index_program` makes
+    the same calls in the same order but the placements and refusals."""
+
+    def prog(fabric):
+        dev, n = fabric.device, len(inp["xs"])
+        x = share_in(fabric, inp["xs"], 0)
+        x_open = fabric.open(x)
+        pub = (CurvePoint.generator((n,), device=dev).mul(Scalar.from_ints(inp["gs"], device=dev))
+               if fabric.party_id == 0 else None)
+        sp = fabric.share_points(pub, sender=0, n=n)
+        shares = {name: x[idx] for name, idx in INDICES}
+        points = {name: sp[idx] for name, idx in INDICES}
+        opens = {name: x_open[idx] for name, idx in INDICES}
+        opened = {name: fabric.open_authenticated(v, defer=True) for name, v in shares.items()}
+        flat = [w.reshape(w.size) for w in (whole(v, fabric) for v in points.values())]
+        p_opened = fabric.open_authenticated_points(PointShare.concatenate(flat), defer=True)
+        fabric.verify_deferred()
+        out = {"share": {}, "points": {}, "open": {}, "placement": {}, "refused": {}}
+        for (name, v), affine in zip(shares.items(),
+                                     split_affine(p_opened, [p.size for p in flat])):
+            out["placement"][name] = (v.replicated, points[name].replicated,
+                                      opens[name].replicated)
+            v = whole(v, fabric)
+            out["share"][name] = (whole(opened[name], fabric).to_ints(), limbs(v.share),
+                                  limbs(v.mac))
+            p = whole(points[name], fabric)
+            out["points"][name] = (affine, point_limbs(p.share), point_limbs(p.mac))
+            out["open"][name] = whole(opens[name], fabric).to_ints()
+        for name, idx in (("list", [0, 2]), ("tuple", (slice(None),))):
+            for kind, v in (("share", x), ("open", x_open), ("points", sp)):
+                try:
+                    v[idx]
+                    got = "no error"
+                except Exception as err:  # noqa: BLE001 - the test reads the type and text
+                    got = f"{type(err).__name__}: {err}"
+                out["refused"][f"{kind} {name}"] = got
+        return out
+
+    return prog
+
+
+def matmul_program(inp, shape):
+    """shared_matmul of `shape` = (m, k, n): A the first m k of "mat_a"
+    shared by party 0, B the first k n of "mat_b" by party 1, each reshaped
+    to its global shape, the product opened (deferred) and checked; ->
+    (opened ints, share limbs, MAC limbs, the product's replicated mark),
+    gathered.  `_jax_mesh_ref.matmul_program` makes the same calls."""
+    m, k, n = shape
+
+    def prog(fabric):
+        a = share_in(fabric, inp["mat_a"][:m * k], 0).reshape(m, k)
+        b = share_in(fabric, inp["mat_b"][:k * n], 1).reshape(k, n)
+        c = shared_matmul(fabric, a, b)
+        opened = fabric.open_authenticated(c, defer=True)
+        fabric.verify_deferred()
+        rep = c.replicated
+        c = whole(c, fabric)
+        return whole(opened, fabric).to_ints(), limbs(c.share), limbs(c.mac), rep
+
+    return prog
+
+
+def case_index_values(mesh, inp):
+    """[10, 20, 30, 40] shared by party 0, x[0] and x[1:3] opened: -> both
+    parties' gathered opens."""
+
+    def prog(fabric):
+        x = share_in(fabric, [10, 20, 30, 40], 0)
+        return [whole(fabric.open(v), fabric).to_ints() for v in (x[0], x[1:3])]
+
+    return execute_mock_mpc_dealer(prog, mesh=mesh)
+
+
+def case_index(mesh, inp):
+    return execute_mock_mpc_dealer(index_program(inp), mesh=mesh)
+
+
+def case_matmul_shapes(mesh, inp):
+    """`matmul_program` at each of `matmul_shapes`, and (1, 3, 1) on a mesh
+    of 3 ranks or fewer, where its 3-element operand does not divide it:
+    the error's "TypeName: message"."""
+    out = {s: execute_mock_mpc_dealer(matmul_program(inp, s), mesh=mesh)
+           for s in matmul_shapes(mesh.size)}
+    if mesh.size <= 3:
+        out["refused"] = raised(matmul_program(inp, (1, 3, 1)), mesh)
+    return out
+
+
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}
-# the cases by launch, each launch with its own time limit: the point
-# protocols take most of the time (their curve arithmetic is launch-bound
-# plain torch on every rank)
-POINT_CASES = ("points", "point_cheat_one_rank_pair")
-GROUPS = (tuple(c for c in CASES if c not in POINT_CASES), POINT_CASES)
+# the cases by launch, each launch with its own time limit and at most ~30
+# s of work a rank alone (1 thread, an idle 8-core host; six copies of the
+# test module at once stretch that ~6x): the point cases take most of it
+# (their curve arithmetic is plain torch on every rank, each scalar
+# multiplication ~0.4 s whatever the batch), so they have launches of their
+# own
+POINT_CASES = (("points_elementwise",), ("points_sums",),
+               ("point_cheat_one_rank_pair", "small_one", "index"))
+SCALAR_CASES = tuple(c for c in CASES if c not in sum(POINT_CASES, ()))
+GROUPS = (SCALAR_CASES[:9], SCALAR_CASES[9:], *POINT_CASES)
 LAUNCH_TIMEOUT = 210  # seconds a launch (and a collective) may take
 
 
@@ -593,14 +731,25 @@ def run_cases(mesh, inp, names=tuple(CASES)):
 
 def run_groups(n_ranks: int, inp) -> list:
     """Every case on `n_ranks` gloo ranks, one launch a group of `GROUPS`;
-    -> each rank's {case: result}."""
+    -> each rank's {case: result}.  A launch that fails or times out costs
+    only its own cases: each is recorded on every rank as ("error", the
+    launch's message, which names each rank's case), and the next group
+    still runs."""
     ranks = [{} for _ in range(n_ranks)]
     for k, names in enumerate(GROUPS):
         t0 = time.monotonic()
-        for got, res in zip(ranks, launch(run_cases, n_ranks, inp, names, device="cpu",
-                                          timeout=LAUNCH_TIMEOUT)):
+        try:
+            results = launch(run_cases, n_ranks, inp, names, device="cpu",
+                             timeout=LAUNCH_TIMEOUT, threads=1)
+            status = "done"
+        except (RuntimeError, TimeoutError) as err:
+            failed = ("error", f"launch {k + 1} of {len(GROUPS)} stopped: "
+                               f"{type(err).__name__}: {err}")
+            results = [dict.fromkeys(names, failed)] * n_ranks
+            status = "STOPPED"
+        for got, res in zip(ranks, results):
             got.update(res)
-        print(f"launch {k + 1} of {len(GROUPS)} ({len(names)} cases): "
+        print(f"launch {k + 1} of {len(GROUPS)} ({len(names)} cases) {status}: "
               f"{time.monotonic() - t0:.1f} s of {LAUNCH_TIMEOUT}", flush=True)
     return ranks
 

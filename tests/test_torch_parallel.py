@@ -26,10 +26,17 @@ smaller than the mesh (1 and 3 elements, and `prefix_product` at n + 1 <=
 the mesh size) are held replicated, as the reference holds them: their
 draws are whole, so the JAX package's 4-device record holds them on every
 mesh where they are smaller than it (its small-batch programs run in a
-second JAX process beside the first).
+second JAX process beside the first).  The global view (indexing a shard
+selects global positions, `shared_matmul` at every shape the reference
+takes) is held to a third JAX process's record; its point selections to
+the port's unsharded fabric (and to the JAX mesh in the slow point test).
+A JAX record is kept under `tests/.jax_cache` for the next run on the
+same inputs and sources (`Memo`).
 """
 
+import hashlib
 import os
+import pathlib
 import pickle
 import random
 import signal
@@ -53,14 +60,16 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = SCALAR_FIELD.modulus
-# seconds: a stuck collective fails the test, never hangs it.  The JAX side
-# (~200 s alone from an empty compile cache) and the two torch meshes (~45
-# and ~80 s alone) all start with the module, so with every subprocess
-# timing out the mesh tests end within JAX_TIMEOUT of the module's start.
-# A torch side is one launch a group of cases, each within its own
-# `mesh_prog.LAUNCH_TIMEOUT`, whose error names each rank's case; its own
-# limit leaves room for them all.
-PROG_TIMEOUT = len(mesh_prog.GROUPS) * mesh_prog.LAUNCH_TIMEOUT + 40
+# seconds: a stuck collective fails the test, never hangs it.  The JAX
+# side's three processes (~115-200 s each alone from an empty compile
+# cache, 8-core host) and the two torch meshes (~130 s each alone) all
+# start with the module.  A torch side is one launch a group of cases
+# (`mesh_prog.GROUPS`, at most ~30 s of work each alone), each within its own
+# `mesh_prog.LAUNCH_TIMEOUT`; a launch that fails or times out records its
+# message as each of its cases' error, which names each rank's case, so it
+# fails only those tests.  The side's own limit leaves room for every
+# launch to time out.
+PROG_TIMEOUT = len(mesh_prog.GROUPS) * (mesh_prog.LAUNCH_TIMEOUT + 20) + 40
 JAX_TIMEOUT = 500
 JAX_DEVICES = 4
 FAST_XLA = "--xla_backend_optimization_level=0 --xla_llvm_disable_expensive_passes=true"
@@ -146,12 +155,13 @@ def load(path):
 
 class Side:
     """One subprocess whose record the tests share: `result()` waits for
-    it (within `timeout` of its start) and keeps the record."""
+    it (within `timeout` of its start) and keeps the record; or a record
+    kept from an earlier run (`record`, no subprocess)."""
 
-    def __init__(self, proc: subprocess.Popen, out_path, ok_line: str, timeout: float):
+    def __init__(self, proc, out_path=None, ok_line="", timeout: float = 0, record=None):
         self.proc, self.out_path, self.ok_line = proc, out_path, ok_line
         self.started, self.timeout = time.monotonic(), timeout
-        self.record = None
+        self.record = record
 
     def result(self):
         if self.record is None:
@@ -161,25 +171,90 @@ class Side:
         return self.record
 
     def stop(self) -> None:
-        if self.proc.poll() is None:
+        if self.proc is not None and self.proc.poll() is None:
             os.killpg(self.proc.pid, signal.SIGKILL)
             self.proc.communicate()
 
 
+# the JAX side's processes by mode (`_jax_mesh_ref.py`), each with the keys
+# of the record it writes: the main programs, the small-batch programs and
+# the global view's, apart so that no one process's compilations lengthen
+# another's
+JAX_MODES = {"main": ("step", "fabric", "ops"), "small": ("small",), "view": ("view",)}
+
+
+class Memo:
+    """A JAX side's record kept from an earlier run under
+    `tests/.jax_cache` (where the XLA compilations are kept), keyed by the
+    inputs, the JAX package's and `_jax_mesh_ref.py`'s sources, the mode,
+    the mesh size, the XLA flags and the jax version: the record is a
+    function of these alone, so a run that finds it reads it instead of
+    recomputing it.  A run from an empty cache computes every record."""
+
+    DIR = os.path.join(REPO, "tests", ".jax_cache", "mesh_records")
+
+    def __init__(self, in_path, mode: str):
+        import jax
+
+        h = hashlib.sha256()
+        with open(in_path, "rb") as fh:
+            h.update(fh.read())
+        sources = sorted(pathlib.Path(REPO, "ark_mpc_tpu").rglob("*.py"))
+        for path in [*sources, pathlib.Path(REPO, "tests", "_jax_mesh_ref.py")]:
+            h.update(str(path.relative_to(REPO)).encode() + path.read_bytes())
+        h.update(f"{mode} {JAX_DEVICES} {FAST_XLA} {jax.__version__}".encode())
+        self.path = os.path.join(self.DIR, f"{mode}-{h.hexdigest()[:32]}.pkl")
+
+    def load(self):
+        try:
+            return load(self.path)
+        except (OSError, EOFError, pickle.UnpicklingError):
+            return None
+
+    def save(self, record) -> None:
+        os.makedirs(self.DIR, exist_ok=True)
+        tmp = f"{self.path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as fh:
+            pickle.dump(record, fh)
+        os.replace(tmp, self.path)
+
+
+class Record:
+    """The JAX package's record, read key by key: a key waits only for the
+    JAX process that writes it, so a failed JAX process fails only the
+    tests that compare with its programs."""
+
+    def __init__(self, sides):
+        self.sides = sides
+
+    def __getitem__(self, key):
+        mode = next(m for m, keys in JAX_MODES.items() if key in keys)
+        side = self.sides.jax[mode]
+        if side.record is None:
+            self.sides.memos[mode].save(side.result())
+        return side.result()[key]
+
+
 class Sides:
-    """The module's subprocesses: the JAX side on a JAX_DEVICES-device
-    mesh (two processes: the main programs, and the small-batch programs,
-    whose compilations would otherwise lengthen the first), and the torch
-    meshes of the fast tests (2 and 4 ranks), all started with the module,
-    and any other torch mesh when asked for."""
+    """The module's subprocesses: the JAX side on a JAX_DEVICES-device mesh
+    (one process a mode of `JAX_MODES`) and the torch meshes of the fast
+    tests (2 and 4 ranks), all started with the module, and any other torch
+    mesh when asked for."""
 
     def __init__(self, in_path, tmp):
         self.in_path, self.tmp = in_path, tmp
         ok = f"JAX_MESH_REF_OK {JAX_DEVICES}"
-        self.jax = Side(jax_mesh(JAX_DEVICES, in_path, tmp / "ref.pkl"), tmp / "ref.pkl",
-                        ok, JAX_TIMEOUT)
-        self.jax_small = Side(jax_mesh(JAX_DEVICES, in_path, tmp / "small.pkl", "small"),
-                              tmp / "small.pkl", ok, JAX_TIMEOUT)
+        self.jax, self.memos = {}, {}
+        for mode in JAX_MODES:
+            self.memos[mode] = memo = Memo(in_path, mode)
+            kept = memo.load()
+            if kept is not None:
+                self.jax[mode] = Side(None, record=kept)
+                continue
+            out = tmp / f"ref_{mode}.pkl"
+            extra = () if mode == "main" else (mode,)
+            self.jax[mode] = Side(jax_mesh(JAX_DEVICES, in_path, out, *extra), out, ok,
+                                  JAX_TIMEOUT)
         self.torch = {}
         for n_ranks in (2, 4):
             self.torch_side(n_ranks)
@@ -191,12 +266,8 @@ class Sides:
                                        f"MESH_PROG_OK {n_ranks}", PROG_TIMEOUT)
         return self.torch[n_ranks]
 
-    def record(self) -> dict:
-        """The JAX package's whole record (both of its processes')."""
-        return {**self.jax.result(), **self.jax_small.result()}
-
     def stop(self) -> None:
-        for side in (self.jax, self.jax_small, *self.torch.values()):
+        for side in (*self.jax.values(), *self.torch.values()):
             side.stop()
 
 
@@ -217,9 +288,8 @@ def mesh_run(request, inputs, sides, unsharded_points):
     while the subprocesses run, rather than after them.)"""
     n_ranks = request.param
     ranks = sides.torch_side(n_ranks).result()
-    record = sides.record()
     assert len(ranks) == n_ranks
-    return n_ranks, inputs[0], ranks, record
+    return n_ranks, inputs[0], ranks, Record(sides)
 
 
 def case(ranks, name) -> list:
@@ -531,9 +601,20 @@ def test_traced_levels_that_mix_placements(mesh_run):
 
 @pytest.fixture(scope="module")
 def unsharded_points(inputs):
-    """The point protocols' program on the port's unsharded fabric."""
+    """The point protocols' program and the index program on the port's
+    unsharded fabric."""
     inp, _ = inputs
-    return execute_mock_mpc_dealer(mesh_prog.points_program(inp), device="cpu")
+    out = {part: execute_mock_mpc_dealer(mesh_prog.points_program(inp, part), device="cpu")
+           for part in mesh_prog.POINT_PARTS}
+    out["index"] = execute_mock_mpc_dealer(mesh_prog.index_program(inp), device="cpu")
+    return out
+
+
+def point_records(source) -> list:
+    """Both parties' records of the point program's halves, merged:
+    `source(part)` -> the half's (party 0, party 1)."""
+    halves = [source(part) for part in mesh_prog.POINT_PARTS]
+    return [{k: v for half in halves for k, v in half[pid].items()} for pid in (0, 1)]
 
 
 def points_of(arr) -> port.CurvePoint:
@@ -553,9 +634,11 @@ def test_point_protocols_match_the_unsharded_fabric(mesh_run, unsharded_points):
     equal them projectively, and every opened point is the same; on every
     rank, for both parties."""
     _, inp, ranks, _ = mesh_run
-    for parties in case(ranks, "points"):
+    plain = point_records(unsharded_points.__getitem__)
+    for rank in range(len(ranks)):
+        parties = point_records(lambda part: case(ranks, f"points_{part}")[rank])
         for pid in (0, 1):
-            got, want = parties[pid], unsharded_points[pid]
+            got, want = parties[pid], plain[pid]
             assert sorted(got) == sorted(ELEMENTWISE + SUMS + PORT_ONLY)
             for name in ELEMENTWISE + SUMS + PORT_ONLY:
                 (opened, sh, mac), (w_opened, w_sh, w_mac) = got[name], want[name]
@@ -567,6 +650,116 @@ def test_point_protocols_match_the_unsharded_fabric(mesh_run, unsharded_points):
                     for g, w in ((sh, w_sh), (mac, w_mac)):
                         assert g.shape == w.shape == (4, 16, 1), name
                         assert bool(points_of(g).equals(points_of(w)).all()), name
+
+
+INDEX_NAMES = tuple(name for name, _ in mesh_prog.INDICES)
+
+
+def selected(values: list) -> dict:
+    """`mesh_prog.INDICES` of a Python list: {name: ints}."""
+    return {name: values[idx] if isinstance(idx, slice) else [values[idx]]
+            for name, idx in mesh_prog.INDICES}
+
+
+def test_indexing_a_shard_reads_the_global_batch(mesh_run):
+    """[10, 20, 30, 40] shared on the mesh: x[0] opens to [10] and x[1:3]
+    to [20, 30] on every rank, as the JAX package's mesh gives them (slicing
+    the rank's own columns gave 10 on rank 0 and 30 on rank 1, and [20, 40],
+    on 2 ranks)."""
+    _, _, ranks, _ = mesh_run
+    assert case(ranks, "index_values") == [([[10], [20, 30]],) * 2] * len(ranks)
+
+
+def test_indexing_a_shard_selects_global_positions(mesh_run):
+    """x[0], x[-1], x[1:3] and x[::2] of a shared 8-element batch and of
+    its opened value select the global batch's positions: the opens equal
+    Python ints and the JAX package's on its 4-device mesh, and both
+    parties' gathered share and MAC limbs equal the JAX package's bit for
+    bit, on every rank."""
+    _, inp, ranks, jax_ref = mesh_run
+    want = selected(inp["xs"])
+    for parties in case(ranks, "index"):
+        for pid in (0, 1):
+            got, ref = parties[pid], jax_ref["view"]["index"][pid]
+            assert got["open"] == ref["open"] == want
+            assert sorted(got["share"]) == sorted(INDEX_NAMES)
+            for name in INDEX_NAMES:
+                assert got["share"][name][0] == want[name], name
+                assert_same_record(got["share"][name], ref["share"][name], name)
+
+
+def test_indexing_a_point_shard_selects_global_positions(mesh_run, unsharded_points):
+    """The same selections of a shared 8-point batch: the opened points are
+    the selected g_i * G, and the gathered share and MAC coordinates equal
+    the same program's on the port's unsharded fabric bit for bit, on
+    every rank, for both parties (the slow
+    `test_point_protocols_match_the_jax_mesh` holds them to the JAX
+    package's mesh projectively)."""
+    _, inp, ranks, _ = mesh_run
+    gen = port.CurvePoint.generator((len(inp["gs"]),), device="cpu")
+    x, y = (selected(c.to_ints()) for c in
+            gen.mul(port.Scalar.from_ints(inp["gs"], device="cpu")).to_affine())
+    for parties in case(ranks, "index"):
+        for pid in (0, 1):
+            got = parties[pid]["points"]
+            plain = unsharded_points["index"][pid]["points"]
+            assert sorted(got) == sorted(INDEX_NAMES)
+            for name in INDEX_NAMES:
+                opened, sh, mac = got[name]
+                assert opened == [x[name], y[name]] == plain[name][0], name
+                np.testing.assert_array_equal(sh, plain[name][1])
+                np.testing.assert_array_equal(mac, plain[name][2])
+
+
+def test_index_placement_follows_the_small_batch_rule(mesh_run):
+    """A selection with fewer elements than the mesh is replicated (a
+    single element always), one whose size the mesh size divides is a
+    shard, alike for shares, point shares and opened values; a list or a
+    tuple index of a shard raises `ValueError` naming the mesh."""
+    n_ranks, _, ranks, _ = mesh_run
+    sizes = {"0": 1, "-1": 1, "1:3": 2, "::2": 4}
+    for parties in case(ranks, "index"):
+        for pid in (0, 1):
+            for name, marks in parties[pid]["placement"].items():
+                assert marks == (sizes[name] < n_ranks,) * 3, (name, marks)
+            refused = parties[pid]["refused"]
+            assert len(refused) == 6
+            for name, msg in refused.items():
+                assert msg.startswith("ValueError") and f"{n_ranks}-rank mesh" in msg, (name, msg)
+
+
+MATMUL_IDS = [f"{m}x{k}@{k}x{n}" for m, k, n in mesh_prog.MATMUL_SHAPES]
+
+
+@pytest.mark.parametrize("shape", mesh_prog.MATMUL_SHAPES, ids=MATMUL_IDS)
+def test_shared_matmul_at_the_reference_shapes(mesh_run, shape):
+    """shared_matmul with operands below the mesh size (replicated) and
+    shards holding part of a row: the opened product equals Python ints
+    and the JAX package's on its 4-device mesh, and both parties' gathered
+    share and MAC limbs equal the JAX package's bit for bit, on every rank;
+    the product is replicated where it has fewer rows than the mesh, else
+    row-sharded.  (1, 3) @ (3, 1) on 2 ranks: both packages refuse the
+    3-element operand with `ValueError` naming the mesh."""
+    n_ranks, inp, ranks, jax_ref = mesh_run
+    view = jax_ref["view"]
+    m, k, n = shape
+    if shape not in mesh_prog.matmul_shapes(n_ranks):
+        msg = view["matmul_131_on_2"]
+        assert msg.startswith("ValueError") and "2-device mesh" in msg, msg
+        for res in case(ranks, "matmul_shapes"):
+            got = res["refused"]
+            assert got.startswith("ValueError") and f"{n_ranks}-rank mesh" in got, got
+        return
+    a, b = inp["mat_a"][:m * k], inp["mat_b"][:k * n]
+    want = [sum(a[i * k + j] * b[j * n + c] for j in range(k)) % L
+            for i in range(m) for c in range(n)]
+    for res in case(ranks, "matmul_shapes"):
+        for pid in (0, 1):
+            opened, sh, mac, rep = res[shape][pid]
+            assert opened == want
+            assert_same_record((opened, sh, mac), view["matmul"][shape][pid], shape)
+            assert sh.shape == (16, m, n)
+            assert rep == (m < n_ranks)
 
 
 def test_one_cheating_rank_pair_aborts_every_rank_on_points(mesh_run):
@@ -600,13 +793,14 @@ def test_jax_record_does_not_depend_on_the_mesh_or_the_xla_level(inputs, sides, 
     _, in_path = inputs
     finish(jax_mesh(2, in_path, tmp_path / "ref2.pkl", fast=False), "JAX_MESH_REF_OK 2",
            timeout=900)
-    assert pickle.dumps(load(tmp_path / "ref2.pkl")) == pickle.dumps(sides.jax.result())
+    assert pickle.dumps(load(tmp_path / "ref2.pkl")) == pickle.dumps(sides.jax["main"].result())
 
 
 @pytest.mark.slow
 def test_point_protocols_match_the_jax_mesh(inputs, tmp_path):
-    """The point protocols on a 2-rank port mesh against the JAX package's
-    on a 2-device mesh: opened points equal, and every share and MAC equal
+    """The point protocols, and the index program's selections of a shared
+    point batch, on a 2-rank port mesh against the JAX package's on a
+    2-device mesh: opened points equal, and every share and MAC equal
     projectively (the two packages' curve formulas leave different
     projective coordinates, unsharded too; minutes of XLA compilation on
     the JAX side)."""
@@ -620,10 +814,16 @@ def test_point_protocols_match_the_jax_mesh(inputs, tmp_path):
         if jax_side.poll() is None:
             os.killpg(jax_side.pid, signal.SIGKILL)
             jax_side.communicate()
-    want = load(tmp_path / "ref.pkl")["points"]
-    for parties in case(load(tmp_path / "out.pkl"), "points"):
+    record, ranks = load(tmp_path / "ref.pkl"), load(tmp_path / "out.pkl")
+    want = point_records(record["points"].__getitem__)
+    pairs = [(point_records(lambda part: case(ranks, f"points_{part}")[rank]), want,
+              ELEMENTWISE + SUMS) for rank in range(len(ranks))]
+    pairs += [({pid: got[pid]["points"] for pid in (0, 1)},
+               {pid: record["index"][pid]["points"] for pid in (0, 1)}, INDEX_NAMES)
+              for got in case(ranks, "index")]
+    for parties, want, names in pairs:
         for pid in (0, 1):
-            for name in ELEMENTWISE + SUMS:
+            for name in names:
                 (opened, sh, mac), (w_opened, w_sh, w_mac) = parties[pid][name], want[pid][name]
                 assert opened == w_opened, name
                 for g, w in ((sh, w_sh), (mac, w_mac)):
@@ -694,6 +894,71 @@ def test_sharded_source_slices_the_global_draws():
         assert torch.equal(g.mac.limbs, w.mac.limbs)
     with pytest.raises(ValueError, match="4-rank mesh"):
         src.next_matrix_triplet(6, 2, 2)
+
+
+def batches() -> list:
+    """An 8-element value of each type the global view covers."""
+    x = port.Scalar.from_ints(list(range(10, 90, 10)), device="cpu")
+    pts = port.CurvePoint.generator((8,), device="cpu").mul(x)
+    return [x, port.ScalarShare(x, x + 1), pts, port.PointShare(pts, pts.double())]
+
+
+def limb_tensors(v) -> list:
+    parts = [v.share, v.mac] if hasattr(v, "mac") else [v]
+    return [c.limbs for p in parts for c in (p._coords() if hasattr(p, "_coords") else [p])]
+
+
+def same(a, b) -> bool:
+    la, lb = limb_tensors(a), limb_tensors(b)
+    return len(la) == len(lb) and all(u.shape == w.shape and torch.equal(u, w)
+                                      for u, w in zip(la, lb))
+
+
+def test_local_accessor_off_a_mesh():
+    """Off a mesh `x.local[idx]` is `x[idx]` for every index (integers,
+    slices, tuples, index tensors), and `reshape` is the local one, for
+    field arrays, shares, point batches and point shares."""
+    from ark_mpc_tpu_torch.algebra.placement import thread_mesh
+
+    assert thread_mesh() is None
+    idxs = [0, -1, slice(1, 3), slice(None, None, 2), (slice(None),), torch.tensor([0, 5])]
+    for x in batches():
+        for idx in idxs:
+            assert same(x.local[idx], x[idx]), (type(x).__name__, idx)
+        assert same(x.reshape(2, 4).local[1], x.local[4:])
+
+
+def test_global_view_of_a_shard_without_a_collective():
+    """On a 2-rank mesh (a thread mesh with no process group, so any
+    collective would raise): `local[...]` takes the rank's own elements, a
+    reshape whose rows the mesh divides is the rank's rows, a replicated
+    value indexes as it is, and a list or tuple index of a shard raises
+    `ValueError` naming the mesh before any collective."""
+    from ark_mpc_tpu_torch.algebra.placement import mark, set_thread_mesh
+
+    set_thread_mesh(Mesh(None, 2, 0, torch.device("cpu")))
+    try:
+        for whole in batches():
+            rep = whole.local[0:8]
+            if isinstance(rep, (port.ScalarShare, port.PointShare)):
+                rep.replicated = True
+            else:
+                mark(rep)
+            assert same(rep[1:3], whole.local[1:3])
+            x = whole.local[0:4]
+            if isinstance(x, (port.ScalarShare, port.PointShare)):
+                x.replicated = False
+            else:
+                mark(x, False)
+            assert same(x.local[1:3], whole.local[1:3])
+            rows = x.reshape(4, 2)  # the global (4, 2): the rank's 2 rows, no collective
+            assert rows.shape == (2, 2) and rows.replicated is False
+            assert same(rows, whole.local[0:4].reshape(2, 2))
+            for idx in ([0, 1], (slice(None),), torch.tensor([0])):
+                with pytest.raises(ValueError, match="2-rank mesh"):
+                    x[idx]
+    finally:
+        set_thread_mesh(None)
 
 
 def test_make_mesh_needs_a_process_group():
