@@ -207,8 +207,8 @@ class CurvePoint(GlobalView):
         route = msm_route()
         shape = torch.broadcast_shapes(tuple(points.shape), tuple(scalars.shape))
         n = int(np.prod(shape)) if shape else 1
-        pts = points.broadcast_to(shape).reshape(n)
-        sc = scalars.broadcast_to(shape).reshape(n)
+        pts = points.broadcast_to(shape).local.reshape(n)
+        sc = scalars.broadcast_to(shape).local.reshape(n)
         if route == "bucket":
             from ..ops.msm_kernels import msm_bucket
 

@@ -41,11 +41,12 @@ does (`global_item`: one all-gather over the party's ranks, the index, then
 the small-batch rule: a result with fewer elements than the mesh is
 replicated, one whose size the mesh divides is a shard, any other size
 raises `ValueError` naming the mesh).  Any other index of a shard raises
-`ValueError` naming the mesh.  `reshape` of a shard to a shape that fits
-the global batch but not the rank's elements is the global reshape
-(`global_reshape`).  `x.local[idx]` indexes the rank's own elements with no
-collective: what the fabric's internals mean by an index.  Off a mesh, and
-on a replicated or unmarked value, `x[idx]` and `x.local[idx]` agree.
+`ValueError` naming the mesh.  `reshape` of a shard is the global reshape
+(`global_reshape`): the shape is the global batch's, or `ValueError` naming
+the mesh.  `x.local[idx]` and `x.local.reshape(*shape)` index and reshape
+the rank's own elements with no collective: what the fabric's internals
+mean by an index or a shape.  Off a mesh, and on a replicated or unmarked
+value, the global and the local forms agree.
 """
 
 from __future__ import annotations
@@ -123,8 +124,10 @@ def same_placement(items) -> bool:
 
 
 class LocalView:
-    """`x.local[idx]`: x's own elements at positions `idx` of the rank's
-    tensor, with no collective (the index before the global view)."""
+    """`x.local[idx]` and `x.local.reshape(*shape)`: x's own elements at
+    positions `idx` of the rank's tensor, or reshaped to a shape of the
+    rank's elements, with no collective (the forms before the global
+    view)."""
 
     __slots__ = ("_x",)
 
@@ -133,6 +136,16 @@ class LocalView:
 
     def __getitem__(self, idx):
         return self._x._take(idx)
+
+    def reshape(self, *shape):
+        return self._x._reshape(_shape_arg(shape))
+
+
+def _shape_arg(shape: tuple) -> tuple:
+    """`reshape(2, 3)` or `reshape((2, 3))`: -> (2, 3)."""
+    if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+        return tuple(shape[0])
+    return shape
 
 
 class GlobalView:
@@ -150,9 +163,7 @@ class GlobalView:
         return LocalView(self)
 
     def reshape(self, *shape):
-        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
-            shape = tuple(shape[0])
-        return global_reshape(self, shape)
+        return global_reshape(self, _shape_arg(shape))
 
 
 def shard_mesh(x):
@@ -213,22 +224,25 @@ def _resolve(shape: tuple, n: int):
 
 
 def global_reshape(x, shape: tuple):
-    """x.reshape(*shape): the rank's elements where `shape` fits them (the
-    rank's rows of the global shape), else, on a shard whose global batch
-    it fits, the global reshape: a shape whose rows the mesh size divides
-    is the rank's rows of it (its chunk of the row-major batch, no
-    collective); any other is gathered, reshaped and placed by the
-    small-batch rule (fewer rows than the mesh: replicated; else
-    `ValueError` naming the mesh)."""
+    """x.reshape(*shape), on a shard the global batch's: a shape whose rows
+    the mesh size divides is the rank's rows of it (its chunk of the
+    row-major batch, no collective); any other is gathered, reshaped and
+    placed by the small-batch rule (fewer rows than the mesh: replicated;
+    else `ValueError` naming the mesh).  A shape that does not fit the
+    global batch raises `ValueError` naming the mesh.  Off a shard,
+    `x.local.reshape(*shape)`."""
     mesh = shard_mesh(x)
-    if mesh is None or _resolve(shape, x.size) is not None:
+    if mesh is None:
         return x._reshape(shape)
-    full = _resolve(shape, x.size * mesh.size)
-    if full is None or not full:
-        return x._reshape(shape)  # fits neither: the local error
-    rows = full[0]
-    if rows >= mesh.size and rows % mesh.size == 0:
-        return x._reshape((rows // mesh.size,) + full[1:])
+    n = x.size * mesh.size
+    full = _resolve(shape, n)
+    if full is None:
+        raise ValueError(
+            f"reshape to {shape} of a shard of the {mesh.size}-rank mesh: its global "
+            f"batch of {n} elements does not take that shape (a shard's shape is the "
+            f"global batch's; reshape the rank's own elements with `.local.reshape`)")
+    if full and full[0] >= mesh.size and full[0] % mesh.size == 0:
+        return x._reshape((full[0] // mesh.size,) + full[1:])
     from ..parallel.step import gather
 
     return _place_selection(gather(x, mesh)._reshape(full), mesh,

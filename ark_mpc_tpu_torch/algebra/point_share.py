@@ -34,11 +34,11 @@ def _mul_both(points, scalars):
                                    *(tuple(s.shape) for s in scalars))
     n = int(np.prod(shape)) if shape else 1
     pts = type(points[0]).concatenate(
-        [p.broadcast_to(shape).reshape(n) for p in points])
+        [p.broadcast_to(shape).local.reshape(n) for p in points])
     scs = type(scalars[0]).concatenate(
-        [s.broadcast_to(shape).reshape(n) for s in scalars])
+        [s.broadcast_to(shape).local.reshape(n) for s in scalars])
     out = pts.mul(scs)
-    return [out.local[i * n:(i + 1) * n].reshape(*shape) for i in range(len(points))]
+    return [out.local[i * n:(i + 1) * n].local.reshape(*shape) for i in range(len(points))]
 
 
 @dataclass

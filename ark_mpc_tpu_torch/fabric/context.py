@@ -225,7 +225,7 @@ class MpcFabric:
             n = values.size
             mask, mask_share = self._draw("next_local_input_mask_batch", n,
                                           bool(values.replicated))
-            masked = values.reshape(n) - mask
+            masked = values.local.reshape(n) - mask
             self.send_arrays([_wire(masked)])
             shape = values.shape
         else:
@@ -236,10 +236,10 @@ class MpcFabric:
             (raw,) = self.recv_arrays()
             masked = self._from_wire(raw, (n,))
             shape = masked.shape
-        mask_share = mask_share.reshape(mask_share.size)
-        out = mask_share.add_public(masked.reshape(masked.size), self.mac_key,
+        mask_share = mask_share.local.reshape(mask_share.size)
+        out = mask_share.add_public(masked.local.reshape(masked.size), self.mac_key,
                                     self.party_id)
-        return out.reshape(*shape)
+        return out.local.reshape(*shape)
 
     def share_public(self, values: Scalar) -> ScalarShare:
         """Both parties know `values`; produce a valid authenticated sharing
@@ -397,12 +397,12 @@ class MpcFabric:
         rep = placement(x, y)
         with self._timed("beaver_mul", n):
             a, b, c = self._draw("next_triplet_batch", n, rep)
-            masked = self.field.concatenate([(x.reshape(n) - a).share,
-                                             (y.reshape(n) - b).share])
+            masked = self.field.concatenate([(x.local.reshape(n) - a).share,
+                                             (y.local.reshape(n) - b).share])
             (theirs,) = self._exchange_arrays([_wire(masked)])
             opened = masked + self._from_wire(theirs, (2 * n,))
             d, e = opened.local[:n], opened.local[n:]
-            return self._beaver_combine_dispatch(a, b, c, d, e, rep).reshape(*shape)
+            return self._beaver_combine_dispatch(a, b, c, d, e, rep).local.reshape(*shape)
 
     def _beaver_combine_dispatch(self, a, b, c, d, e, replicated=False) -> ScalarShare:
         """Post-open Beaver combine through the `beaver_round` kernel (its
@@ -429,9 +429,9 @@ class MpcFabric:
         shape = x.shape
         n = x.size
         r = self._draw("next_shared_value_batch", n, x.replicated)
-        m = self.mul(x.reshape(n), r)
+        m = self.mul(x.local.reshape(n), r)
         m_open = self.open_authenticated(m, defer=defer_check)
-        return r.mul_public(m_open.inverse()).reshape(*shape)
+        return r.mul_public(m_open.inverse()).local.reshape(*shape)
 
     def pow(self, x: ScalarShare, e: int) -> ScalarShare:
         """Public-exponent exponentiation: LSB-first square-and-multiply with
@@ -444,7 +444,7 @@ class MpcFabric:
                                           x.replicated))
         shape = x.shape
         n = x.size
-        result, base = None, x.reshape(n)
+        result, base = None, x.local.reshape(n)
         while True:
             if e & 1:
                 if result is None:
@@ -463,7 +463,7 @@ class MpcFabric:
             if e == 0:
                 break
             base = self.mul(base, base)
-        return result.reshape(*shape)
+        return result.local.reshape(*shape)
 
     # -- curve-point protocols (`fabric/points.py`) ------------------------
     def share_points(self, points=None, sender: int = 0, n: int | None = None):

@@ -104,12 +104,12 @@ def share_points(fabric, points=None, sender: int = 0,
         if points is None:
             raise ValueError("the sender must pass its points")
         if fabric.mesh is not None:
-            points = shard(points.reshape(points.size), fabric.mesh)
+            points = shard(points.local.reshape(points.size), fabric.mesh)
         n = points.size
         mask, mask_share = fabric._draw("next_local_input_mask_batch", n,
                                         bool(points.replicated))
         gen = curve.generator((n,), device=fabric.device)
-        masked = points.reshape(n) - gen.mul(mask)
+        masked = points.local.reshape(n) - gen.mul(mask)
         fabric.send_arrays(list(_wire_arrays(masked)))
         shape = points.shape
     else:
@@ -123,7 +123,7 @@ def share_points(fabric, points=None, sender: int = 0,
     gen = curve.generator((n,), device=fabric.device)
     out = scalar_share_mul_point(mask_share, gen).add_public(
         masked, fabric.mac_key, fabric.party_id)
-    return out.reshape(*shape)
+    return out.local.reshape(*shape)
 
 
 def share_public_points(fabric, points) -> PointShare:
@@ -150,7 +150,7 @@ def open_points_many(fabric, pss: list) -> list:
     out = []
     for i, ps in enumerate(pss):
         their_pt = _point_from_wire_checked(fabric, ps.curve, *theirs[2 * i:2 * i + 2])
-        out.append(mark(ps.share + their_pt.reshape(*ps.shape), ps.replicated))
+        out.append(mark(ps.share + their_pt.local.reshape(*ps.shape), ps.replicated))
     return out
 
 
@@ -166,7 +166,7 @@ def open_authenticated_points_many(fabric, pss: list, defer: bool = False) -> li
     check (each rank pair tests the check values of what it opened)."""
     opened = open_points_many(fabric, pss)
     # key_share * opened - mac_share
-    ds = [(v.mul(fabric.mac_key) - ps.mac).reshape(ps.size) for v, ps in zip(opened, pss)]
+    ds = [(v.mul(fabric.mac_key) - ps.mac).local.reshape(ps.size) for v, ps in zip(opened, pss)]
     flat = ds[0] if len(ds) == 1 else type(ds[0]).concatenate(ds)
     if defer:
         fabric._deferred_points.append(flat)
@@ -224,8 +224,8 @@ def beaver_mul_points(fabric, x: ScalarShare, ps: PointShare) -> PointShare:
     d*E (party 0) + d*[bG] + [a]*E + [c]*G."""
     n = x.size
     rep = placement(x, ps)
-    xf = x.reshape(n)
-    pf = ps.reshape(n)
+    xf = x.local.reshape(n)
+    pf = ps.local.reshape(n)
     a, b, c = fabric._draw("next_triplet_batch", n, rep)
     b_gen = mul_generator(fabric, b)
 
@@ -237,7 +237,7 @@ def beaver_mul_points(fabric, x: ScalarShare, ps: PointShare) -> PointShare:
     d = masked_scalar + fabric._from_wire(theirs[0], (n,))
     e_pt = masked_point + _point_from_wire_checked(fabric, ps.curve,
                                                    theirs[1], theirs[2])
-    return _beaver_point_combine(fabric, a, b_gen, c, d, e_pt).reshape(*x.shape)
+    return _beaver_point_combine(fabric, a, b_gen, c, d, e_pt).local.reshape(*x.shape)
 
 
 def _beaver_point_combine(fabric, a: ScalarShare, b_gen: PointShare,

@@ -581,27 +581,27 @@ class Tracer:
             mids = lv.get("open", [])
             if mids:
                 opened = _open_fused(fabric.open_authenticated_many,
-                                     [eval_local(n.deps[0]).reshape(_numel(n))
+                                     [eval_local(n.deps[0]).local.reshape(_numel(n))
                                       for n in mids])
                 for n, v in zip(mids, opened):
-                    values[n.nid] = v.reshape(*n.shape)
+                    values[n.nid] = v.local.reshape(*n.shape)
             muls = lv.get("mul", [])
             invs = lv.get("inv", [])
             if muls:
-                lhs = [eval_local(n.deps[0]).reshape(_numel(n)) for n in muls]
-                rhs = [eval_local(n.deps[1]).reshape(_numel(n)) for n in muls]
+                lhs = [eval_local(n.deps[0]).local.reshape(_numel(n)) for n in muls]
+                rhs = [eval_local(n.deps[1]).local.reshape(_numel(n)) for n in muls]
                 for n, v in zip(muls, _fused(fabric.mul, lhs, rhs)):
                     values[n.nid] = v
             if invs:
-                xs = [eval_local(n.deps[0]).reshape(_numel(n)) for n in invs]
+                xs = [eval_local(n.deps[0]).local.reshape(_numel(n)) for n in invs]
                 for n, v in zip(invs, _fused(
                         lambda x: fabric.inverse(x, defer_check=True), xs)):
                     values[n.nid] = v
             pmuls = lv.get("pmul", [])
             if pmuls:
-                pts = [eval_local(n.deps[0]).reshape(_numel(n))
+                pts = [eval_local(n.deps[0]).local.reshape(_numel(n))
                        for n in pmuls]
-                scs = [eval_local(n.deps[1]).reshape(_numel(n))
+                scs = [eval_local(n.deps[1]).local.reshape(_numel(n))
                        for n in pmuls]
                 for n, v in zip(pmuls, _fused(fabric.mul_points, scs, pts)):
                     values[n.nid] = v
@@ -615,19 +615,19 @@ class Tracer:
                 h.value = values[h.node.nid]
         if terminal:
             opened = _open_fused(fabric.open_authenticated_many, [
-                eval_local(h.source.node).reshape(_numel(h.source.node))
+                eval_local(h.source.node).local.reshape(_numel(h.source.node))
                 for h in terminal])
             for h, v in zip(terminal, opened):
-                h.value = v.reshape(*h.source.shape)
+                h.value = v.local.reshape(*h.source.shape)
         if self.point_opens:
             from . import points
 
             opened = _open_fused(
                 functools.partial(points.open_authenticated_points_many, fabric),
-                [eval_local(h.source.node).reshape(_numel(h.source.node))
+                [eval_local(h.source.node).local.reshape(_numel(h.source.node))
                  for h in self.point_opens])
             for h, v in zip(self.point_opens, opened):
-                h.value = v.reshape(*h.source.shape)
+                h.value = v.local.reshape(*h.source.shape)
         if verify:
             fabric.verify_deferred()
         return [eval_local(o.node) for o in outputs]

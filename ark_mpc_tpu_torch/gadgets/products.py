@@ -77,7 +77,7 @@ def prefix_product(fabric: MpcFabric, values, defer_check: bool = False):
     if isinstance(values, TracedShare):
         return _prefix_product_traced(values, b, b_inv)
     n = values.size
-    flat = values.reshape(n)
+    flat = values.local.reshape(n)
 
     # blinded_i = b_inv[i-1] * v_i * b[i]  (two Beaver rounds)
     partial = fabric.mul(b_inv[:n], flat)
@@ -89,7 +89,7 @@ def prefix_product(fabric: MpcFabric, values, defer_check: bool = False):
     # one Beaver round with b_inv[i+1] to cancel the right blinder
     left = _broadcast_share(b[0], n).mul_public(prefixes)
     out = fabric.mul(left, b_inv[1:])
-    return out.reshape(*values.shape)
+    return out.local.reshape(*values.shape)
 
 
 def _prefix_product_traced(values: TracedShare, b, b_inv):

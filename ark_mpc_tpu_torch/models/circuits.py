@@ -59,15 +59,15 @@ def shared_matmul(fabric: MpcFabric, a: ScalarShare, b: ScalarShare) -> ScalarSh
         if mesh is not None and a.replicated:
             a = shard(a, mesh)
     q_b = q if mesh is None or b.replicated else shard(q, mesh)  # B's rows of Q
-    d_flat = (a - p).reshape(a.size)
-    e_flat = (b - q_b).reshape(b.size)
+    d_flat = (a - p).local.reshape(a.size)
+    e_flat = (b - q_b).local.reshape(b.size)
     if d_flat.replicated == e_flat.replicated:
         opened = fabric.open(ScalarShare.concatenate([d_flat, e_flat]))
         d_open, e_open = opened.local[: a.size], opened.local[a.size:]
     else:  # one exchange, each in its own placement
         d_open, e_open = fabric.open_many([d_flat, e_flat])
-    d = d_open.reshape(*a.shape)
-    e = e_open.reshape(*b.shape)
+    d = d_open.local.reshape(*a.shape)
+    e = e_open.local.reshape(*b.shape)
     if mesh is not None:
         e = gather(e, mesh)
     res = q.matmul_public_left(d) + p.matmul_public_right(e) + c

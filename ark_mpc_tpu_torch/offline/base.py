@@ -233,7 +233,7 @@ class TrustedDealerSource(PreprocessingPhase):
 
         def deal_mat(v):
             mine = self._mine(self._deal(v.reshape(v.size)))
-            return mine.reshape(*v.shape)
+            return mine.local.reshape(*v.shape)
 
         return deal_mat(p), deal_mat(q), deal_mat(c)
 

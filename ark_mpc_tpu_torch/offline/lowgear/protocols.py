@@ -52,7 +52,7 @@ def open_and_check_macs(fabric: MpcFabric, shares: ScalarShare) -> Scalar:
     check (`lowgear/mac_check.rs:14-48`): fold t = sum r_i (key v_i - mac_i)
     and commit-reveal the fold shares; abort unless they sum to zero."""
     n = shares.size
-    flat = shares.reshape(n)
+    flat = shares.local.reshape(n)
     opened = fabric.open(flat)
     coins = public_coin_scalars(fabric, n)
     t = mac_check_fold(fabric.mac_key, opened, flat.mac, coins)

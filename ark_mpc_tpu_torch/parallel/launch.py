@@ -58,17 +58,17 @@ def _notes(store_path: str, n_ranks: int) -> str:
 
 
 def run_rank(fn, rank: int, n_ranks: int, store_path: str, device_type: str,
-             args: tuple = (), timeout: float = 600.0, threads: int | None = None):
+             args: tuple = (), timeout: float = 600.0):
     """Join the process group as `rank`, run `fn(mesh, *args)`, wait for
     every rank to finish it, leave the group; -> fn's result.  A collective
     that waits longer than `timeout` seconds raises.  A gloo rank computes
-    with `threads` intra-op threads (default: its share of the host's
-    cores)."""
+    with one intra-op thread: its work is a stream of small operations,
+    which more threads slow down wherever other work loads the host."""
     if device_type == "cuda":
         torch.cuda.set_device(rank)
         backend, device = "nccl", torch.device("cuda", rank)
     else:
-        torch.set_num_threads(threads or max(1, (os.cpu_count() or 1) // n_ranks))
+        torch.set_num_threads(1)
         backend, device = "gloo", torch.device("cpu")
     dist.init_process_group(backend, store=dist.FileStore(store_path, n_ranks),
                             rank=rank, world_size=n_ranks,
@@ -83,30 +83,25 @@ def run_rank(fn, rank: int, n_ranks: int, store_path: str, device_type: str,
         dist.destroy_process_group()
 
 
-def _rank_main(fn, rank, n_ranks, store_path, device_type, args, timeout, threads,
-               results):
+def _rank_main(fn, rank, n_ranks, store_path, device_type, args, timeout, results):
     global _NOTE_PATH
     _NOTE_PATH = f"{store_path}.note{rank}"
     try:
-        out = run_rank(fn, rank, n_ranks, store_path, device_type, args, timeout, threads)
+        out = run_rank(fn, rank, n_ranks, store_path, device_type, args, timeout)
     except BaseException:  # noqa: BLE001 - reported to the parent, then exit 1
         results.put((rank, False, traceback.format_exc()))
         raise SystemExit(1)
     results.put((rank, True, out))
 
 
-def launch(fn, n_ranks: int, *args, device=None, timeout: float = 600.0,
-           threads: int | None = None) -> list:
+def launch(fn, n_ranks: int, *args, device=None, timeout: float = 600.0) -> list:
     """Run `fn(mesh, *args)` on `n_ranks` spawned ranks; -> their results by
     rank.  `device` (default: the CUDA cards, rank r on cuda:r) or "cpu" for
-    gloo ranks, each with `threads` intra-op threads (default: its share of
-    the host's cores; a host that other work loads is better served by
-    one, where a rank's work is a stream of small ops).  `fn` must be
-    importable by name and its arguments and result picklable.  If a rank
-    raises or dies, the others are terminated and `RuntimeError` carries
-    its traceback; if the ranks are not done within `timeout` seconds,
-    `TimeoutError`; either names each rank's last `note`.  Every process
-    is stopped before this returns."""
+    gloo ranks.  `fn` must be importable by name and its arguments and
+    result picklable.  If a rank raises or dies, the others are terminated
+    and `RuntimeError` carries its traceback; if the ranks are not done
+    within `timeout` seconds, `TimeoutError`; either names each rank's
+    last `note`.  Every process is stopped before this returns."""
     device_type = resolve_device(device).type
     if device_type == "cuda" and n_ranks > torch.cuda.device_count():
         raise ValueError(f"{n_ranks} ranks need {n_ranks} CUDA cards (NCCL takes "
@@ -118,7 +113,7 @@ def launch(fn, n_ranks: int, *args, device=None, timeout: float = 600.0,
         store = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(fn, r, n_ranks, store, device_type, args,
-                                   timeout, threads, results))
+                                   timeout, results))
                  for r in range(n_ranks)]
         for p in procs:
             p.start()

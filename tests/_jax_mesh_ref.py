@@ -1,6 +1,6 @@
 """Subprocess body for the JAX side of the port's mesh tests.
 
-    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [points | small | view]
+    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [points | small]
 
 reads the inputs `test_torch_parallel.py` made (`_torch_mesh_prog.py`'s
 IN.pkl) and writes what the JAX package computes from them on an N-device
@@ -8,15 +8,16 @@ virtual CPU mesh (`jax_num_cpu_devices` = N, fixed when the backend
 starts, hence a fresh interpreter): `sharded_mul_mac_step` for both parties
 beside the unsharded `beaver_mul_step` + `mac_check_fold`,
 `sharded_rlc_fold` beside the plain fold, `tests/_mesh_fabric_prog.py`'s
-honest program and the scalar operations' program (`ops_program`, the
-calls of `_torch_mesh_prog.ops_program` in the same order), each through
-`execute_mock_mpc_dealer(..., mesh=)`.  With `points` it runs the point
-protocols' program (`_torch_mesh_prog.points_program`, its two halves)
-and the index program with its point batch alone, with `small` the
-small-batch programs (batches smaller than the mesh, `small_records`)
-alone, and with `view` the global view's programs (indexing a shard and
-`shared_matmul` at the reference's shapes, `global_view_records`) alone.  It runs in
-a process of its own so that the XLA compilations (a few GiB) do not stay
+honest program, the scalar operations' program (`ops_program`, the
+calls of `_torch_mesh_prog.ops_program` in the same order) and the global
+view's programs (indexing a shard and `shared_matmul` at the reference's
+shapes, `global_view_records`, after `ops_program`, whose compilations
+they reuse), each through `execute_mock_mpc_dealer(..., mesh=)`.  With
+`points` it runs the point protocols' program
+(`_torch_mesh_prog.points_program`, its two halves) and the index program
+with its point batch alone, and with `small` the small-batch programs
+(batches smaller than the mesh, `small_records`) alone.  It runs in a
+process of its own so that the XLA compilations (a few GiB) do not stay
 in the test worker.
 """
 
@@ -37,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 import ark_mpc_tpu as ref  # noqa: E402
+import ark_mpc_tpu.ops.matmul as ref_matmul  # noqa: E402
 from ark_mpc_tpu.algebra import poly  # noqa: E402
 from ark_mpc_tpu.algebra.curve import CurvePoint  # noqa: E402
 from ark_mpc_tpu.algebra.point_share import PointShare  # noqa: E402
@@ -186,8 +188,10 @@ def prefix_program(inp, n):
     return prog
 
 
-INDICES = (("0", 0), ("-1", -1), ("1:3", slice(1, 3)), ("::2", slice(None, None, 2)))
-MATMUL_SHAPES = ((1, 2, 1), (2, 2, 4), (1, 3, 1))  # as `_torch_mesh_prog.py`'s
+# as `_torch_mesh_prog.py`'s
+SELECTIONS = (("0", lambda v: v[0]), ("-1", lambda v: v[-1]), ("1:3", lambda v: v[1:3]),
+              ("::2", lambda v: v[::2]), ("reshape(2, -1)", lambda v: v.reshape(2, -1)))
+MATMUL_SHAPES = ((1, 2, 1), (2, 2, 4), (1, 3, 1))
 
 
 def affine_ints(pt) -> list:
@@ -207,14 +211,14 @@ def index_program(inp, with_points: bool = False):
         n = len(inp["xs"])
         x = share_in(fabric, inp["xs"], 0)
         x_open = fabric.open(x)
-        shares = {name: x[idx] for name, idx in INDICES}
-        opens = {name: x_open[idx] for name, idx in INDICES}
+        shares = {name: sel(x) for name, sel in SELECTIONS}
+        opens = {name: sel(x_open) for name, sel in SELECTIONS}
         cat = ref.ScalarShare.concatenate([v.reshape(v.size) for v in shares.values()])
         opened_cat = fabric.open_authenticated(cat, defer=True)
         if with_points:
             pub = CurvePoint.generator((n,)).mul(ref.Scalar.from_ints(inp["gs"]))
             sp = fabric.share_points(pub if fabric.party_id == 0 else None, sender=0, n=n)
-            points = {name: sp[idx] for name, idx in INDICES}
+            points = {name: sel(sp) for name, sel in SELECTIONS}
             flat = [v.reshape(v.size) for v in points.values()]
             p_opened = fabric.open_authenticated_points(PointShare.concatenate(flat),
                                                         defer=True)
@@ -260,13 +264,42 @@ def raised(prog, mesh) -> str:
     return "no error"
 
 
+def padded_mont_matmul(spec, a, b, shape=MAT_DIMS):
+    """The JAX package's `mont_matmul` of a (16, m, k) @ (16, k, n) with m
+    and k at most `shape`'s: its operands zero-padded to `shape`, in blocks
+    of its n columns, so that every product reuses `ops_program`'s four
+    compilations of that shape (one an argument sharding).  Each entry's
+    limbs are the same: every step after the integer contraction is
+    element-wise over (m, n), and the padding adds zero terms."""
+    (big_m, big_k, big_n), (m, k, n) = shape, (a.shape[1], a.shape[2], b.shape[2])
+    if m > big_m or k > big_k or (m, k, n) == shape:
+        return _MONT_MATMUL(spec, a, b)
+    a = jnp.pad(a, ((0, 0), (0, big_m - m), (0, big_k - k)))
+    blocks = []
+    for j in range(0, n, big_n):
+        bj = b[:, :, j:j + big_n]
+        bj = jnp.pad(bj, ((0, 0), (0, big_k - k), (0, big_n - bj.shape[2])))
+        blocks.append(_MONT_MATMUL(spec, a, bj)[:, :m, :min(big_n, n - j)])
+    return blocks[0] if len(blocks) == 1 else jnp.concatenate(blocks, axis=2)
+
+
+_MONT_MATMUL = ref_matmul.mont_matmul
+
+
 def global_view_records(inputs, mesh) -> dict:
     """The global view's programs on `mesh` (`_torch_mesh_prog`'s
-    `case_index` and `case_matmul_shapes`), and what a 2-device mesh makes
+    `case_index` and `case_matmul_shapes`: each shape the mesh takes, its
+    products through `padded_mont_matmul`), and what a 2-device mesh makes
     of (1, 3) @ (3, 1): the error's "TypeName: message"."""
+    shapes = [s for s in MATMUL_SHAPES if mesh.size > 3 or s != (1, 3, 1)]
+    ref_matmul.mont_matmul = padded_mont_matmul
+    try:
+        matmul = {s: execute_mock_mpc_dealer(matmul_program(inputs, s), mesh=mesh)
+                  for s in shapes}
+    finally:
+        ref_matmul.mont_matmul = _MONT_MATMUL
     return {"index": execute_mock_mpc_dealer(index_program(inputs), mesh=mesh),
-            "matmul": {s: execute_mock_mpc_dealer(matmul_program(inputs, s), mesh=mesh)
-                       for s in MATMUL_SHAPES},
+            "matmul": matmul,
             "matmul_131_on_2": raised(matmul_program(inputs, (1, 3, 1)), step.make_mesh(2))}
 
 
@@ -337,13 +370,12 @@ if __name__ == "__main__":
                                                 mesh=mesh)}
     elif sys.argv[4:] == ["small"]:
         out = {"small": small_records(inputs, mesh)}
-    elif sys.argv[4:] == ["view"]:
-        out = {"view": global_view_records(inputs, mesh)}
     else:
         out = {"step": step_refs(inputs, mesh),
                "fabric": execute_mock_mpc_dealer(
                    honest_program(inputs["xs"], inputs["ys"]), mesh=mesh),
                "ops": execute_mock_mpc_dealer(ops_program(inputs), mesh=mesh)}
+        out["view"] = global_view_records(inputs, mesh)
     with open(sys.argv[3], "wb") as fh:
         pickle.dump(out, fh)
     print(f"JAX_MESH_REF_OK {N_DEV}")

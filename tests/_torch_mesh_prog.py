@@ -4,8 +4,9 @@
 
 spawns N gloo CPU ranks (`ark_mpc_tpu_torch.parallel.launch`, one
 intra-op thread a rank) and runs every case below on each rank, in a few
-launches (`GROUPS`), each within `LAUNCH_TIMEOUT`; each rank notes the
-case it is in, so a launch that times out names it.  Each case's result,
+launches (`GROUPS`), each within `LAUNCH_TIMEOUT` and all within
+`SIDE_TIMEOUT`; each rank notes the case it is in, so a launch that times
+out names it.  Each case's result,
 or its traceback, is kept by name (a launch that fails or times out
 records its message for each of its cases), and the list of the ranks'
 results is written to OUT.pkl.  IN.pkl holds the inputs the test made
@@ -13,8 +14,9 @@ from numpy seeds: the sharded step's limb arrays, the mesh-fabric
 program's values (`tests/_mesh_fabric_prog.py`), and the values of the
 scalar operations', point protocols' and global view's programs
 (`ops_program`, `points_program`, `index_program`, `matmul_program`;
-`tests/_jax_mesh_ref.py` mirrors them call for call).  `test_torch_parallel.py` holds the results against the
-JAX package and against the port's unsharded fabric.
+`tests/_jax_mesh_ref.py` mirrors them call for call).
+`test_torch_parallel.py` holds the results against the JAX package and
+against the port's unsharded fabric.
 """
 
 import os
@@ -584,8 +586,10 @@ def case_prefix_small(mesh, inp):
             for n in prefix_sizes(mesh.size)}
 
 
-# the global view's selections of an 8-element batch (`index_program`)
-INDICES = (("0", 0), ("-1", -1), ("1:3", slice(1, 3)), ("::2", slice(None, None, 2)))
+# the global view's selections of an 8-element batch (`index_program`):
+# four indices and a reshape whose -1 is the global batch's
+SELECTIONS = (("0", lambda v: v[0]), ("-1", lambda v: v[-1]), ("1:3", lambda v: v[1:3]),
+              ("::2", lambda v: v[::2]), ("reshape(2, -1)", lambda v: v.reshape(2, -1)))
 # shared_matmul's (m, k, n) beside MAT_DIMS: rows and whole operands below
 # the mesh size, shards holding part of a row; (1, 3, 1) only where the
 # mesh size is above 3 (on 2 ranks both packages refuse its 3-element
@@ -608,7 +612,7 @@ def split_affine(opened, sizes) -> list:
 
 
 def index_program(inp):
-    """`INDICES` of an 8-element shared batch, of its opened value and of an
+    """`SELECTIONS` of an 8-element shared batch, of its opened value and of an
     8-point shared batch; each scalar selection opened (deferred), the
     point selections gathered and opened together (one deferred open: each
     point open costs curve arithmetic on every rank), and checked; ->
@@ -625,9 +629,9 @@ def index_program(inp):
         pub = (CurvePoint.generator((n,), device=dev).mul(Scalar.from_ints(inp["gs"], device=dev))
                if fabric.party_id == 0 else None)
         sp = fabric.share_points(pub, sender=0, n=n)
-        shares = {name: x[idx] for name, idx in INDICES}
-        points = {name: sp[idx] for name, idx in INDICES}
-        opens = {name: x_open[idx] for name, idx in INDICES}
+        shares = {name: sel(x) for name, sel in SELECTIONS}
+        points = {name: sel(sp) for name, sel in SELECTIONS}
+        opens = {name: sel(x_open) for name, sel in SELECTIONS}
         opened = {name: fabric.open_authenticated(v, defer=True) for name, v in shares.items()}
         flat = [w.reshape(w.size) for w in (whole(v, fabric) for v in points.values())]
         p_opened = fabric.open_authenticated_points(PointShare.concatenate(flat), defer=True)
@@ -709,12 +713,17 @@ CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case
 # test module at once stretch that ~6x): the point cases take most of it
 # (their curve arithmetic is plain torch on every rank, each scalar
 # multiplication ~0.4 s whatever the batch), so they have launches of their
-# own
-POINT_CASES = (("points_elementwise",), ("points_sums",),
-               ("point_cheat_one_rank_pair", "small_one", "index"))
-SCALAR_CASES = tuple(c for c in CASES if c not in sum(POINT_CASES, ()))
-GROUPS = (SCALAR_CASES[:9], SCALAR_CASES[9:], *POINT_CASES)
+# own.  Every case is in exactly one group.
+GROUPS = (("step", "fabric", "corrupt", "cheat_one_rank_pair", "coins", "unaligned",
+           "fold_default", "batch_rule", "ops"),
+          ("traced_mixed_levels", "mixing", "prefix_product_refuses", "small_three",
+           "prefix_small", "index_values", "matmul_shapes"),
+          ("points_elementwise",), ("points_sums",),
+          ("point_cheat_one_rank_pair", "small_one", "index"))
+assert sorted(sum(GROUPS, ())) == sorted(CASES), "every case in exactly one group"
 LAUNCH_TIMEOUT = 210  # seconds a launch (and a collective) may take
+SIDE_TIMEOUT = 720  # seconds a side's launches may take together
+STOP_MARGIN = 20  # seconds a launch may take past its limit to stop its ranks
 
 
 def run_cases(mesh, inp, names=tuple(CASES)):
@@ -734,13 +743,19 @@ def run_groups(n_ranks: int, inp) -> list:
     -> each rank's {case: result}.  A launch that fails or times out costs
     only its own cases: each is recorded on every rank as ("error", the
     launch's message, which names each rank's case), and the next group
-    still runs."""
+    still runs.  The launches end within `SIDE_TIMEOUT` together: each
+    may take what is left of it (stopping its ranks included), at most
+    `LAUNCH_TIMEOUT`, and a group that finds nothing left records that
+    as its cases' error."""
     ranks = [{} for _ in range(n_ranks)]
+    deadline = time.monotonic() + SIDE_TIMEOUT
     for k, names in enumerate(GROUPS):
         t0 = time.monotonic()
+        limit = min(LAUNCH_TIMEOUT, deadline - t0 - STOP_MARGIN)
         try:
-            results = launch(run_cases, n_ranks, inp, names, device="cpu",
-                             timeout=LAUNCH_TIMEOUT, threads=1)
+            if limit < 1:
+                raise TimeoutError(f"not started: the side's {SIDE_TIMEOUT} s were spent")
+            results = launch(run_cases, n_ranks, inp, names, device="cpu", timeout=limit)
             status = "done"
         except (RuntimeError, TimeoutError) as err:
             failed = ("error", f"launch {k + 1} of {len(GROUPS)} stopped: "
@@ -750,7 +765,7 @@ def run_groups(n_ranks: int, inp) -> list:
         for got, res in zip(ranks, results):
             got.update(res)
         print(f"launch {k + 1} of {len(GROUPS)} ({len(names)} cases) {status}: "
-              f"{time.monotonic() - t0:.1f} s of {LAUNCH_TIMEOUT}", flush=True)
+              f"{time.monotonic() - t0:.1f} s of {limit:.0f}", flush=True)
     return ranks
 
 

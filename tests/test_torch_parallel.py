@@ -26,10 +26,11 @@ smaller than the mesh (1 and 3 elements, and `prefix_product` at n + 1 <=
 the mesh size) are held replicated, as the reference holds them: their
 draws are whole, so the JAX package's 4-device record holds them on every
 mesh where they are smaller than it (its small-batch programs run in a
-second JAX process beside the first).  The global view (indexing a shard
-selects global positions, `shared_matmul` at every shape the reference
-takes) is held to a third JAX process's record; its point selections to
-the port's unsharded fabric (and to the JAX mesh in the slow point test).
+second JAX process beside the first).  The global view (indexing and
+reshaping a shard select global positions, `shared_matmul` at every shape
+the reference takes) is held to the first JAX process's record; its point
+selections to the port's unsharded fabric (and to the JAX mesh in the
+slow point test).
 A JAX record is kept under `tests/.jax_cache` for the next run on the
 same inputs and sources (`Memo`).
 """
@@ -61,15 +62,16 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = SCALAR_FIELD.modulus
 # seconds: a stuck collective fails the test, never hangs it.  The JAX
-# side's three processes (~115-200 s each alone from an empty compile
-# cache, 8-core host) and the two torch meshes (~130 s each alone) all
+# side's two processes (~150-180 s each alone from an empty compile
+# cache, 8-core host) and the two torch meshes (~100 s each alone) all
 # start with the module.  A torch side is one launch a group of cases
 # (`mesh_prog.GROUPS`, at most ~30 s of work each alone), each within its own
-# `mesh_prog.LAUNCH_TIMEOUT`; a launch that fails or times out records its
-# message as each of its cases' error, which names each rank's case, so it
-# fails only those tests.  The side's own limit leaves room for every
-# launch to time out.
-PROG_TIMEOUT = len(mesh_prog.GROUPS) * (mesh_prog.LAUNCH_TIMEOUT + 20) + 40
+# `mesh_prog.LAUNCH_TIMEOUT` and all within `mesh_prog.SIDE_TIMEOUT`; a
+# launch that fails or times out (or finds the side's time spent) records
+# its message as each of its cases' error, which names each rank's case, so
+# it fails only those tests.  The side's own limit adds the interpreter's
+# start and the record's writing.
+PROG_TIMEOUT = mesh_prog.SIDE_TIMEOUT + 40
 JAX_TIMEOUT = 500
 JAX_DEVICES = 4
 FAST_XLA = "--xla_backend_optimization_level=0 --xla_llvm_disable_expensive_passes=true"
@@ -177,10 +179,10 @@ class Side:
 
 
 # the JAX side's processes by mode (`_jax_mesh_ref.py`), each with the keys
-# of the record it writes: the main programs, the small-batch programs and
-# the global view's, apart so that no one process's compilations lengthen
-# another's
-JAX_MODES = {"main": ("step", "fabric", "ops"), "small": ("small",), "view": ("view",)}
+# of the record it writes: the main programs with the global view's (which
+# reuse their compilations), and the small-batch programs, apart so that
+# neither process's compilations lengthen the other's
+JAX_MODES = {"main": ("step", "fabric", "ops", "view"), "small": ("small",)}
 
 
 class Memo:
@@ -652,13 +654,13 @@ def test_point_protocols_match_the_unsharded_fabric(mesh_run, unsharded_points):
                         assert bool(points_of(g).equals(points_of(w)).all()), name
 
 
-INDEX_NAMES = tuple(name for name, _ in mesh_prog.INDICES)
+INDEX_NAMES = tuple(name for name, _ in mesh_prog.SELECTIONS)
 
 
 def selected(values: list) -> dict:
-    """`mesh_prog.INDICES` of a Python list: {name: ints}."""
-    return {name: values[idx] if isinstance(idx, slice) else [values[idx]]
-            for name, idx in mesh_prog.INDICES}
+    """`mesh_prog.SELECTIONS` of a Python list: {name: ints, row-major}."""
+    arr = np.asarray(values, dtype=object)
+    return {name: np.ravel(sel(arr)).tolist() for name, sel in mesh_prog.SELECTIONS}
 
 
 def test_indexing_a_shard_reads_the_global_batch(mesh_run):
@@ -671,11 +673,12 @@ def test_indexing_a_shard_reads_the_global_batch(mesh_run):
 
 
 def test_indexing_a_shard_selects_global_positions(mesh_run):
-    """x[0], x[-1], x[1:3] and x[::2] of a shared 8-element batch and of
-    its opened value select the global batch's positions: the opens equal
-    Python ints and the JAX package's on its 4-device mesh, and both
-    parties' gathered share and MAC limbs equal the JAX package's bit for
-    bit, on every rank."""
+    """x[0], x[-1], x[1:3], x[::2] and x.reshape(2, -1) of a shared
+    8-element batch and of its opened value select the global batch's
+    positions (the reshape is the global (2, 4)): the opens equal Python
+    ints and the JAX package's on its 4-device mesh, and both parties'
+    gathered share and MAC limbs equal the JAX package's bit for bit, on
+    every rank."""
     _, inp, ranks, jax_ref = mesh_run
     want = selected(inp["xs"])
     for parties in case(ranks, "index"):
@@ -712,12 +715,13 @@ def test_indexing_a_point_shard_selects_global_positions(mesh_run, unsharded_poi
 
 
 def test_index_placement_follows_the_small_batch_rule(mesh_run):
-    """A selection with fewer elements than the mesh is replicated (a
-    single element always), one whose size the mesh size divides is a
-    shard, alike for shares, point shares and opened values; a list or a
-    tuple index of a shard raises `ValueError` naming the mesh."""
+    """A selection with fewer elements (or a reshape with fewer rows) than
+    the mesh is replicated (a single element always), one whose size the
+    mesh size divides is a shard, alike for shares, point shares and opened
+    values; a list or a tuple index of a shard raises `ValueError` naming
+    the mesh."""
     n_ranks, _, ranks, _ = mesh_run
-    sizes = {"0": 1, "-1": 1, "1:3": 2, "::2": 4}
+    sizes = {"0": 1, "-1": 1, "1:3": 2, "::2": 4, "reshape(2, -1)": 2}
     for parties in case(ranks, "index"):
         for pid in (0, 1):
             for name, marks in parties[pid]["placement"].items():
@@ -789,11 +793,15 @@ def test_mixing_a_shard_with_a_replicated_batch_raises(mesh_run):
 def test_jax_record_does_not_depend_on_the_mesh_or_the_xla_level(inputs, sides, tmp_path):
     """The JAX side's record on a 2-device mesh at XLA's default
     optimization level equals the module's (4 devices, level 0) exactly:
-    what lets one JAX run hold every torch mesh."""
+    what lets one JAX run hold every torch mesh.  (The global view's
+    record, whose (1, 3) @ (3, 1) a 2-device mesh refuses, is held by the
+    mesh tests at 2 and 4 ranks.)"""
     _, in_path = inputs
     finish(jax_mesh(2, in_path, tmp_path / "ref2.pkl", fast=False), "JAX_MESH_REF_OK 2",
            timeout=900)
-    assert pickle.dumps(load(tmp_path / "ref2.pkl")) == pickle.dumps(sides.jax["main"].result())
+    got, want = load(tmp_path / "ref2.pkl"), sides.jax["main"].result()
+    assert pickle.dumps({k: got[k] for k in JAX_MODES["main"] if k != "view"}) == \
+        pickle.dumps({k: want[k] for k in JAX_MODES["main"] if k != "view"})
 
 
 @pytest.mark.slow
@@ -916,7 +924,7 @@ def same(a, b) -> bool:
 
 def test_local_accessor_off_a_mesh():
     """Off a mesh `x.local[idx]` is `x[idx]` for every index (integers,
-    slices, tuples, index tensors), and `reshape` is the local one, for
+    slices, tuples, index tensors), and `x.local.reshape` is `reshape`, for
     field arrays, shares, point batches and point shares."""
     from ark_mpc_tpu_torch.algebra.placement import thread_mesh
 
@@ -925,14 +933,18 @@ def test_local_accessor_off_a_mesh():
     for x in batches():
         for idx in idxs:
             assert same(x.local[idx], x[idx]), (type(x).__name__, idx)
+        for shape in ((2, 4), (2, -1), ((4, 2),)):
+            assert same(x.local.reshape(*shape), x.reshape(*shape)), (type(x).__name__, shape)
         assert same(x.reshape(2, 4).local[1], x.local[4:])
 
 
 def test_global_view_of_a_shard_without_a_collective():
     """On a 2-rank mesh (a thread mesh with no process group, so any
-    collective would raise): `local[...]` takes the rank's own elements, a
-    reshape whose rows the mesh divides is the rank's rows, a replicated
-    value indexes as it is, and a list or tuple index of a shard raises
+    collective would raise): `local[...]` and `local.reshape` take the
+    rank's own elements, a reshape whose rows the mesh divides is the
+    rank's rows of the global shape (its -1 the global batch's), a
+    replicated value indexes as it is, and a list or tuple index of a
+    shard, or a reshape to a shape the global batch does not take, raises
     `ValueError` naming the mesh before any collective."""
     from ark_mpc_tpu_torch.algebra.placement import mark, set_thread_mesh
 
@@ -953,10 +965,17 @@ def test_global_view_of_a_shard_without_a_collective():
             assert same(x.local[1:3], whole.local[1:3])
             rows = x.reshape(4, 2)  # the global (4, 2): the rank's 2 rows, no collective
             assert rows.shape == (2, 2) and rows.replicated is False
-            assert same(rows, whole.local[0:4].reshape(2, 2))
+            assert same(rows, x.local.reshape(2, 2))
+            half = x.reshape(2, -1)  # the global (2, 4), not the rank's (2, 2)
+            assert half.shape == (1, 4) and half.replicated is False
+            assert same(half, x.local.reshape(1, 4))
+            assert same(x.local.reshape(4, 1), whole.local[0:4].local.reshape(4, 1))
             for idx in ([0, 1], (slice(None),), torch.tensor([0])):
                 with pytest.raises(ValueError, match="2-rank mesh"):
                     x[idx]
+            for shape in ((4, 1), (3, -1)):
+                with pytest.raises(ValueError, match="2-rank mesh"):
+                    x.reshape(*shape)
     finally:
         set_thread_mesh(None)
 
