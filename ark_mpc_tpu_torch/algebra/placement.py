@@ -35,18 +35,22 @@ The mesh of the fabric a thread runs (`MpcFabric` sets it) is what
 batch-axis reductions that take no fabric (`ScalarShare.sum`) reduce over,
 and what a shard's global view reads.
 
-The global view: on that mesh, `x[i]`, `x[-i]`, `x[a:b]` and `x[a:b:s]` of
-a shard select global positions, as indexing the reference's global array
-does (`global_item`: one all-gather over the party's ranks, the index, then
-the small-batch rule: a result with fewer elements than the mesh is
-replicated, one whose size the mesh divides is a shard, any other size
-raises `ValueError` naming the mesh).  Any other index of a shard raises
-`ValueError` naming the mesh.  `reshape` of a shard is the global reshape
-(`global_reshape`): the shape is the global batch's, or `ValueError` naming
-the mesh.  `x.local[idx]` and `x.local.reshape(*shape)` index and reshape
-the rank's own elements with no collective: what the fabric's internals
-mean by an index or a shape.  Off a mesh, and on a replicated or unmarked
-value, the global and the local forms agree.
+The global view: on that mesh, indexing a shard selects global positions,
+as indexing the reference's global array does (`global_item`): an integer
+(also negative), a slice, a list or an integer array (numpy or torch) of
+positions, a boolean mask, and on a shard of more than one axis a tuple of
+these (`x[i, j]`, `x[:, j]`).  Each is one all-gather over the party's
+ranks, the index, then the small-batch rule: a result whose leading axis
+is at least the mesh size and a multiple of it is a shard, any other is
+held replicated (whole on every rank, as the reference holds a global array
+whose size the mesh does not divide).  An index of a type the reference
+refuses (a float, say) raises `TypeError`, on a shard before any
+collective.  `reshape` of a shard is the global reshape (`global_reshape`):
+the shape is the global batch's, or `ValueError` naming the mesh.
+`x.local[idx]` and `x.local.reshape(*shape)` index and reshape the rank's
+own elements with no collective: what the fabric's internals mean by an
+index or a shape.  Off a mesh, and on a replicated or unmarked value, the
+global and the local forms agree.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ import math
 import threading
 
 import numpy as np
+import torch
 
 _THREAD = threading.local()
 
@@ -123,6 +128,37 @@ def same_placement(items) -> bool:
     return flags.pop()
 
 
+def join(items: list, replicated: bool | None = None):
+    """The items' own elements end to end (flat, in item order) as one
+    share of their type (`ScalarShare` or `PointShare`), whatever their
+    placements: what a fused call sends and computes on.  It is marked
+    `replicated` (default: where every item is), else a shard; a join of
+    mixed placements is a fused call's internal value, which `split`
+    takes apart."""
+    flat = [it.local.reshape(it.size) for it in items]
+    if replicated is None:
+        replicated = all(it.replicated for it in flat)
+    if len(flat) == 1:
+        return type(flat[0])(flat[0].share, flat[0].mac, replicated)
+    kind = type(flat[0].share)
+    return type(flat[0])(kind.concatenate([it.share for it in flat]),
+                         kind.concatenate([it.mac for it in flat]), replicated)
+
+
+def split(value, items: list, placements: list | None = None) -> list:
+    """`value`'s consecutive slices of the items' sizes, each marked with its
+    item's placement (or `placements`'s) and shaped as the item: the
+    results of a fused call on `join(items)`."""
+    if placements is None:
+        placements = [it.replicated for it in items]
+    out, at = [], 0
+    for it, rep in zip(items, placements):
+        part = value.local[at:at + it.size]
+        at += it.size
+        out.append(mark(part, bool(rep)).local.reshape(*it.shape))
+    return out
+
+
 class LocalView:
     """`x.local[idx]` and `x.local.reshape(*shape)`: x's own elements at
     positions `idx` of the rank's tensor, or reshaped to a shape of the
@@ -175,41 +211,47 @@ def shard_mesh(x):
     return mesh
 
 
-def _place_selection(whole, mesh, what: str):
-    """A global value selected from a shard, placed by the small-batch
-    rule (`parallel.step.shard`), or `ValueError` naming the mesh where
-    its size neither is below the mesh size nor a multiple of it."""
-    from ..parallel.step import shard, small
+def _place_selection(whole, mesh):
+    """A global value selected from a shard (gathered, so marked
+    replicated), placed by the small-batch rule: the rank's shard where its
+    leading axis is at least the mesh size and a multiple of it, else held
+    replicated as it is (fewer elements than the mesh, a single value, or a
+    size the mesh does not divide)."""
+    from ..parallel.step import shard
 
-    n = whole.shape[0] if whole.shape else 1
-    if whole.shape and not small(mesh, n) and n % mesh.size:
-        unit = "elements" if len(whole.shape) == 1 else "rows"
-        raise ValueError(
-            f"{what} of a shard of the {mesh.size}-rank mesh gives {n} {unit}, "
-            f"which is neither fewer than the mesh size (held replicated) nor a "
-            f"multiple of it (sharded); gather the shard first "
-            f"(`parallel.step.gather`) to hold the result whole")
-    return shard(whole, mesh)
+    n = whole.shape[0] if whole.shape else 0
+    if n >= mesh.size and n % mesh.size == 0:
+        return shard(whole, mesh)
+    return whole
+
+
+def _integral(part) -> bool:
+    """Whether one part of an index is of a type the reference takes: an
+    integer, a slice, None, an ellipsis, or a sequence or array of integers
+    or booleans."""
+    if part is None or part is Ellipsis or isinstance(part, (slice, int, np.integer, np.bool_)):
+        return True
+    if isinstance(part, torch.Tensor):
+        return not (part.is_floating_point() or part.is_complex())
+    arr = np.asarray(part)
+    return arr.size == 0 or arr.dtype.kind in "biu"
 
 
 def global_item(x, idx):
-    """x[idx], on a shard the global batch's positions: an integer (also
-    negative) or a slice of the batch axis; -> the selection, placed by the
+    """x[idx], on a shard the global batch's positions: any index the
+    reference takes (module docstring); -> the selection, placed by the
     small-batch rule.  Every rank of the party calls it alike (one
     all-gather).  Off a shard, `x.local[idx]`."""
+    for part in idx if isinstance(idx, tuple) else (idx,):
+        if not _integral(part):
+            raise TypeError(f"Indexer must have integer or boolean type, got indexer "
+                            f"{part!r}")
     mesh = shard_mesh(x)
     if mesh is None:
         return x._take(idx)
-    if not (isinstance(idx, slice) or (isinstance(idx, (int, np.integer))
-                                       and not isinstance(idx, (bool, np.bool_)))):
-        raise ValueError(
-            f"index {idx!r} of a shard of the {mesh.size}-rank mesh: a shard takes "
-            f"an integer or a slice of its batch axis (global positions); gather "
-            f"it first (`parallel.step.gather`), or take the rank's own elements "
-            f"with `.local[...]`")
     from ..parallel.step import gather
 
-    return _place_selection(gather(x, mesh)._take(idx), mesh, f"index {idx!r}")
+    return _place_selection(gather(x, mesh)._take(idx), mesh)
 
 
 def _resolve(shape: tuple, n: int):
@@ -227,10 +269,9 @@ def global_reshape(x, shape: tuple):
     """x.reshape(*shape), on a shard the global batch's: a shape whose rows
     the mesh size divides is the rank's rows of it (its chunk of the
     row-major batch, no collective); any other is gathered, reshaped and
-    placed by the small-batch rule (fewer rows than the mesh: replicated;
-    else `ValueError` naming the mesh).  A shape that does not fit the
-    global batch raises `ValueError` naming the mesh.  Off a shard,
-    `x.local.reshape(*shape)`."""
+    placed by the small-batch rule (rows the mesh size does not divide:
+    replicated).  A shape that does not fit the global batch raises
+    `ValueError` naming the mesh.  Off a shard, `x.local.reshape(*shape)`."""
     mesh = shard_mesh(x)
     if mesh is None:
         return x._reshape(shape)
@@ -245,5 +286,4 @@ def global_reshape(x, shape: tuple):
         return x._reshape((full[0] // mesh.size,) + full[1:])
     from ..parallel.step import gather
 
-    return _place_selection(gather(x, mesh)._reshape(full), mesh,
-                            f"reshape to {full}")
+    return _place_selection(gather(x, mesh)._reshape(full), mesh)

@@ -27,12 +27,10 @@ and every value it holds has one of two placements (`algebra/placement.py`):
     the mesh.  Values held whole (unmarked) enter through `_place` (the
     rank's slice); a value already marked a shard, such as one opened from
     a shard, stays as it is; sizes given to the fabric (`n` of
-    `share_values`, the offline passthroughs, `share_public`'s batch) are
-    global, and one at least the mesh size must be a multiple of it, else
-    `ValueError` naming the mesh (the reference raises there too); offline
-    material is drawn through `ShardedSource` (each rank draws the global
-    batch and keeps its slice, so every position holds the reference's
-    material);
+    `share_values`, the offline passthroughs) are global, and one at
+    least the mesh size must be a multiple of it, else `ValueError` naming
+    the mesh, where the reference's `_place` raises (so does an inversion
+    of such a global batch);
   - replicated (`replicated = True`): every rank of the party holds the
     whole, with the same limbs: a global batch smaller than the mesh, or
     a single value (`parallel.step.small`: nothing to shard, as the
@@ -41,9 +39,18 @@ and every value it holds has one of two placements (`algebra/placement.py`):
     point sums and MSM through `sharded_point_sum`), a shared polynomial
     (its coefficients gathered over the party's ranks), a matrix triple's
     Q, and what opening or element-wise operations make of such values.
-    `_place` leaves a replicated value whole, and offline material for
-    replicated operands is drawn whole (`ShardedSource.draw_whole`), so
-    its limbs are the reference dealer's for that global batch.
+    A public batch the fabric places itself (`share_public`, shared
+    points) whose size the mesh does not divide is held replicated too,
+    as the reference leaves it unsharded; `_place` leaves a replicated
+    value whole.
+
+Offline material is one draw of the global batch (`_draw_parts`,
+`ShardedSource.draw_parts`): a fused call on several items (`mul_many`,
+`inverse_many`, `points.beaver_mul_points_many`, the tracer's levels)
+draws their concatenation in item order, as the reference concatenates
+them, and each rank keeps its columns of a shard item and all of a
+replicated one, so every position holds the reference dealer's material
+whatever placements the call mixes.
 
 Element-wise operations carry the placement and raise `ValueError` naming
 the mesh where a shard meets a replicated batch of more than one element;
@@ -74,7 +81,7 @@ import numpy as np
 import torch
 
 from ..algebra import limbs as lb
-from ..algebra.placement import mark, placement, set_thread_mesh
+from ..algebra.placement import join, mark, placement, set_thread_mesh, split
 from ..algebra.scalar import Scalar, public_exponent
 from ..algebra.share import PARTY0, PARTY1, ScalarShare
 from ..device import resolve_device
@@ -151,27 +158,40 @@ class MpcFabric:
     def _place(self, x: Scalar) -> Scalar:
         """The rank's slice of a batch held whole (leading axis): an
         unmarked value (`algebra/placement.py`); a batch smaller than the
-        mesh stays whole, marked replicated.  A single element is a
-        constant, and a replicated value or a shard (a value opened from a
-        shard, say) stays as it is.  No-op without a mesh."""
+        mesh, or one whose size the mesh does not divide, stays whole,
+        marked replicated, as the reference's `share_public` keeps it.  A
+        single element is a constant, and a replicated value or a shard (a
+        value opened from a shard, say) stays as it is.  No-op without a
+        mesh."""
         if self.mesh is None or not x.shape or x.replicated is not None:
             return x
-        return shard(x, self.mesh)
+        return shard(x, self.mesh, hold_uneven=True)
 
     def _draw(self, method: str, n: int, replicated: bool = False):
         """`n` elements of offline material (`method` of the source) for
-        operands of this placement: the rank's slice, or the whole batch
-        where the operands are replicated (off a mesh every batch is whole)."""
-        if replicated and self.mesh is not None:
-            return self.offline.draw_whole(method, n)
-        return getattr(self.offline, method)(n)
+        operands of this placement (`_draw_parts` of one part)."""
+        return self._draw_parts(method, [(n, replicated)])
 
-    def _draw_global(self, method: str, n: int):
+    def _draw_parts(self, method: str, parts: list):
+        """Offline material for a fused call on items of these (the rank's
+        element count, replicated) parts end to end: off a mesh one batch
+        of their total; on a mesh one draw of their global batch in item
+        order, as the reference draws the concatenation, each rank keeping
+        its own columns of a shard and all of a replicated item
+        (`ShardedSource.draw_parts`)."""
+        if self.mesh is None:
+            return getattr(self.offline, method)(sum(n for n, _ in parts))
+        return self.offline.draw_parts(method, parts)
+
+    def _draw_global(self, method: str, n: int, hold_uneven: bool = False):
         """`_draw` for a global batch of `n`: the rank's slice, or the whole
-        of a batch smaller than the mesh (`ValueError` naming the mesh for
-        a larger batch that does not divide it)."""
+        of a batch smaller than the mesh (and, with `hold_uneven`, of one
+        whose size the mesh does not divide); else such a batch raises
+        `ValueError` naming the mesh, as the reference's `_place` does."""
         if self.mesh is None:
             return self._draw(method, n)
+        if hold_uneven and n % self.mesh.size:
+            return self._draw(method, n, True)
         cols = batch_sharding(self.mesh, n)
         return self._draw(method, cols.stop - cols.start, small(self.mesh, n))
 
@@ -258,16 +278,17 @@ class MpcFabric:
         return self.open_many([x])[0]
 
     def open_many(self, xs: list) -> list:
-        """Open several shares in ONE exchange (one array each, so shards
-        and replicated values travel side by side unmixed); -> their values,
-        each with its share's placement.  A replicated share (a batch
-        smaller than the mesh, say) is exchanged and combined whole on
-        every rank, as the reference combines an open whose width does not
-        divide the mesh (`ark_mpc_tpu/fabric/context.py:239-257`)."""
-        with self._timed("open", sum(x.size for x in xs)):
-            theirs = self._exchange_arrays([_wire(x.share) for x in xs])
-            return [mark(x.share + self._from_wire(t, x.shape), x.replicated)
-                    for x, t in zip(xs, theirs)]
+        """Open several shares in ONE exchange of their elements end to end
+        (`placement.join`: each rank pair sends the rank's columns of a
+        shard and all of a replicated value); -> their values, each with its
+        share's placement and shape.  A replicated share (a batch smaller
+        than the mesh, say) is exchanged and combined whole on every rank,
+        as the reference combines an open whose width does not divide the
+        mesh (`ark_mpc_tpu/fabric/context.py:239-257`)."""
+        joined = join(xs)
+        with self._timed("open", joined.size):
+            (theirs,) = self._exchange_arrays([_wire(joined.share)])
+            return split(joined.share + self._from_wire(theirs, joined.shape), xs)
 
     def open_authenticated(self, x: ScalarShare, defer: bool = False) -> Scalar:
         """Open and check MACs.
@@ -392,17 +413,25 @@ class MpcFabric:
         batch, ONE open round for the concatenated (d, e) masks, one
         combine.  Replicated operands take a whole triple batch and give a
         replicated product."""
-        shape = x.shape
+        return self.mul_many([x], [y])[0]
+
+    def mul_many(self, xs: list, ys: list) -> list:
+        """`mul` of several pairs in ONE fused call, whatever placements they
+        mix: one triple batch for the pairs end to end (on a mesh, one draw
+        of their global batch in the reference's column order,
+        `_draw_parts`), ONE open round, one combine (one `beaver_round`
+        launch on the card); -> each pair's product, in the pair's
+        placement and shape."""
+        reps = [placement(x, y) for x, y in zip(xs, ys)]
+        x, y = join(xs, all(reps)), join(ys, all(reps))
         n = x.size
-        rep = placement(x, y)
         with self._timed("beaver_mul", n):
-            a, b, c = self._draw("next_triplet_batch", n, rep)
-            masked = self.field.concatenate([(x.local.reshape(n) - a).share,
-                                             (y.local.reshape(n) - b).share])
+            a, b, c = self._draw_parts("next_triplet_batch", [(v.size, r) for v, r in zip(xs, reps)])
+            masked = self.field.concatenate([(x - a).share, (y - b).share])
             (theirs,) = self._exchange_arrays([_wire(masked)])
             opened = masked + self._from_wire(theirs, (2 * n,))
             d, e = opened.local[:n], opened.local[n:]
-            return self._beaver_combine_dispatch(a, b, c, d, e, rep).local.reshape(*shape)
+            return split(self._beaver_combine_dispatch(a, b, c, d, e, all(reps)), xs, reps)
 
     def _beaver_combine_dispatch(self, a, b, c, d, e, replicated=False) -> ScalarShare:
         """Post-open Beaver combine through the `beaver_round` kernel (its
@@ -426,18 +455,30 @@ class MpcFabric:
     def inverse(self, x: ScalarShare, defer_check: bool = False) -> ScalarShare:
         """Batched shared inversion via masked open: [x^-1] = r *
         open(x*r)^-1.  Zero inputs map to zero output."""
-        shape = x.shape
-        n = x.size
-        r = self._draw("next_shared_value_batch", n, x.replicated)
-        m = self.mul(x.local.reshape(n), r)
-        m_open = self.open_authenticated(m, defer=defer_check)
-        return r.mul_public(m_open.inverse()).local.reshape(*shape)
+        return self.inverse_many([x], defer_check)[0]
+
+    def inverse_many(self, xs: list, defer_check: bool = False) -> list:
+        """`inverse` of several shares in one fused call, whatever placements
+        they mix: one draw of r and one of the triples for them end to end
+        (`_draw_parts`), one Beaver round, one authenticated open; -> each
+        inverse, in its share's placement and shape.  On a mesh their
+        global batch must be smaller than the mesh or a multiple of its
+        size, else `ValueError` naming the mesh, as the reference's draw of
+        r raises (`ark_mpc_tpu/fabric/context.py:483`)."""
+        parts = [(x.size, x.replicated) for x in xs]
+        if self.mesh is not None:
+            batch_sharding(self.mesh, sum(n if rep else n * self.mesh.size for n, rep in parts))
+        rs = split(self._draw_parts("next_shared_value_batch", parts), xs)
+        ms = self.mul_many(xs, rs)
+        opened = self.open_authenticated_many(ms, defer=defer_check)
+        return [r.mul_public(o.inverse()) for r, o in zip(rs, opened)]
 
     def pow(self, x: ScalarShare, e: int) -> ScalarShare:
         """Public-exponent exponentiation: LSB-first square-and-multiply with
         each step's two independent products (result*base, base*base)
-        batched into ONE width-2n Beaver round.  A negative e raises
-        `ValueError` before any triple is drawn or round started."""
+        batched into ONE width-2n Beaver round (`mul_many`, the reference's
+        column order on a mesh).  A negative e raises `ValueError` before
+        any triple is drawn or round started."""
         e = public_exponent(e)
         if e == 0:
             return self.share_public(mark(self.field.ones(x.shape, device=self.device),
@@ -450,11 +491,7 @@ class MpcFabric:
                 if result is None:
                     result = base
                 elif e > 1:
-                    both = self.mul(
-                        ScalarShare.concatenate([result, base]),
-                        ScalarShare.concatenate([base, base]),
-                    )
-                    result, base = both.local[:n], both.local[n:]
+                    result, base = self.mul_many([result, base], [base, base])
                     e >>= 1
                     continue
                 else:

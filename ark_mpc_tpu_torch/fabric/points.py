@@ -29,7 +29,7 @@ import torch
 
 from ..algebra import limbs as lb
 from ..algebra.curve import CurvePoint
-from ..algebra.placement import mark, placement
+from ..algebra.placement import join, placement, split
 from ..algebra.point_share import PointShare, _mul_both, scalar_share_mul_point
 from ..algebra.share import ScalarShare
 from ..parallel.step import shard
@@ -104,7 +104,7 @@ def share_points(fabric, points=None, sender: int = 0,
         if points is None:
             raise ValueError("the sender must pass its points")
         if fabric.mesh is not None:
-            points = shard(points.local.reshape(points.size), fabric.mesh)
+            points = shard(points.local.reshape(points.size), fabric.mesh, hold_uneven=True)
         n = points.size
         mask, mask_share = fabric._draw("next_local_input_mask_batch", n,
                                         bool(points.replicated))
@@ -115,7 +115,8 @@ def share_points(fabric, points=None, sender: int = 0,
     else:
         if n is None:
             raise ValueError("the receiver must pass n")
-        mask_share = fabric._draw_global("next_counterparty_input_mask_batch", n)
+        mask_share = fabric._draw_global("next_counterparty_input_mask_batch", n,
+                                         hold_uneven=True)
         n = mask_share.size
         xc, yc = fabric.recv_arrays()
         masked = _point_from_wire_checked(fabric, curve, xc, yc)
@@ -129,9 +130,10 @@ def share_points(fabric, points=None, sender: int = 0,
 def share_public_points(fabric, points) -> PointShare:
     """Both parties know the points; make a valid authenticated sharing.
     On a mesh an unmarked batch is the global one and each rank keeps its
-    slice (a replicated batch or a shard stays as it is)."""
+    slice, or all of a batch the mesh size does not divide (a replicated
+    batch or a shard stays as it is)."""
     if fabric.mesh is not None and points.shape and points.replicated is None:
-        points = shard(points, fabric.mesh)
+        points = shard(points, fabric.mesh, hold_uneven=True)
     return PointShare.identity(points.shape, curve=type(points), device=fabric.device,
                                replicated=points.replicated).add_public(
         points, fabric.mac_key, fabric.party_id)
@@ -144,14 +146,13 @@ def open_points(fabric, ps: PointShare) -> CurvePoint:
 
 
 def open_points_many(fabric, pss: list) -> list:
-    """Open several point shares in ONE exchange (their coordinate arrays
-    side by side, so shards and replicated values travel unmixed)."""
-    theirs = fabric._exchange_arrays([a for ps in pss for a in _wire_arrays(ps.share)])
-    out = []
-    for i, ps in enumerate(pss):
-        their_pt = _point_from_wire_checked(fabric, ps.curve, *theirs[2 * i:2 * i + 2])
-        out.append(mark(ps.share + their_pt.local.reshape(*ps.shape), ps.replicated))
-    return out
+    """Open several point shares in ONE exchange of their points end to end
+    (`placement.join`); -> their points, each with its share's placement
+    and shape."""
+    joined = join(pss)
+    theirs = fabric._exchange_arrays(list(_wire_arrays(joined.share)))
+    their_pt = _point_from_wire_checked(fabric, joined.curve, *theirs)
+    return split(joined.share + their_pt, pss)
 
 
 def open_authenticated_points(fabric, ps: PointShare,
@@ -222,11 +223,19 @@ def beaver_mul_points(fabric, x: ScalarShare, ps: PointShare) -> PointShare:
     """[x * P] via the generator-trick Beaver protocol: with a scalar triple
     (a, b, c), open d = x - a and E = P - b*G; the result is
     d*E (party 0) + d*[bG] + [a]*E + [c]*G."""
-    n = x.size
-    rep = placement(x, ps)
-    xf = x.local.reshape(n)
-    pf = ps.local.reshape(n)
-    a, b, c = fabric._draw("next_triplet_batch", n, rep)
+    return beaver_mul_points_many(fabric, [x], [ps])[0]
+
+
+def beaver_mul_points_many(fabric, xs: list, pss: list) -> list:
+    """`beaver_mul_points` of several pairs in ONE fused call, whatever
+    placements they mix: one triple batch for the pairs end to end (on a
+    mesh one draw of their global batch in the reference's column order,
+    `MpcFabric._draw_parts`), one exchange, one batched combine; -> each
+    product, in its pair's placement and shape."""
+    reps = [placement(x, ps) for x, ps in zip(xs, pss)]
+    xf, pf = join(xs, all(reps)), join(pss, all(reps))
+    n = xf.size
+    a, b, c = fabric._draw_parts("next_triplet_batch", [(x.size, r) for x, r in zip(xs, reps)])
     b_gen = mul_generator(fabric, b)
 
     # one coalesced round: scalar masks + point masks
@@ -235,9 +244,8 @@ def beaver_mul_points(fabric, x: ScalarShare, ps: PointShare) -> PointShare:
     ms = masked_scalar.limbs.cpu().numpy().astype(np.uint32)
     theirs = fabric._exchange_arrays([ms, *_wire_arrays(masked_point)])
     d = masked_scalar + fabric._from_wire(theirs[0], (n,))
-    e_pt = masked_point + _point_from_wire_checked(fabric, ps.curve,
-                                                   theirs[1], theirs[2])
-    return _beaver_point_combine(fabric, a, b_gen, c, d, e_pt).local.reshape(*x.shape)
+    e_pt = masked_point + _point_from_wire_checked(fabric, pf.curve, theirs[1], theirs[2])
+    return split(_beaver_point_combine(fabric, a, b_gen, c, d, e_pt), xs, reps)
 
 
 def _beaver_point_combine(fabric, a: ScalarShare, b_gen: PointShare,

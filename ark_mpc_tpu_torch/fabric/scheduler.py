@@ -25,20 +25,21 @@ depth and forms forward) with no recursion.  Constants the scheduler makes
 (coefficients, the 0 and 1 of `pow(0)`) live on the fabric's device.
 
 On a mesh a level may hold shards and replicated values (a `sum` is
-replicated, `algebra/placement.py`).  They are never concatenated: a
-level's opens send one group of each placement side by side in the same
-exchange, and its muls, inversions and point products make one fused call
-for each placement present (so a level that mixes them takes a round
-more).  Every rank's groups are then equal in size (equal shards, the same
-replicated values), so each rank slices its results back the same way.
+replicated, `algebra/placement.py`).  The fused calls take the level's
+items as they are (`MpcFabric.mul_many`, `inverse_many`,
+`open_authenticated_many`, `points.beaver_mul_points_many`): each rank
+sends its columns of a shard item and all of a replicated one in the same
+exchange, and the offline material is one draw of the level's global batch
+in item order, as the reference concatenates a level's items.  So a level
+takes the reference's rounds, and its shares the reference's limbs,
+whatever placements it mixes.  Every rank's items are equal in size (equal
+shards, the same replicated values), so each rank splits its results back
+the same way.
 """
 
 from __future__ import annotations
 
-import functools
-
 from ..algebra.fields import SCALAR_FIELD
-from ..algebra.placement import placement
 from ..algebra.scalar import Scalar, public_exponent
 from ..algebra.share import ScalarShare
 from .context import MpcFabric
@@ -580,30 +581,29 @@ class Tracer:
             lv = by_level.get(level, {})
             mids = lv.get("open", [])
             if mids:
-                opened = _open_fused(fabric.open_authenticated_many,
-                                     [eval_local(n.deps[0]).local.reshape(_numel(n))
-                                      for n in mids])
+                opened = fabric.open_authenticated_many(
+                    [eval_local(n.deps[0]).local.reshape(*n.shape) for n in mids], defer=True)
                 for n, v in zip(mids, opened):
-                    values[n.nid] = v.local.reshape(*n.shape)
-            muls = lv.get("mul", [])
-            invs = lv.get("inv", [])
-            if muls:
-                lhs = [eval_local(n.deps[0]).local.reshape(_numel(n)) for n in muls]
-                rhs = [eval_local(n.deps[1]).local.reshape(_numel(n)) for n in muls]
-                for n, v in zip(muls, _fused(fabric.mul, lhs, rhs)):
                     values[n.nid] = v
+            # the fused calls' items flat, as their results are
+            muls = lv.get("mul", [])
+            if muls:
+                for n, v in zip(muls, fabric.mul_many(
+                        [_flat(eval_local(n.deps[0]), n) for n in muls],
+                        [_flat(eval_local(n.deps[1]), n) for n in muls])):
+                    values[n.nid] = v
+            invs = lv.get("inv", [])
             if invs:
-                xs = [eval_local(n.deps[0]).local.reshape(_numel(n)) for n in invs]
-                for n, v in zip(invs, _fused(
-                        lambda x: fabric.inverse(x, defer_check=True), xs)):
+                for n, v in zip(invs, fabric.inverse_many(
+                        [_flat(eval_local(n.deps[0]), n) for n in invs], defer_check=True)):
                     values[n.nid] = v
             pmuls = lv.get("pmul", [])
             if pmuls:
-                pts = [eval_local(n.deps[0]).local.reshape(_numel(n))
-                       for n in pmuls]
-                scs = [eval_local(n.deps[1]).local.reshape(_numel(n))
-                       for n in pmuls]
-                for n, v in zip(pmuls, _fused(fabric.mul_points, scs, pts)):
+                from . import points
+
+                for n, v in zip(pmuls, points.beaver_mul_points_many(
+                        fabric, [_flat(eval_local(n.deps[1]), n) for n in pmuls],
+                        [_flat(eval_local(n.deps[0]), n) for n in pmuls])):
                     values[n.nid] = v
 
         # one coalesced open flush for everything still unopened (handles
@@ -614,20 +614,19 @@ class Tracer:
             if h.node is not None and h.node.nid in values:
                 h.value = values[h.node.nid]
         if terminal:
-            opened = _open_fused(fabric.open_authenticated_many, [
-                eval_local(h.source.node).local.reshape(_numel(h.source.node))
-                for h in terminal])
+            opened = fabric.open_authenticated_many(
+                [eval_local(h.source.node).local.reshape(*h.source.shape) for h in terminal],
+                defer=True)
             for h, v in zip(terminal, opened):
-                h.value = v.local.reshape(*h.source.shape)
+                h.value = v
         if self.point_opens:
             from . import points
 
-            opened = _open_fused(
-                functools.partial(points.open_authenticated_points_many, fabric),
-                [eval_local(h.source.node).local.reshape(_numel(h.source.node))
-                 for h in self.point_opens])
+            opened = points.open_authenticated_points_many(
+                fabric, [eval_local(h.source.node).local.reshape(*h.source.shape)
+                         for h in self.point_opens], defer=True)
             for h, v in zip(self.point_opens, opened):
-                h.value = v.local.reshape(*h.source.shape)
+                h.value = v
         if verify:
             fabric.verify_deferred()
         return [eval_local(o.node) for o in outputs]
@@ -651,55 +650,16 @@ def replicated_at_trace(traced) -> bool:
     return True
 
 
-def _groups(keys: list) -> list:
-    """Item indices by placement key (shards first), empty groups left out."""
-    return [idx for idx in ([i for i, k in enumerate(keys) if k == key]
-                            for key in (False, True)) if idx]
-
-
-def _split(result, items: list, idx: list, out: list) -> None:
-    """out[i] = item i's slice of `result`, the fused result of `idx`'s
-    items concatenated in order."""
-    off = 0
-    for i in idx:
-        k = items[i].size
-        out[i] = result.local[off: off + k]
-        off += k
-
-
-def _fused(call, *operands: list) -> list:
-    """`call` on the concatenated flat operands of a level, once per
-    placement present (never concatenating the two); -> each item's slice
-    of its result, in item order."""
-    keys = [placement(*ops) for ops in zip(*operands)]
-    out = [None] * len(keys)
-    for idx in _groups(keys):
-        result = call(*(type(ops[0]).concatenate([ops[i] for i in idx])
-                        for ops in operands))
-        _split(result, operands[0], idx, out)
-    return out
-
-
-def _open_fused(open_many, items: list) -> list:
-    """Deferred authenticated opens of a level's flat shares in ONE exchange:
-    one concatenated group per placement, sent side by side."""
-    groups = _groups([it.replicated for it in items])
-    opened = open_many([type(items[0]).concatenate([items[i] for i in idx])
-                        for idx in groups], defer=True)
-    out = [None] * len(items)
-    for idx, result in zip(groups, opened):
-        _split(result, items, idx, out)
-    return out
-
-
 def _coeff_mul(c, k: Scalar):
     if isinstance(c, int):
         return k * Scalar.from_ints(c % _L_MOD, device=k.device) if c != 1 else k
     return c * k
 
 
-def _numel(n: _Node) -> int:
+def _flat(value, n: _Node):
+    """A fused call's item: `value`, the value of node `n`'s operand, as a
+    flat batch of n's element count."""
     size = 1
     for d in n.shape:
         size *= int(d)
-    return size
+    return value.local.reshape(size)

@@ -7,9 +7,14 @@ and b_inv[i] (right).  Two Beaver rounds + one authenticated open round +
 one Beaver round, independent of n; the public prefix scan is a log-depth
 Hillis-Steele scan of batched Montgomery products.
 
-On a mesh it runs where the reference's does without a sharded pair batch
-whose slices would cross ranks: a replicated batch of n with n + 1 <= the
-mesh size, the n + 1 pairs drawn whole (`_inverse_pairs`).
+On a mesh it takes the reference's rule: it draws the n + 1 inverse pairs
+of the global batch (`random_inverse_pairs`, which raises `ValueError`
+naming the mesh where the reference's `_place` raises: n + 1 at least the
+mesh size and not a multiple of it) and slices `b_inv[:n]`, `b[1:]` and
+`b[0]` by global position (the global view).  So it runs wherever the
+reference runs, a batch of n that is held replicated (n below the mesh
+size, or one the mesh size does not divide, such as `x[:7]` of an
+8-element shard on 4 ranks) among them.
 """
 
 from __future__ import annotations
@@ -22,7 +27,6 @@ from ..algebra.scalar import Scalar
 from ..algebra.share import ScalarShare
 from ..fabric.context import MpcFabric
 from ..fabric.scheduler import TracedShare, replicated_at_trace
-from ..parallel.step import refuse_on_mesh
 
 
 def _public_prefix_products(values: Scalar) -> Scalar:
@@ -38,15 +42,18 @@ def _public_prefix_products(values: Scalar) -> Scalar:
     return Scalar(x)
 
 
-def _broadcast_share(s: ScalarShare, n: int) -> ScalarShare:
-    return ScalarShare(s.share.broadcast_to((n,)), s.mac.broadcast_to((n,)), s.replicated)
+def _broadcast_share(s: ScalarShare, like) -> ScalarShare:
+    """The single shared value s (the same on every rank) broadcast to the
+    shape and placement of `like` (a share or a traced share)."""
+    rep = like.replicated if isinstance(like, ScalarShare) else replicated_at_trace(like)
+    shape = tuple(like.shape)
+    return ScalarShare(s.share.broadcast_to(shape), s.mac.broadcast_to(shape), rep)
 
 
 def _inverse_pairs(fabric: MpcFabric, values):
-    """The n + 1 inverse pairs for a batch of n.  On a mesh they are drawn
-    whole (replicated, the reference dealer's limbs), which needs a
-    replicated batch with n + 1 <= the mesh size; anything larger raises
-    `NotImplementedError` naming the mesh."""
+    """The n + 1 inverse pairs (b, b_inv) for the global batch of n of
+    `values` (a shard's rows times the mesh size on a mesh), as the
+    reference draws them; -> (b, b_inv, n)."""
     if isinstance(values, TracedShare):
         if len(values.shape) != 1:
             raise ValueError("traced prefix_product expects a 1-D batch")
@@ -55,16 +62,8 @@ def _inverse_pairs(fabric: MpcFabric, values):
         n, rep = values.size, values.replicated
     if fabric.mesh is not None and not rep:
         n *= fabric.mesh.size  # a shard: the global batch
-    if fabric.mesh is not None and n + 1 > fabric.mesh.size:
-        refuse_on_mesh(
-            f"prefix_product of {n} elements", fabric.mesh,
-            "it runs only where the n + 1 inverse pairs fit the mesh: it draws "
-            "them whole and slices them, and the reference draws "
-            "random_inverse_pairs(n + 1) (ark_mpc_tpu/gadgets/products.py:52), "
-            "which it shards over the mesh from n + 1 = the mesh size and "
-            "refuses where n + 1 does not divide it "
-            "(ark_mpc_tpu/fabric/context.py:151-156)")
-    return fabric._draw("next_shared_inverse_pair_batch", n + 1, fabric.mesh is not None)
+    b, b_inv = fabric.random_inverse_pairs(n + 1)
+    return b, b_inv, n
 
 
 def prefix_product(fabric: MpcFabric, values, defer_check: bool = False):
@@ -73,11 +72,10 @@ def prefix_product(fabric: MpcFabric, values, defer_check: bool = False):
     Takes a `TracedShare` too: the blinded open then flows through the
     tracer's mid-circuit `as_public()` path and the public scan runs at
     flush time, so the gadget fuses with level-mates in a larger circuit."""
-    b, b_inv = _inverse_pairs(fabric, values)
+    b, b_inv, n = _inverse_pairs(fabric, values)
     if isinstance(values, TracedShare):
-        return _prefix_product_traced(values, b, b_inv)
-    n = values.size
-    flat = values.local.reshape(n)
+        return _prefix_product_traced(values, b, b_inv, n)
+    flat = values.local.reshape(values.size)
 
     # blinded_i = b_inv[i-1] * v_i * b[i]  (two Beaver rounds)
     partial = fabric.mul(b_inv[:n], flat)
@@ -87,19 +85,17 @@ def prefix_product(fabric: MpcFabric, values, defer_check: bool = False):
 
     # unblind: prefix_i * b[0] (a share scaled by the public prefix), then
     # one Beaver round with b_inv[i+1] to cancel the right blinder
-    left = _broadcast_share(b[0], n).mul_public(prefixes)
+    left = _broadcast_share(b[0], blinded).mul_public(prefixes)
     out = fabric.mul(left, b_inv[1:])
     return out.local.reshape(*values.shape)
 
 
-def _prefix_product_traced(values: TracedShare, b, b_inv):
+def _prefix_product_traced(values: TracedShare, b, b_inv, n: int):
     """The same blinded-open protocol as traced nodes: its rounds fuse with
     the surrounding circuit and the public scan runs on the mid-circuit
     opened value."""
     tracer = values.tracer
-    n = int(values.shape[0])
-
     blinded = (tracer.wrap(b_inv[:n]) * values) * tracer.wrap(b[1:])
     prefixes = blinded.open().as_public().apply(_public_prefix_products)
-    left = tracer.wrap(_broadcast_share(b[0], n))
+    left = tracer.wrap(_broadcast_share(b[0], values))
     return (left * prefixes) * tracer.wrap(b_inv[1:])

@@ -20,6 +20,7 @@ The first two take a `device` (default: the CUDA card) on which they serve mater
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..algebra.placement import mark
 from ..algebra.scalar import Scalar
@@ -256,20 +257,18 @@ class ShardedSource(PreprocessingPhase):
     the wrapped source and keeps the rank's n: every rank draws the same
     stream, so the rank holds the material at its own global positions,
     which is what the reference's dealer places there, and no triple is
-    used on two ranks.  `draw_whole` draws a batch whole instead, marked
-    replicated (material for replicated operands, a global batch smaller
-    than the mesh among them: the fabric, which knows a batch's global
-    size, chooses); polynomial triples are always whole, and a matrix
+    used on two ranks.  `draw_parts` draws the material of a fused call
+    whose items mix shards and replicated values: one global batch in the
+    items' order, of which the rank keeps each item's own columns
+    (`draw_whole` draws a batch whole, marked replicated); the fabric,
+    which knows a batch's global size, chooses.  Polynomial triples are
+    always whole, and a matrix
     triple keeps the rank's rows of P and C and the whole Q (all of it
     where its rows are fewer than the ranks).  The MAC key share is the
     wrapped source's, the same on every rank."""
 
     def __init__(self, inner: PreprocessingPhase, mesh):
         self.inner, self.mesh, self.size = inner, mesh, mesh.size
-
-    def _keep(self, x):
-        """The rank's columns of a global batch (Scalar or ScalarShare)."""
-        return shard(x, self.mesh)
 
     def draw_whole(self, method: str, *args):
         """The wrapped source's `method(*args)` as it is, every share (and
@@ -279,28 +278,52 @@ class ShardedSource(PreprocessingPhase):
             mark(x)
         return out
 
+    def draw_parts(self, method: str, parts: list):
+        """The wrapped source's `method` for a global batch made of `parts`
+        end to end, each part (the rank's element count, replicated): ONE
+        draw of the whole, as the reference draws a fused call's
+        concatenation, of which the rank keeps, part by part, all columns
+        of a replicated part and its own block of a shard's (the part's
+        columns rank * n : (rank + 1) * n).  -> the material, marked
+        replicated where every part is (else a shard: the caller splits a
+        mix by `parts`)."""
+        spans, at = [], 0
+        for n, rep in parts:
+            start = at if rep else at + self.mesh.rank * n
+            spans.append((start, start + n))
+            at += n if rep else n * self.size
+        out = getattr(self.inner, method)(at)
+        keep = all(rep for _, rep in parts)
+
+        def take(x):
+            if len(spans) == 1:
+                return x.local[spans[0][0]:spans[0][1]]
+            return x.local[torch.cat([torch.arange(a, b) for a, b in spans]).to(x.device)]
+
+        if isinstance(out, tuple):
+            return tuple(mark(take(x), keep) for x in out)
+        return mark(take(out), keep)
+
     def get_mac_key_share(self) -> Scalar:
         return self.inner.get_mac_key_share()
 
     def next_triplet_batch(self, n: int):
-        return tuple(self._keep(s) for s in self.inner.next_triplet_batch(n * self.size))
+        return self.draw_parts("next_triplet_batch", [(n, False)])
 
     def next_shared_value_batch(self, n: int) -> ScalarShare:
-        return self._keep(self.inner.next_shared_value_batch(n * self.size))
+        return self.draw_parts("next_shared_value_batch", [(n, False)])
 
     def next_shared_inverse_pair_batch(self, n: int):
-        return tuple(self._keep(s) for s in
-                     self.inner.next_shared_inverse_pair_batch(n * self.size))
+        return self.draw_parts("next_shared_inverse_pair_batch", [(n, False)])
 
     def next_shared_bit_batch(self, n: int) -> ScalarShare:
-        return self._keep(self.inner.next_shared_bit_batch(n * self.size))
+        return self.draw_parts("next_shared_bit_batch", [(n, False)])
 
     def next_local_input_mask_batch(self, n: int):
-        return tuple(self._keep(s) for s in
-                     self.inner.next_local_input_mask_batch(n * self.size))
+        return self.draw_parts("next_local_input_mask_batch", [(n, False)])
 
     def next_counterparty_input_mask_batch(self, n: int) -> ScalarShare:
-        return self._keep(self.inner.next_counterparty_input_mask_batch(n * self.size))
+        return self.draw_parts("next_counterparty_input_mask_batch", [(n, False)])
 
     def next_matrix_triplet(self, m: int, k: int, n: int):
         """The global triple ([P](m, k), [Q](k, n), [P@Q](m, n)): the rank's
@@ -311,7 +334,7 @@ class ShardedSource(PreprocessingPhase):
         if small(self.mesh, m):
             return self.draw_whole("next_matrix_triplet", m, k, n)
         p, q, c = self.inner.next_matrix_triplet(m, k, n)
-        return self._keep(p), mark(q), self._keep(c)
+        return shard(p, self.mesh), mark(q), shard(c, self.mesh)
 
     def next_poly_triplet(self, da: int, db: int):
         """The whole triple, replicated: shared polynomials are whole on

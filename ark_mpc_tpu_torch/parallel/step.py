@@ -140,17 +140,22 @@ def batch_sharding(mesh: Mesh, n: int) -> slice:
     return slice(mesh.rank * k, (mesh.rank + 1) * k)
 
 
-def shard(x, mesh: Mesh):
+def shard(x, mesh: Mesh, hold_uneven: bool = False):
     """The rank's shard of a global batch (leading axis), on its device,
     marked a shard; a single element or a batch smaller than the mesh
-    (`small`) comes back whole, marked replicated.  Takes field arrays,
-    point batches and their shares (share and MAC alike)."""
+    (`small`) comes back whole, marked replicated, and so, with
+    `hold_uneven`, does a batch whose size the mesh does not divide (the
+    reference leaves such a global array unsharded where it places it
+    itself: a selection, `share_public`, a point batch); without it such a
+    batch raises `ValueError` naming the mesh, as the reference's `_place`
+    does for input shares and offline draws.  Takes field arrays, point
+    batches and their shares (share and MAC alike)."""
     if isinstance(x, (ScalarShare, PointShare)):
-        sh = shard(x.share, mesh)
-        return type(x)(sh, shard(x.mac, mesh), sh.replicated)
+        sh = shard(x.share, mesh, hold_uneven)
+        return type(x)(sh, shard(x.mac, mesh, hold_uneven), sh.replicated)
     if not isinstance(x, FieldArray):  # a point batch: each coordinate
-        return type(x)(*(shard(c, mesh) for c in x._coords()))
-    if not x.shape or small(mesh, x.shape[0]):
+        return type(x)(*(shard(c, mesh, hold_uneven) for c in x._coords()))
+    if not x.shape or small(mesh, x.shape[0]) or (hold_uneven and x.shape[0] % mesh.size):
         return mark(type(x)(x.limbs.to(mesh.device)))
     cols = batch_sharding(mesh, x.shape[0])
     return mark(type(x)(x.limbs[:, cols].contiguous().to(mesh.device)), False)
@@ -261,17 +266,3 @@ def sharded_mul_mac_step(mesh: Mesh, party_id: int, x, y, a, b, c, d, e,
     z = beaver_mul_step(party_id, x, y, a, b, c, d, e, mac_key)
     t = mac_key * z.share - z.mac
     return z, sharded_rlc_fold(mesh, t.limbs, coeffs.limbs)
-
-
-# ---------------------------------------------------------------------------
-# the one operation a mesh-attached fabric refuses
-# ---------------------------------------------------------------------------
-
-
-def refuse_on_mesh(what: str, mesh: Mesh | None, why: str) -> None:
-    """Raise `NotImplementedError` naming `mesh`, with `why` as the reason,
-    if there is one."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}: not implemented on a mesh-attached fabric (the "
-            f"{mesh.size}-rank mesh): {why}")

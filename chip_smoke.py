@@ -2363,11 +2363,13 @@ def mesh_corrupt_point_program(fabric):
     return "pass"
 
 
-def mesh_prefix_program(fabric):
+def mesh_prefix_refusal(fabric):
+    """prefix_product of a shard of 2 x size elements, whose 2 size + 1
+    inverse pairs no mesh of 2 ranks or more divides: -> the message."""
     x = fabric.random_shared_scalars(2 * fabric.mesh.size)
     try:
         prefix_product(fabric, x)
-    except NotImplementedError as err:
+    except ValueError as err:
         return str(err)
     return "no error"
 
@@ -2592,6 +2594,154 @@ def mesh_view_vs_unsharded(dev, size: int, inp: dict, mesh_res) -> float:
     return secs
 
 
+N_SLICE_K = 1 << 16         # slice K's programs: the shared batch
+
+
+def slice_k_inputs() -> dict:
+    rng = random.Random(20)
+    return {"xs": [rng.randrange(1, L) for _ in range(N_SLICE_K)],
+            "ys": [rng.randrange(1, L) for _ in range(N_SLICE_K)]}
+
+
+def slice_k_indices(dev) -> dict:
+    """The index types slice K's index program takes: a list, an integer
+    tensor on the card and a boolean mask on the card."""
+    pos = torch.arange(N_SLICE_K, device=dev)
+    return {"list": [0, 5, N_SLICE_K // 16 + 1, N_SLICE_K - 1], "tensor": pos[1::7].flip(0),
+            "mask": (pos % 3 == 0) | (pos > N_SLICE_K - 9)}
+
+
+def slice_k_programs(size: int, inp: dict) -> dict:
+    """Slice K's three programs, with or without a mesh of `size` ranks,
+    each sharing x (and y) of `inp` first: "mixed", a traced circuit whose
+    first level multiplies x, y beside their sums (a shard beside a
+    replicated value: one fused call) and whose second level inverts the
+    product beside `size` shifted sums (one fused call over 2^16 + size
+    elements, which every mesh size here divides); "index", the index
+    types of `slice_k_indices` of x and of its opened value; "prefix",
+    prefix_product of x[:2^16 - 1], eager and traced.  Every share opened
+    (deferred) and checked.  -> {name: a program returning ({name: (opened
+    ints, [the gathered share and MAC limb tensors])}, {name: the opened
+    value's selection as ints}, {name: rounds})}."""
+
+    def share(fabric, vals, sender):
+        return fabric.share_values(Scalar.from_ints(vals, device=fabric.device)
+                                   if fabric.party_id == sender else None,
+                                   sender=sender, n=len(vals))
+
+    def finish(fabric, res: dict, publics: dict, rounds: dict):
+        opened = fabric.open_authenticated_many(list(res.values()), defer=True)
+        fabric.verify_deferred()
+        out = {}
+        for (name, v), o in zip(res.items(), opened):
+            v = whole(v, fabric)
+            out[name] = (whole(o, fabric).to_ints(), [v.share.limbs, v.mac.limbs])
+        return out, publics, rounds
+
+    def mixed(fabric):
+        dev = fabric.device
+        tr = fabric.tracer()
+        tx, ty = tr.wrap(share(fabric, inp["xs"], 0)), tr.wrap(share(fabric, inp["ys"], 1))
+        sums = tx.sum() * ty.sum()
+        prod = tx * ty
+        outs = {"prod": prod, "sums": sums, "prod_inverse": prod.inverse()}
+        outs.update({f"(sums + {k})_inverse": (sums + Scalar.from_ints(k, device=dev)).inverse()
+                     for k in range(size)})
+        before = fabric.n_rounds
+        res = dict(zip((f"mixed {name}" for name in outs),
+                       tr.run(outputs=list(outs.values()), verify=False)))
+        return finish(fabric, res, {}, {"mixed": fabric.n_rounds - before})
+
+    def index(fabric):
+        x = share(fabric, inp["xs"], 0)
+        x_open = fabric.open(x)
+        idx = slice_k_indices(fabric.device)
+        publics = {name: whole(x_open[i], fabric).to_ints() for name, i in idx.items()}
+        return finish(fabric, {f"x[{name}]": x[i] for name, i in idx.items()}, publics, {})
+
+    def prefix(fabric):
+        sel = share(fabric, inp["xs"], 0)[:N_SLICE_K - 1]
+        res = {"prefix eager": prefix_product(fabric, sel)}
+        before = fabric.n_rounds
+        tr = fabric.tracer()
+        res["prefix traced"] = tr.run(outputs=[prefix_product(fabric, tr.wrap(sel))],
+                                      verify=False)[0]
+        return finish(fabric, res, {}, {"prefix_traced": fabric.n_rounds - before})
+
+    return {"mixed": mixed, "index": index, "prefix": prefix}
+
+
+def slice_k_want(size: int, inp: dict) -> tuple[dict, dict]:
+    """Slice K's opens as Python ints (every position)."""
+    xs, ys = inp["xs"], inp["ys"]
+    prod = [a * b % L for a, b in zip(xs, ys)]
+    sums = sum(xs) * sum(ys) % L
+    want = {"mixed prod": prod, "mixed sums": [sums],
+            "mixed prod_inverse": [pow(p, -1, L) for p in prod]}
+    want.update({f"mixed (sums + {k})_inverse": [pow(sums + k, -1, L)] for k in range(size)})
+    idx = slice_k_indices("cpu")
+    sel = {"list": [xs[i] for i in idx["list"]],
+           "tensor": [xs[i] for i in idx["tensor"].tolist()],
+           "mask": [v for v, m in zip(xs, idx["mask"].tolist()) if m]}
+    want.update({f"x[{name}]": v for name, v in sel.items()})
+    prefixes, acc = [], 1
+    for v in xs[:N_SLICE_K - 1]:
+        acc = acc * v % L
+        prefixes.append(acc)
+    want["prefix eager"] = want["prefix traced"] = prefixes
+    return want, sel
+
+
+def mesh_slice_k(mesh) -> tuple[dict, tuple]:
+    """Slice K's programs on the mesh, one after another, each timed (host
+    seconds) with the kernel launches it adds (both parties), their opens
+    against Python ints; -> their numbers, and both parties' records for
+    `mesh_slice_k_vs_unsharded`."""
+    inp = slice_k_inputs()
+    want, sel = slice_k_want(mesh.size, inp)
+    out, records = {"n": N_SLICE_K, "host_s": {}, "launches": {}, "rounds": {}}, {}
+    for name, prog in slice_k_programs(mesh.size, inp).items():
+        torch.cuda.synchronize()
+        t0, before = time.time(), {**fk.launch_counts(), **mk.launch_counts()}
+        res = execute_mock_mpc_dealer(prog, seed=20, mesh=mesh)
+        out["host_s"][name] = synced_s(t0)
+        after = {**fk.launch_counts(), **mk.launch_counts()}
+        out["launches"][name] = {k: v - before[k] for k, v in after.items() if v != before[k]}
+        for r, publics, _ in res:
+            got = {k: v[0] for k, v in r.items()}
+            check(all(got[k] == want[k] for k in got), "the mesh's slice K programs differ from "
+                  f"Python ints: {sorted(k for k in got if got[k] != want[k])}")
+            check(publics == {k: sel[k] for k in publics},
+                  "the mesh's selections of an opened value differ from Python ints")
+        check(res[1][2] == res[0][2], f"the parties' rounds differ: {res[0][2]} vs {res[1][2]}")
+        out["rounds"].update(res[0][2])
+        records[name] = res
+    return out, (inp, records)
+
+
+def mesh_slice_k_vs_unsharded(dev, size: int, inp: dict, mesh_records) -> dict:
+    """Slice K's programs on the unsharded fabric on this card: every open
+    equal, every gathered share and MAC limb equal bit for bit, and the
+    traced circuits' rounds equal; -> their host seconds and rounds."""
+    out = {"host_s": {}, "rounds": {}}
+    for name, prog in slice_k_programs(size, inp).items():
+        t0 = time.time()
+        plain = execute_mock_mpc_dealer(prog, seed=20, device=dev)
+        out["host_s"][name] = synced_s(t0)
+        for (got, got_pub, got_rounds), (want, want_pub, want_rounds) in zip(
+                mesh_records[name], plain):
+            check(sorted(got) == sorted(want) and got_pub == want_pub,
+                  f"slice K's {name} program's records differ")
+            check(got_rounds == want_rounds, f"slice K's rounds differ from the unsharded "
+                  f"fabric's: {got_rounds} {want_rounds}")
+            for key in want:
+                check(got[key][0] == want[key][0]
+                      and all(torch.equal(u, v) for u, v in zip(got[key][1], want[key][1])),
+                      f"the mesh's {key} differs from the unsharded fabric's")
+        out["rounds"].update(plain[0][2])
+    return out
+
+
 def mesh_ops(mesh) -> tuple[dict, tuple]:
     """The operations slice G gave the mesh, at the unsharded phases'
     sizes, each against Python ints; -> their numbers, and the point
@@ -2641,8 +2791,10 @@ def mesh_ops(mesh) -> tuple[dict, tuple]:
     aborts = execute_mock_mpc_dealer(mesh_corrupt_point_program, seed=16, mesh=mesh)
     check(aborts == ("abort", "abort"),
           f"a corrupted point MAC on one rank pair of the mesh gave {aborts}")
-    msg = execute_mock_mpc_dealer(mesh_prefix_program, seed=17, mesh=mesh)[0]
-    check("ark_mpc_tpu/gadgets/products.py:52" in msg, f"prefix_product on the mesh: {msg}")
+    if mesh.size > 1:  # one rank divides every batch: slice K's prefix program runs there
+        msg = execute_mock_mpc_dealer(mesh_prefix_refusal, seed=17, mesh=mesh)[0]
+        check(f"a batch of {2 * mesh.size + 1} elements does not divide" in msg,
+              f"prefix_product of a shard on the mesh: {msg}")
     return out, (prog, res)
 
 
@@ -2680,16 +2832,46 @@ def mesh_rank(mesh, phase4_vals) -> dict:
     before = {**fk.launch_counts(), **mk.launch_counts()}
     out["view"], (view_inp, view) = mesh_view(mesh)
     torch.cuda.synchronize()
+    after = {**fk.launch_counts(), **mk.launch_counts()}
+    out["view"]["launches"] = {k: v - before[k] for k, v in after.items() if v != before[k]}
+    out["slice_k"], (k_inp, k_res) = mesh_slice_k(mesh)
+    torch.cuda.synchronize()
     out["launches"] = {**fk.launch_counts(), **mk.launch_counts()}
-    out["view"]["launches"] = {k: v - before[k] for k, v in out["launches"].items()
-                               if v != before[k]}
     if mesh.rank == 0:
         out["ops"]["points_2^16_unsharded_party0_s"] = mesh_points_vs_unsharded(
             mesh.device, prog, points)
         out["small"]["unsharded_host_s"] = mesh_small_vs_unsharded(mesh.device, mesh.size, small)
         out["view"]["unsharded_host_s"] = mesh_view_vs_unsharded(
             mesh.device, mesh.size, view_inp, view)
+        out["slice_k"]["unsharded"] = mesh_slice_k_vs_unsharded(mesh.device, mesh.size,
+                                                                k_inp, k_res)
     return out
+
+
+def log_slice_k(ranks: list, n_ranks: int) -> None:
+    """Phase 17's lines for slice K's programs (rank 0's numbers, launches
+    of all ranks); fails unless a mixed level took one `beaver_round`
+    launch a party."""
+    sk = ranks[0]["slice_k"]
+    per_level = sk["launches"]["mixed"].get("beaver_round", 0) / 2 / 2  # 2 parties, 2 levels
+    check(per_level == 1, f"the mixed traced levels took {per_level} beaver_round launches a "
+          f"level a party on rank 0 (want 1)")
+    what = {"mixed": f"a traced level mixing a shard's product with the sums' (replicated) "
+                     f"product, then the product's inverse beside {n_ranks} sums' inverses "
+                     f"({per_level:g} beaver_round launch a level a party)",
+            "index": "x[list], x[integer tensor], x[boolean mask] of the shared batch and of "
+                     "its opened value",
+            "prefix": f"prefix_product of x[:{sk['n'] - 1}], eager and traced"}
+    for name, text in what.items():
+        keys = sorted({k for r in ranks for k in r["slice_k"]["launches"][name]})
+        added = {k: sum(r["slice_k"]["launches"][name].get(k, 0) for r in ranks) for k in keys}
+        rounds = {k: (v, sk["unsharded"]["rounds"][k]) for k, v in sk["rounds"].items()
+                  if k.startswith(name)}
+        log(f"[17 mesh] slice K {name} at n={sk['n']}: {text}: opens equal Python ints, gathered "
+            f"shares and MACs equal the unsharded fabric's bit for bit; "
+            f"{sk['host_s'][name]:.2f} s on the mesh, {sk['unsharded']['host_s'][name]:.2f} s "
+            f"unsharded (host time); rounds (mesh, unsharded): {rounds}; launches it adds "
+            f"(all ranks): {added}")
 
 
 def phase_mesh(dev, fabric_ref, mats: dict) -> dict:
@@ -2741,8 +2923,9 @@ def phase_mesh(dev, fabric_ref, mats: dict) -> dict:
         f"fabric's bit for bit and the MSM's projectively; party 0 steps (s): "
         f"{ {k: round(v, 3) for k, v in pts.items()} }, unsharded "
         f"{ {k: round(v, 3) for k, v in ops['points_2^16_unsharded_party0_s'].items()} }; "
-        f"a corrupted point MAC on one rank pair aborted both parties; prefix_product of "
-        f"2 x {n_ranks} elements still raises NotImplementedError")
+        f"a corrupted point MAC on one rank pair aborted both parties"
+        + (f"; prefix_product of 2 x {n_ranks} elements raises ValueError naming the mesh"
+           if n_ranks > 1 else ""))
     sm = out["small"]
     batches = "a batch of 1" if sm["n_small"] == 1 else f"batches of 1 and {sm['n_small']}"
     log(f"[17 mesh] small-batch program ({batches}, a one-point batch"
@@ -2763,6 +2946,7 @@ def phase_mesh(dev, fabric_ref, mats: dict) -> dict:
         f"Python ints, gathered shares and MACs equal the unsharded fabric's bit for bit "
         f"({vw['host_s']:.2f} s on the mesh, {vw['unsharded_host_s']:.2f} s unsharded, host "
         f"time); launches it adds (all ranks): {view_launches}")
+    log_slice_k(ranks, n_ranks)
     return out
 
 

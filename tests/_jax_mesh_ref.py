@@ -1,26 +1,41 @@
 """Subprocess body for the JAX side of the port's mesh tests.
 
-    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [points | small]
+    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [MODE]
 
 reads the inputs `test_torch_parallel.py` made (`_torch_mesh_prog.py`'s
 IN.pkl) and writes what the JAX package computes from them on an N-device
 virtual CPU mesh (`jax_num_cpu_devices` = N, fixed when the backend
-starts, hence a fresh interpreter): `sharded_mul_mac_step` for both parties
-beside the unsharded `beaver_mul_step` + `mac_check_fold`,
-`sharded_rlc_fold` beside the plain fold, `tests/_mesh_fabric_prog.py`'s
-honest program, the scalar operations' program (`ops_program`, the
-calls of `_torch_mesh_prog.ops_program` in the same order) and the global
-view's programs (indexing a shard and `shared_matmul` at the reference's
-shapes, `global_view_records`, after `ops_program`, whose compilations
-they reuse), each through `execute_mock_mpc_dealer(..., mesh=)`.  With
-`points` it runs the point protocols' program
-(`_torch_mesh_prog.points_program`, its two halves) and the index program
-with its point batch alone, and with `small` the small-batch programs
-(batches smaller than the mesh, `small_records`) alone.  It runs in a
-process of its own so that the XLA compilations (a few GiB) do not stay
-in the test worker.
+starts, hence a fresh interpreter), each program through
+`execute_mock_mpc_dealer(..., mesh=)` and each mirroring the calls of its
+`_torch_mesh_prog.py` namesake.  The MODE picks the programs
+(`programs`), each mode a process of its own so that none waits for
+another's compilations:
+
+  - main (the default): `sharded_mul_mac_step` for both parties beside
+    the unsharded `beaver_mul_step` + `mac_check_fold` and
+    `sharded_rlc_fold` beside the plain fold ("step"),
+    `tests/_mesh_fabric_prog.py`'s honest program ("fabric") and the
+    shared polynomials' part of the scalar operations ("poly");
+  - ops: the scalar operations' other part ("ops");
+  - view: the global view's programs ("view": indexing a shard with
+    every index type and `shared_matmul` at the reference's shapes, whose
+    products share four matmul compilations, `padded_mont_matmul`);
+  - small: the small-batch programs (batches smaller than the mesh);
+  - prefix: prefix_product of selections that a mesh size neither
+    exceeds nor divides ("prefix"), on a 2-device mesh, which runs every
+    such selection (the records do not depend on the mesh size), and what
+    meshes of 2 and N devices refuse;
+  - mixed: a traced circuit whose levels mix placements ("mixed"), on a
+    2-device mesh;
+  - points: the point protocols' program and the index program with its
+    point batch (minutes of XLA compilation; the slow test's).
+
+OUT.pkl is written again after each program, with the records so far, so
+a process cut short leaves the records it finished.  A process of its own
+also keeps the XLA compilations (a few GiB) out of the test worker.
 """
 
+import functools
 import os
 import pickle
 import sys
@@ -104,12 +119,14 @@ def share_in(fabric, vals, sender):
     return fabric.share_values(values, sender=sender, n=len(vals))
 
 
-def ops_program(inp):
-    """`_torch_mesh_prog.ops_program`'s calls in the same order, on global
-    arrays; -> the same record."""
+def ops_program(inp, part):
+    """`_torch_mesh_prog.ops_program`'s calls for `part` ("ops" or "poly")
+    in the same order, on global arrays; -> the same record."""
 
     def prog(fabric):
         x, y = share_in(fabric, inp["xs"], 0), share_in(fabric, inp["ys"], 1)
+        if part == "poly":
+            return finish_ops(fabric, poly_ops(fabric, inp), [])
         res = {"sum": x.sum()}
         x_open = fabric.open(x)
         res["sum_times_open"] = fabric.mul_public(res["sum"], x_open)
@@ -126,21 +143,33 @@ def ops_program(inp):
         a = share_in(fabric, inp["mat_a"][:m * k], 0).reshape(m, k)
         b = share_in(fabric, inp["mat_b"][:k * n], 1).reshape(k, n)
         res["shared_matmul"] = shared_matmul(fabric, a, b)
-        f, g = share_in(fabric, inp["poly_f"], 0), share_in(fabric, inp["poly_g"], 1)
-        res["poly_eval"] = poly_eval(fabric, f, ref.Scalar.from_ints(inp["x_eval"]))
-        pf, pg = poly.AuthenticatedDensePoly(f), poly.AuthenticatedDensePoly(g)
-        res["poly_mul"] = poly.poly_mul(fabric, pf, pg).coeffs
-        res["poly_inverse_mod_t"] = poly.poly_inverse_mod_t(fabric, pf, POLY_T).coeffs
-        res["poly_div"] = poly.poly_div(
-            fabric, pf, poly.DensePoly.from_ints(inp["poly_h"])).coeffs
-        opened = {name: fabric.open_authenticated(v, defer=True) for name, v in res.items()}
-        fabric.verify_deferred()
-        out = {name: (opened[name].to_ints(), limbs(v.share), limbs(v.mac))
-               for name, v in res.items()}
-        out["traced_opens"] = [h.value.to_ints() for h in handles]
-        return out
+        res["pow"] = fabric.pow(x, 7)
+        return finish_ops(fabric, res, handles)
 
     return prog
+
+
+def poly_ops(fabric, inp) -> dict:
+    """`_torch_mesh_prog.poly_ops`."""
+    f, g = share_in(fabric, inp["poly_f"], 0), share_in(fabric, inp["poly_g"], 1)
+    res = {"poly_eval": poly_eval(fabric, f, ref.Scalar.from_ints(inp["x_eval"]))}
+    pf, pg = poly.AuthenticatedDensePoly(f), poly.AuthenticatedDensePoly(g)
+    res["poly_mul"] = poly.poly_mul(fabric, pf, pg).coeffs
+    res["poly_inverse_mod_t"] = poly.poly_inverse_mod_t(fabric, pf, POLY_T).coeffs
+    res["poly_div"] = poly.poly_div(
+        fabric, pf, poly.DensePoly.from_ints(inp["poly_h"])).coeffs
+    return res
+
+
+def finish_ops(fabric, res: dict, handles: list) -> dict:
+    """`_torch_mesh_prog.finish_ops`."""
+    opened = {name: fabric.open_authenticated(v, defer=True) for name, v in res.items()}
+    fabric.verify_deferred()
+    out = {name: (opened[name].to_ints(), limbs(v.share), limbs(v.mac))
+           for name, v in res.items()}
+    if handles:
+        out["traced_opens"] = [h.value.to_ints() for h in handles]
+    return out
 
 
 def small_program(inp, n):
@@ -192,6 +221,15 @@ def prefix_program(inp, n):
 SELECTIONS = (("0", lambda v: v[0]), ("-1", lambda v: v[-1]), ("1:3", lambda v: v[1:3]),
               ("::2", lambda v: v[::2]), ("reshape(2, -1)", lambda v: v.reshape(2, -1)))
 MATMUL_SHAPES = ((1, 2, 1), (2, 2, 4), (1, 3, 1))
+MASK = (True, False, True, True, False, True, False, False)
+INDEX_TYPES = (("[0, 2, 5]", lambda v: v[[0, 2, 5]]),
+               ("np.array([1, 6])", lambda v: v[np.array([1, 6])]),
+               ("torch.tensor([7, 0])", lambda v: v[np.array([7, 0])]),
+               ("mask", lambda v: v[np.array(MASK)]),
+               (":7", lambda v: v[:7]),
+               ("(4, 2)[1, 0]", lambda v: v.reshape(4, 2)[1, 0]),
+               ("(4, 2)[:, 1]", lambda v: v.reshape(4, 2)[:, 1]),
+               ("(4, 2)[[0, 3]]", lambda v: v.reshape(4, 2)[[0, 3]]))
 
 
 def affine_ints(pt) -> list:
@@ -199,13 +237,17 @@ def affine_ints(pt) -> list:
     return [x.to_ints(), y.to_ints()]
 
 
-def index_program(inp, with_points: bool = False):
+def index_program(inp, with_points: bool = False, types: bool = False):
     """`_torch_mesh_prog.index_program`'s calls in the same order, on
     global arrays (the placements and refusals are the port's alone), but
     the selections of the shared batch open as one concatenation (opens
     draw nothing, so the limbs are the same; fewer XLA compilations); the
     point batch's only `with_points` (minutes of XLA compilation: the
-    `points` mode's)."""
+    `points` mode's).  With `types`, also "types": {name: (share limbs,
+    MAC limbs)} of each of `INDEX_TYPES` (not opened: their values are the
+    inputs' selections) and "refused": {kind: what a float index raised},
+    from the same shared batch, which `_torch_mesh_prog.index_types_program`
+    shares first too: the same limbs."""
 
     def prog(fabric):
         n = len(inp["xs"])
@@ -224,6 +266,11 @@ def index_program(inp, with_points: bool = False):
                                                         defer=True)
         fabric.verify_deferred()
         out = {"share": {}, "points": {}, "open": {}}
+        if types:
+            out["types"] = {name: (limbs(v.share), limbs(v.mac))
+                            for name, v in ((name, sel(x)) for name, sel in INDEX_TYPES)}
+            out["refused"] = {kind: raised_by(lambda: v[1.5])
+                              for kind, v in (("share", x), ("open", x_open))}
         xs, ys = affine_ints(p_opened) if with_points else ([], [])
         values, at = opened_cat.to_ints(), 0
         for name, v in shares.items():
@@ -255,13 +302,18 @@ def matmul_program(inp, shape):
     return prog
 
 
-def raised(prog, mesh) -> str:
-    """-> "TypeName: message" of what `prog` raised on `mesh`."""
+def raised_by(fn) -> str:
+    """-> "TypeName: message" of what `fn()` raised, or "no error"."""
     try:
-        execute_mock_mpc_dealer(prog, mesh=mesh)
+        fn()
     except Exception as err:  # noqa: BLE001 - the test reads the type and text
         return f"{type(err).__name__}: {err}"
     return "no error"
+
+
+def raised(prog, mesh) -> str:
+    """-> "TypeName: message" of what `prog` raised on `mesh`."""
+    return raised_by(lambda: execute_mock_mpc_dealer(prog, mesh=mesh))
 
 
 def padded_mont_matmul(spec, a, b, shape=MAT_DIMS):
@@ -288,8 +340,10 @@ _MONT_MATMUL = ref_matmul.mont_matmul
 
 def global_view_records(inputs, mesh) -> dict:
     """The global view's programs on `mesh` (`_torch_mesh_prog`'s
-    `case_index` and `case_matmul_shapes`: each shape the mesh takes, its
-    products through `padded_mont_matmul`), and what a 2-device mesh makes
+    `case_index` with `case_index_types`' selections, and
+    `case_matmul_shapes`: each shape the mesh takes, its
+    products through `padded_mont_matmul`, onto the compilations of the
+    ops program's shape), and what a 2-device mesh makes
     of (1, 3) @ (3, 1): the error's "TypeName: message"."""
     shapes = [s for s in MATMUL_SHAPES if mesh.size > 3 or s != (1, 3, 1)]
     ref_matmul.mont_matmul = padded_mont_matmul
@@ -298,8 +352,9 @@ def global_view_records(inputs, mesh) -> dict:
                   for s in shapes}
     finally:
         ref_matmul.mont_matmul = _MONT_MATMUL
-    return {"index": execute_mock_mpc_dealer(index_program(inputs), mesh=mesh),
-            "matmul": matmul,
+    index = execute_mock_mpc_dealer(index_program(inputs, types=True), mesh=mesh)
+    types = [{key: rec.pop(key) for key in ("types", "refused")} for rec in index]
+    return {"index": index, "index_types": types, "matmul": matmul,
             "matmul_131_on_2": raised(matmul_program(inputs, (1, 3, 1)), step.make_mesh(2))}
 
 
@@ -322,6 +377,76 @@ def small_records(inputs, mesh) -> dict:
                       for n in (2, 3)},
            "single_value": execute_mock_mpc_dealer(single_value, mesh=mesh)}
     out["three_on_2"] = raised(small_program(inputs, 3), step.make_mesh(2))
+    return out
+
+
+MIXED_SHIFTS = (1, 2, 3)  # as the port's
+MIXED_NAMES = ("prod", "sums", "x_inverse", "prod_inverse", "sums_inverse") + tuple(
+    f"(sums + {k})_inverse" for k in MIXED_SHIFTS)
+
+
+def mixed_program(inp):
+    """`_torch_mesh_prog.mixed_program`'s calls."""
+
+    def prog(fabric):
+        tr = fabric.tracer()
+        tx, ty = tr.wrap(share_in(fabric, inp["xs"], 0)), tr.wrap(share_in(fabric, inp["ys"], 1))
+        sums = tx.sum() * ty.sum()
+        prod = tx * ty
+        outs = [prod, sums, tx.inverse(), prod.inverse(), sums.inverse()]
+        outs += [(sums + ref.Scalar.from_ints(k)).inverse() for k in MIXED_SHIFTS]
+        handles = [v.open() for v in outs]
+        before = fabric.n_rounds
+        res = tr.run(outputs=outs)
+        rounds = fabric.n_rounds - before
+        return {name: (h.value.to_ints(), limbs(v.share), limbs(v.mac))
+                for name, h, v in zip(MIXED_NAMES, handles, res)}, rounds
+
+    return prog
+
+
+PREFIX_SELECTIONS = (3, 5, 7, 8)
+
+
+
+
+def prefix_selection_program(inp, n):
+    """`_torch_mesh_prog.prefix_selection_program`'s calls."""
+
+    def prog(fabric):
+        x = share_in(fabric, inp["xs"], 0)[:n]
+        eager = prefix_product(fabric, x)
+        opened = {"eager": fabric.open_authenticated(eager)}
+        before = fabric.n_rounds
+        tr = fabric.tracer()
+        handle = prefix_product(fabric, tr.wrap(x)).open()
+        (traced,) = tr.run(outputs=[handle.source])
+        out = {"traced_rounds": fabric.n_rounds - before}
+        opened["traced"] = handle.value
+        for name, v in (("eager", eager), ("traced", traced)):
+            out[name] = (opened[name].to_ints(), limbs(v.share), limbs(v.mac))
+        return out
+
+    return prog
+
+
+def prefix_records(inputs, mesh) -> dict:
+    """`prefix_selection_program` at each n of `PREFIX_SELECTIONS` that a
+    2-device mesh runs, there (the record does not depend on the mesh
+    size, and one mesh shares its compilations), and what meshes of 2
+    devices and of `mesh`'s size make of each n they refuse and of an
+    input batch of 9: -> {"records": {n: both parties' records},
+    "refused": {(size, n or "share 9"): "TypeName: message"}}."""
+    out = {"records": {}, "refused": {}}
+    for m in (step.make_mesh(2), mesh):
+        for n in PREFIX_SELECTIONS:
+            if n + 1 >= m.size and (n + 1) % m.size:  # `_place` refuses its pairs
+                out["refused"][(m.size, n)] = raised(prefix_selection_program(inputs, n), m)
+            elif n not in out["records"]:
+                out["records"][n] = execute_mock_mpc_dealer(
+                    prefix_selection_program(inputs, n), mesh=m)
+        out["refused"][(m.size, "share 9")] = raised(
+            lambda f: share_in(f, inputs["xs"] + [1], 0), m)
     return out
 
 
@@ -358,24 +483,44 @@ def points_program(inp, part=None):
     return prog
 
 
+def programs(mode: str, inputs, mesh) -> dict:
+    """{key: a function computing its record} of `mode`, in order (the
+    modes and keys of `test_torch_parallel.JAX_MODES`)."""
+    run = functools.partial(execute_mock_mpc_dealer, mesh=mesh)
+    if mode == "points":
+        return {"points": lambda: {part: run(points_program(inputs, part))
+                                   for part in ("elementwise", "sums")},
+                "index": lambda: run(index_program(inputs, with_points=True))}
+    return {
+        "main": {"step": lambda: step_refs(inputs, mesh),
+                 "fabric": lambda: run(honest_program(inputs["xs"], inputs["ys"])),
+                 "poly": lambda: run(ops_program(inputs, "poly"))},
+        "ops": {"ops": lambda: run(ops_program(inputs, "ops"))},
+        "view": {"view": lambda: global_view_records(inputs, mesh)},
+        "small": {"small": lambda: small_records(inputs, mesh)},
+        "prefix": {"prefix": lambda: prefix_records(inputs, mesh)},
+        "mixed": {"mixed": lambda: execute_mock_mpc_dealer(mixed_program(inputs),
+                                                           mesh=step.make_mesh(2))},
+    }[mode]
+
+
+def write(record: dict, path: str) -> None:
+    """`record` to `path` whole or not at all (a reader never sees half a
+    file)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as fh:
+        pickle.dump(record, fh)
+    os.replace(tmp, path)
+
+
 if __name__ == "__main__":
     with open(sys.argv[2], "rb") as fh:
         inputs = pickle.load(fh)
     assert len(jax.devices()) == N_DEV, jax.devices()
     mesh = step.make_mesh(N_DEV)
-    if sys.argv[4:] == ["points"]:
-        out = {"points": {part: execute_mock_mpc_dealer(points_program(inputs, part), mesh=mesh)
-                          for part in ("elementwise", "sums")},
-               "index": execute_mock_mpc_dealer(index_program(inputs, with_points=True),
-                                                mesh=mesh)}
-    elif sys.argv[4:] == ["small"]:
-        out = {"small": small_records(inputs, mesh)}
-    else:
-        out = {"step": step_refs(inputs, mesh),
-               "fabric": execute_mock_mpc_dealer(
-                   honest_program(inputs["xs"], inputs["ys"]), mesh=mesh),
-               "ops": execute_mock_mpc_dealer(ops_program(inputs), mesh=mesh)}
-        out["view"] = global_view_records(inputs, mesh)
-    with open(sys.argv[3], "wb") as fh:
-        pickle.dump(out, fh)
+    out = {}
+    for key, compute in programs(sys.argv[4] if sys.argv[4:] else "main", inputs, mesh).items():
+        out[key] = compute()
+        write(out, sys.argv[3])  # each key as soon as it is known
+        print(f"JAX_MESH_REF_KEY {key}", flush=True)
     print(f"JAX_MESH_REF_OK {N_DEV}")

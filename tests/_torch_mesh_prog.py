@@ -13,7 +13,8 @@ results is written to OUT.pkl.  IN.pkl holds the inputs the test made
 from numpy seeds: the sharded step's limb arrays, the mesh-fabric
 program's values (`tests/_mesh_fabric_prog.py`), and the values of the
 scalar operations', point protocols' and global view's programs
-(`ops_program`, `points_program`, `index_program`, `matmul_program`;
+(`ops_program`, `points_program`, `index_program`, `matmul_program`,
+`index_types_program`, `prefix_selection_program`, `mixed_program`;
 `tests/_jax_mesh_ref.py` mirrors them call for call).
 `test_torch_parallel.py` holds the results against the JAX package and
 against the port's unsharded fabric.
@@ -242,22 +243,30 @@ def whole(x, fabric):
     return x if fabric.mesh is None else gather(x, fabric.mesh)
 
 
-def ops_program(inp):
-    """The scalar operations a mesh fabric gained (sum, a one-element sum
+OPS_PARTS = ("ops", "poly")  # `ops_program`'s two parts, each a program of its own
+
+
+def ops_program(inp, part=None):
+    """The scalar operations a mesh fabric gained, then one deferred open
+    of each result and one folded check; -> {name: (opened ints, share
+    limbs, MAC limbs)}, gathered.  `part` "ops": sum, a one-element sum
     times and plus the opened batch, inner product, a traced circuit whose
-    levels open a sum beside a sharded product, shared matmul, poly_eval,
-    poly_mul, poly_inverse_mod_t, poly_div, and the port's own
-    share_public of the opened batch and x^0), then one deferred open of
-    each result and one folded check; -> {name: (opened ints, share limbs,
-    MAC limbs)}, gathered, plus the traced circuit's opens.  No shape
-    depends on the mesh size, so the record is the same on every mesh.
+    levels open a sum beside a sharded product (its opens too), shared
+    matmul, x^7 (its square-and-multiply steps pair two products in one
+    call), and the port's own share_public of the opened batch and x^0;
+    "poly": poly_eval, poly_mul, poly_inverse_mod_t, poly_div (their own
+    dealer stream); None: both in one program.  No shape depends on the
+    mesh size, so the record is the same on every mesh.
     `_jax_mesh_ref.ops_program` makes the same calls in the same order, but
-    the last two."""
+    the port's own."""
 
     def prog(fabric):
         dev = fabric.device
         x, y = share_in(fabric, inp["xs"], 0), share_in(fabric, inp["ys"], 1)
-        res = {"sum": x.sum()}
+        res = {} if part in (None, "ops") else poly_ops(fabric, inp, x, y)
+        if part == "poly":
+            return finish_ops(fabric, res, [])
+        res["sum"] = x.sum()
         x_open = fabric.open(x)  # a shard: the sum's products with it are shards
         res["sum_times_open"] = fabric.mul_public(res["sum"], x_open)
         res["sum_plus_open"] = fabric.add_public(res["sum"], x_open)
@@ -275,47 +284,121 @@ def ops_program(inp):
         a = share_in(fabric, inp["mat_a"][:m * k], 0).reshape(-1, k)
         b = share_in(fabric, inp["mat_b"][:k * n], 1).reshape(-1, n)
         res["shared_matmul"] = shared_matmul(fabric, a, b)
-        f, g = share_in(fabric, inp["poly_f"], 0), share_in(fabric, inp["poly_g"], 1)
-        res["poly_eval"] = poly_eval(fabric, f, Scalar.from_ints(inp["x_eval"], device=dev))
-        pf, pg = poly.AuthenticatedDensePoly(f), poly.AuthenticatedDensePoly(g)
-        res["poly_mul"] = poly.poly_mul(fabric, pf, pg).coeffs
-        res["poly_inverse_mod_t"] = poly.poly_inverse_mod_t(fabric, pf, POLY_T).coeffs
-        res["poly_div"] = poly.poly_div(
-            fabric, pf, poly.DensePoly.from_ints(inp["poly_h"], device=dev)).coeffs
+        res["pow"] = fabric.pow(x, 7)
+        if part is None:
+            res.update(poly_ops(fabric, inp, x, y))
         # the port's alone (no draw, no exchange): public values made from a
         # shard are shards, not cut again
         res["share_public_of_open"] = fabric.share_public(x_open)
         res["pow_zero"] = fabric.pow(x, 0)
-        opened = {name: fabric.open_authenticated(v, defer=True) for name, v in res.items()}
-        fabric.verify_deferred()
-        out = {}
-        for name, v in res.items():
-            v = whole(v, fabric)
-            out[name] = (whole(opened[name], fabric).to_ints(), limbs(v.share), limbs(v.mac))
-        out["traced_opens"] = [whole(h.value, fabric).to_ints() for h in handles]
-        return out
+        return finish_ops(fabric, res, handles)
 
     return prog
 
 
+def poly_ops(fabric, inp, x, y) -> dict:
+    """`ops_program`'s shared polynomials (f, g shared after x, y)."""
+    dev = fabric.device
+    f, g = share_in(fabric, inp["poly_f"], 0), share_in(fabric, inp["poly_g"], 1)
+    res = {"poly_eval": poly_eval(fabric, f, Scalar.from_ints(inp["x_eval"], device=dev))}
+    pf, pg = poly.AuthenticatedDensePoly(f), poly.AuthenticatedDensePoly(g)
+    res["poly_mul"] = poly.poly_mul(fabric, pf, pg).coeffs
+    res["poly_inverse_mod_t"] = poly.poly_inverse_mod_t(fabric, pf, POLY_T).coeffs
+    res["poly_div"] = poly.poly_div(
+        fabric, pf, poly.DensePoly.from_ints(inp["poly_h"], device=dev)).coeffs
+    return res
+
+
+def finish_ops(fabric, res: dict, handles: list) -> dict:
+    """One deferred open of each result and one folded check; -> the record."""
+    opened = {name: fabric.open_authenticated(v, defer=True) for name, v in res.items()}
+    fabric.verify_deferred()
+    out = {}
+    for name, v in res.items():
+        v = whole(v, fabric)
+        out[name] = (whole(opened[name], fabric).to_ints(), limbs(v.share), limbs(v.mac))
+    if handles:
+        out["traced_opens"] = [whole(h.value, fabric).to_ints() for h in handles]
+    return out
+
+
 def case_ops(mesh, inp):
-    return execute_mock_mpc_dealer(ops_program(inp), mesh=mesh)
+    """`ops_program`'s two parts: -> {part: both parties' records}."""
+    return {part: execute_mock_mpc_dealer(ops_program(inp, part), mesh=mesh)
+            for part in OPS_PARTS}
 
 
-def case_traced_mixed_levels(mesh, inp):
-    """A level whose muls mix placements (two sums' product beside a
-    sharded product) and whose inversions do too: -> both parties' opens."""
-    xs, ys = inp["xs"], inp["ys"]
+MIXED_SHIFTS = (1, 2, 3)  # the level-2 inversions of sums + k beside the product's
+MIXED_NAMES = ("prod", "sums", "x_inverse", "prod_inverse", "sums_inverse") + tuple(
+    f"(sums + {k})_inverse" for k in MIXED_SHIFTS)
+
+
+def mixed_program(inp):
+    """A traced circuit whose first level's muls mix placements (two sums'
+    product beside a sharded product) and whose second level's inversions
+    do too (the product's inverse beside four of the sums': 8 + 4
+    elements, a batch every mesh size here divides, as the reference's
+    inversion needs), each result opened:
+    -> ({name: (opened ints, share limbs, MAC limbs)}, the circuit's
+    rounds), gathered.  `_jax_mesh_ref.mixed_program` makes the same
+    calls."""
 
     def prog(fabric):
         tr = fabric.tracer()
-        tx, ty = tr.wrap(share_in(fabric, xs, 0)), tr.wrap(share_in(fabric, ys, 1))
+        tx, ty = tr.wrap(share_in(fabric, inp["xs"], 0)), tr.wrap(share_in(fabric, inp["ys"], 1))
         sums = tx.sum() * ty.sum()
-        handles = [h.open() for h in (tx * ty, sums, sums.inverse(), tx.inverse())]
-        tr.run()
-        return [whole(h.value, fabric).to_ints() for h in handles]
+        prod = tx * ty
+        outs = [prod, sums, tx.inverse(), prod.inverse(), sums.inverse()]
+        outs += [(sums + Scalar.from_ints(k, device=fabric.device)).inverse()
+                 for k in MIXED_SHIFTS]
+        handles = [v.open() for v in outs]
+        before = fabric.n_rounds
+        res = tr.run(outputs=outs)
+        rounds = fabric.n_rounds - before
+        out = {}
+        for name, h, v in zip(MIXED_NAMES, handles, res):
+            v = whole(v, fabric)
+            out[name] = (whole(h.value, fabric).to_ints(), limbs(v.share), limbs(v.mac))
+        return out, rounds
 
-    return execute_mock_mpc_dealer(prog, mesh=mesh)
+    return prog
+
+
+def case_traced_mixed_levels(mesh, inp):
+    return execute_mock_mpc_dealer(mixed_program(inp), mesh=mesh)
+
+
+def mixed_points_program(inp):
+    """A traced level whose point products mix placements: each shared
+    point times its shared scalar (a shard) beside the points' sum times
+    the scalars' sum (replicated), each opened: -> ({name: (affine ints,
+    share coordinate limbs, MAC coordinate limbs)}, the circuit's rounds),
+    gathered.  Runs with or without a mesh."""
+
+    def prog(fabric):
+        dev, n = fabric.device, len(inp["gs"])
+        pub = (CurvePoint.generator((n,), device=dev).mul(Scalar.from_ints(inp["gs"], device=dev))
+               if fabric.party_id == 0 else None)
+        tr = fabric.tracer()
+        tp = tr.wrap_points(fabric.share_points(pub, sender=0, n=n))
+        tk = tr.wrap(share_in(fabric, inp["ks"], 1))
+        outs = {"products": tp.mul(tk), "sums": tp.sum().mul(tk.sum())}
+        handles = [v.open() for v in outs.values()]
+        before = fabric.n_rounds
+        res = tr.run(outputs=list(outs.values()))
+        rounds = fabric.n_rounds - before
+        out = {}
+        for name, h, v in zip(outs, handles, res):
+            v = whole(v, fabric)
+            out[name] = (affine_ints(whole(h.value, fabric).reshape(v.size)),
+                         point_limbs(v.share), point_limbs(v.mac))
+        return out, rounds
+
+    return prog
+
+
+def case_traced_mixed_points(mesh, inp):
+    return execute_mock_mpc_dealer(mixed_points_program(inp), mesh=mesh)
 
 
 def point_batch(points, fabric):
@@ -478,7 +561,8 @@ def case_mixing(mesh, inp):
 
 
 def case_prefix_product_refuses(mesh, inp):
-    """prefix_product after a shared batch of 2 a rank, eager and traced:
+    """prefix_product of a shared batch of 2 a rank (2 size + 1 inverse
+    pairs, which no mesh of 2 ranks or more divides), eager and traced:
     -> the messages, in party 0."""
     n = 2 * mesh.size
 
@@ -681,6 +765,113 @@ def matmul_program(inp, shape):
     return prog
 
 
+# every other index type the reference takes, on the 8-element batch, its
+# opened value and its points (`index_types_program`): lists, integer
+# arrays, a boolean mask, a selection whose size neither is below the mesh
+# size nor divides it, and tuples of the (4, 2) global reshape
+MASK = (True, False, True, True, False, True, False, False)
+INDEX_TYPES = (("[0, 2, 5]", lambda v: v[[0, 2, 5]]),
+               ("np.array([1, 6])", lambda v: v[np.array([1, 6])]),
+               ("torch.tensor([7, 0])", lambda v: v[torch.tensor([7, 0])]),
+               ("mask", lambda v: v[np.array(MASK)]),
+               (":7", lambda v: v[:7]),
+               ("(4, 2)[1, 0]", lambda v: v.reshape(4, 2)[1, 0]),
+               ("(4, 2)[:, 1]", lambda v: v.reshape(4, 2)[:, 1]),
+               ("(4, 2)[[0, 3]]", lambda v: v.reshape(4, 2)[[0, 3]]))
+
+
+def index_types_program(inp):
+    """`INDEX_TYPES` of an 8-element shared batch, of its opened value and of
+    an 8-point shared batch, opened (deferred) and checked as in
+    `index_program`; -> {"share" | "points": {name: (opened ints or affine
+    ints, share limbs, MAC limbs)}, "open": {name: ints}, "placement":
+    {name: the three selections' replicated marks}, "refused": {kind: what
+    a float index raised}}, gathered.  `_jax_mesh_ref.index_types_program`
+    makes the same scalar calls in the same order."""
+
+    def prog(fabric):
+        dev, n = fabric.device, len(inp["xs"])
+        x = share_in(fabric, inp["xs"], 0)
+        x_open = fabric.open(x)
+        pub = (CurvePoint.generator((n,), device=dev).mul(Scalar.from_ints(inp["gs"], device=dev))
+               if fabric.party_id == 0 else None)
+        sp = fabric.share_points(pub, sender=0, n=n)
+        shares = {name: sel(x) for name, sel in INDEX_TYPES}
+        points = {name: sel(sp) for name, sel in INDEX_TYPES}
+        opens = {name: sel(x_open) for name, sel in INDEX_TYPES}
+        opened = fabric.open_authenticated_many(list(shares.values()), defer=True)
+        flat = [w.reshape(w.size) for w in (whole(v, fabric) for v in points.values())]
+        p_opened = fabric.open_authenticated_points(PointShare.concatenate(flat), defer=True)
+        fabric.verify_deferred()
+        out = {"share": {}, "points": {}, "open": {}, "placement": {}, "refused": {}}
+        for (name, v), o, affine in zip(shares.items(), opened,
+                                        split_affine(p_opened, [p.size for p in flat])):
+            out["placement"][name] = (v.replicated, points[name].replicated,
+                                      opens[name].replicated)
+            v, p = whole(v, fabric), whole(points[name], fabric)
+            out["share"][name] = (whole(o, fabric).to_ints(), limbs(v.share), limbs(v.mac))
+            out["points"][name] = (affine, point_limbs(p.share), point_limbs(p.mac))
+            out["open"][name] = whole(opens[name], fabric).to_ints()
+        for kind, v in (("share", x), ("open", x_open), ("points", sp)):
+            out["refused"][kind] = raised_by(lambda: v[1.5])
+        return out
+
+    return prog
+
+
+def raised_by(fn) -> str:
+    """-> "TypeName: message" of what `fn()` raised, or "no error"."""
+    try:
+        fn()
+    except Exception as err:  # noqa: BLE001 - the test reads the type and text
+        return f"{type(err).__name__}: {err}"
+    return "no error"
+
+
+def case_index_types(mesh, inp):
+    return execute_mock_mpc_dealer(index_types_program(inp), mesh=mesh)
+
+
+# prefix_product of x[:n] for the 8-element shared batch x: n + 1 = 4 and 8
+# runs on 2 and 4 ranks, 6 on 2 ranks only, 9 on none
+PREFIX_SELECTIONS = (3, 5, 7, 8)
+
+
+def prefix_selection_program(inp, n: int):
+    """prefix_product of x[:n], x the 8-element shared batch, eager and
+    then traced, each opened: -> `prefix_program`'s record, gathered.
+    `_jax_mesh_ref.prefix_selection_program` makes the same calls."""
+
+    def prog(fabric):
+        x = share_in(fabric, inp["xs"], 0)[:n]
+        eager = prefix_product(fabric, x)
+        opened = {"eager": fabric.open_authenticated(eager)}
+        before = fabric.n_rounds
+        tr = fabric.tracer()
+        handle = prefix_product(fabric, tr.wrap(x)).open()
+        (traced,) = tr.run(outputs=[handle.source])
+        out = {"traced_rounds": fabric.n_rounds - before}
+        opened["traced"] = handle.value
+        for name, v in (("eager", eager), ("traced", traced)):
+            v = whole(v, fabric)
+            out[name] = (whole(opened[name], fabric).to_ints(), limbs(v.share), limbs(v.mac))
+        return out
+
+    return prog
+
+
+def case_prefix_selections(mesh, inp):
+    """`prefix_selection_program` at each of `PREFIX_SELECTIONS`: -> {n:
+    both parties' records, or the error's "TypeName: message"}."""
+    out = {}
+    for n in PREFIX_SELECTIONS:
+        try:
+            out[n] = execute_mock_mpc_dealer(prefix_selection_program(inp, n), mesh=mesh)
+        except Exception as err:  # noqa: BLE001 - the test reads the type and text
+            out[n] = f"{type(err).__name__}: {err}"
+    return out
+
+
 def case_index_values(mesh, inp):
     """[10, 20, 30, 40] shared by party 0, x[0] and x[1:3] opened: -> both
     parties' gathered opens."""
@@ -716,13 +907,18 @@ CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case
 # own.  Every case is in exactly one group.
 GROUPS = (("step", "fabric", "corrupt", "cheat_one_rank_pair", "coins", "unaligned",
            "fold_default", "batch_rule", "ops"),
-          ("traced_mixed_levels", "mixing", "prefix_product_refuses", "small_three",
-           "prefix_small", "index_values", "matmul_shapes"),
+          ("mixing", "prefix_product_refuses", "small_three", "prefix_small", "index_values",
+           "matmul_shapes"),
           ("points_elementwise",), ("points_sums",),
-          ("point_cheat_one_rank_pair", "small_one", "index"))
+          ("point_cheat_one_rank_pair", "small_one", "index"),
+          ("index_types", "traced_mixed_points", "traced_mixed_levels", "prefix_selections"))
 assert sorted(sum(GROUPS, ())) == sorted(CASES), "every case in exactly one group"
-LAUNCH_TIMEOUT = 210  # seconds a launch (and a collective) may take
-SIDE_TIMEOUT = 720  # seconds a side's launches may take together
+# seconds a launch (and a collective) may take, and a side's launches
+# together: six copies of the test module at once, each from an empty
+# cache (8 cores, ~1,410 s a copy), took launches of up to 371 s and sides
+# of up to 1,337 s; these leave a quarter more
+LAUNCH_TIMEOUT = 480
+SIDE_TIMEOUT = 1680
 STOP_MARGIN = 20  # seconds a launch may take past its limit to stop its ranks
 
 

@@ -1,38 +1,42 @@
-"""The port's mesh (slices F and G) against the JAX package, on gloo CPU ranks.
+"""The port's mesh against the JAX package, on gloo CPU ranks.
 
 The sharded step, the mesh-attached fabric, the operations slice G gave it
 (sums, inner products, traced sums, shared matmul, shared polynomials, the
-curve-point protocols and MSM) and its aborts run in a fresh interpreter
-(`tests/_torch_mesh_prog.py`, torch only) that spawns N gloo ranks, one
-process each.  This module makes their inputs from numpy seeds; the JAX
-side runs on the same inputs on a 4-device virtual CPU mesh
-(`jax_num_cpu_devices` = 4) in a JAX-only interpreter
-(`tests/_jax_mesh_ref.py`), so that its XLA compilations do not stay in
-the test worker.  No shape of the programs depends on the mesh size, so
-the JAX package's gathered record is the same on every mesh (a slow test
-holds its 2-device record to its 4-device one): it runs once, started
-before either torch mesh and beside them, and every torch mesh is held to
-it.  It runs with XLA's CPU backend at optimization level 0, which
-compiles faster and computes the same integers (the slow test compares
-with the default level too).  Every comparison is exact (tolerance 0):
-gathered limbs are equal bit for bit, opened values equal Python ints.  The point
-protocols are held to the port's unsharded fabric on the same inputs
-(`tests/test_torch_points.py` holds that to the JAX package): bit for bit
-element-wise, projectively for sums; the JAX mesh's point program (minutes
-of XLA compilation; projectively, as the two packages' curve formulas
-leave different coordinates) and G1 at Fr are slow tests.  N = 8 is
-marked slow, as the reference's own 8-device mesh test is.  Batches
-smaller than the mesh (1 and 3 elements, and `prefix_product` at n + 1 <=
-the mesh size) are held replicated, as the reference holds them: their
-draws are whole, so the JAX package's 4-device record holds them on every
-mesh where they are smaller than it (its small-batch programs run in a
-second JAX process beside the first).  The global view (indexing and
-reshaping a shard select global positions, `shared_matmul` at every shape
-the reference takes) is held to the first JAX process's record; its point
-selections to the port's unsharded fabric (and to the JAX mesh in the
-slow point test).
-A JAX record is kept under `tests/.jax_cache` for the next run on the
-same inputs and sources (`Memo`).
+curve-point protocols and MSM), the global view and its aborts run in a
+fresh interpreter (`tests/_torch_mesh_prog.py`, torch only) that spawns N
+gloo ranks, one process each.  This module makes their inputs from numpy
+seeds; the JAX side runs on the same inputs on a 4-device virtual CPU mesh
+(`jax_num_cpu_devices` = 4) in JAX-only interpreters
+(`tests/_jax_mesh_ref.py`, one a mode of `JAX_MODES`, all started with the
+module beside both torch meshes), so that their XLA compilations do not
+stay in the test worker.  No shape of the programs depends on the mesh
+size, so the JAX package's gathered record is the same on every mesh (a
+slow test holds its 2-device record to its 4-device one): it runs once and
+every torch mesh is held to it.  It runs with XLA's CPU backend at
+optimization level 0, which compiles faster and computes the same integers
+(the slow test compares with the default level too).  Every comparison is
+exact (tolerance 0): gathered limbs are equal bit for bit, opened values
+equal Python ints.  The point protocols are held to the port's unsharded
+fabric on the same inputs (`tests/test_torch_points.py` holds that to the
+JAX package): bit for bit element-wise, projectively for sums; the JAX
+mesh's point program (minutes of XLA compilation; projectively, as the two
+packages' curve formulas leave different coordinates) and G1 at Fr are
+slow tests.  N = 8 is marked slow, as the reference's own 8-device mesh
+test is.  Batches smaller than the mesh (1 and 3 elements, and
+`prefix_product` at n + 1 <= the mesh size) are held replicated, as the
+reference holds them: their draws are whole, so the JAX package's 4-device
+record holds them on every mesh where they are smaller than it.  The
+global view (indexing and reshaping a shard select global positions, with
+every index type the reference takes; a selection whose size the mesh
+neither exceeds nor divides is held replicated; `shared_matmul` at every
+shape the reference takes), `prefix_product` of such selections, and
+traced levels that mix placements (one fused call a level, in the
+reference's column order) are held to the JAX record; the point
+selections and point levels to the port's unsharded fabric.  Each JAX
+process writes its record after each program, so one cut short fails only
+the tests of the keys it did not write (`JaxSide`).  A complete JAX record
+is kept under `tests/.jax_cache` for the next run on the same inputs and
+sources (`Memo`).
 """
 
 import hashlib
@@ -43,6 +47,7 @@ import random
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,25 +67,48 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = SCALAR_FIELD.modulus
 # seconds: a stuck collective fails the test, never hangs it.  The JAX
-# side's two processes (~150-180 s each alone from an empty compile
-# cache, 8-core host) and the two torch meshes (~100 s each alone) all
-# start with the module.  A torch side is one launch a group of cases
-# (`mesh_prog.GROUPS`, at most ~30 s of work each alone), each within its own
-# `mesh_prog.LAUNCH_TIMEOUT` and all within `mesh_prog.SIDE_TIMEOUT`; a
+# side's six processes (`JAX_MODES`, ~85-130 s each alone from an empty
+# compile cache, 8-core host) and the two torch meshes (~100 s each alone)
+# all start with the module.  A torch side is one launch a group of cases
+# (`mesh_prog.GROUPS`, at most ~40 s of work each alone), each within its
+# own `mesh_prog.LAUNCH_TIMEOUT` and all within `mesh_prog.SIDE_TIMEOUT`; a
 # launch that fails or times out (or finds the side's time spent) records
 # its message as each of its cases' error, which names each rank's case, so
 # it fails only those tests.  The side's own limit adds the interpreter's
-# start and the record's writing.
+# start and the record's writing.  Six copies of the module at once, each
+# from an empty cache, took JAX processes of up to 1,084 s; the limit
+# leaves a quarter more.
 PROG_TIMEOUT = mesh_prog.SIDE_TIMEOUT + 40
-JAX_TIMEOUT = 500
+JAX_TIMEOUT = 1350
 JAX_DEVICES = 4
 FAST_XLA = "--xla_backend_optimization_level=0 --xla_llvm_disable_expensive_passes=true"
 
 
 def start(cmd: list, env=None) -> subprocess.Popen:
-    """`cmd` from the repo, in a session of its own."""
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, cwd=REPO, env=env, start_new_session=True)
+    """`cmd` from the repo, in a session of its own, its output to
+    temporary files: a pipe that nobody reads while the process runs
+    fills (a JAX process logs a line for each compilation it loads from
+    the shared cache) and stops it."""
+    logs = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+    proc = subprocess.Popen(cmd, stdout=logs[0], stderr=logs[1], text=True, cwd=REPO,
+                            env=env, start_new_session=True)
+    proc.logs = logs
+    return proc
+
+
+def output(proc: subprocess.Popen) -> tuple:
+    """-> (stdout, stderr) of a process `start` made, so far."""
+    texts = []
+    for fh in proc.logs:
+        fh.seek(0)
+        texts.append(fh.read())
+    return tuple(texts)
+
+
+def stop(proc: subprocess.Popen) -> None:
+    """Kill `proc`'s whole session (spawned ranks included) and reap it."""
+    os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
 
 
 def finish(proc: subprocess.Popen, ok_line: str, timeout: float = PROG_TIMEOUT) -> str:
@@ -88,11 +116,12 @@ def finish(proc: subprocess.Popen, ok_line: str, timeout: float = PROG_TIMEOUT) 
     timeout the whole session is killed, spawned ranks included: a stuck
     collective fails the test and leaves nothing running."""
     try:
-        out, err = proc.communicate(timeout=max(timeout, 1))
+        proc.wait(timeout=max(timeout, 1))
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, err = proc.communicate()
-        pytest.fail(f"{proc.args} did not finish within its {timeout:.0f} s:\n{err[-3000:]}")
+        stop(proc)
+        pytest.fail(f"{proc.args} did not finish within its {timeout:.0f} s:\n"
+                    f"{output(proc)[1][-3000:]}")
+    out, err = output(proc)
     assert proc.returncode == 0, (err[-3000:], out[-500:])
     assert ok_line in out
     return out
@@ -174,15 +203,41 @@ class Side:
 
     def stop(self) -> None:
         if self.proc is not None and self.proc.poll() is None:
-            os.killpg(self.proc.pid, signal.SIGKILL)
-            self.proc.communicate()
+            stop(self.proc)
+
+
+class JaxSide(Side):
+    """A JAX process (`_jax_mesh_ref.py`), which writes its record again
+    after each program: `key(k)` is that program's record once the process
+    has ended, whether it finished or not, so a process cut short (its
+    limit, a crash) fails only the tests of the keys it did not write.
+    `complete` says whether it finished."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.failure, self.complete = None, self.record is not None
+
+    def key(self, k):
+        if self.record is None and self.failure is None:
+            try:
+                self.result()
+                self.complete = True
+            except (AssertionError, pytest.fail.Exception) as err:
+                self.failure = err
+                self.record = load(self.out_path) if os.path.exists(self.out_path) else {}
+        if k not in self.record:
+            pytest.fail(f"the JAX record has no {k!r}: {self.failure}")
+        return self.record[k]
 
 
 # the JAX side's processes by mode (`_jax_mesh_ref.py`), each with the keys
-# of the record it writes: the main programs with the global view's (which
-# reuse their compilations), and the small-batch programs, apart so that
-# neither process's compilations lengthen the other's
-JAX_MODES = {"main": ("step", "fabric", "ops", "view"), "small": ("small",)}
+# of the record it writes, in order, apart so that no process's
+# compilations lengthen another's: the step, the mesh fabric and the
+# shared polynomials; the other scalar operations; the global view's
+# programs (every index type); the small-batch programs; the uneven
+# prefix products; and the traced levels that mix placements
+JAX_MODES = {"main": ("step", "fabric", "poly"), "ops": ("ops",), "view": ("view",),
+             "small": ("small",), "prefix": ("prefix",), "mixed": ("mixed",)}
 
 
 class Memo:
@@ -223,18 +278,21 @@ class Memo:
 
 class Record:
     """The JAX package's record, read key by key: a key waits only for the
-    JAX process that writes it, so a failed JAX process fails only the
-    tests that compare with its programs."""
+    JAX process that writes it, and a process that failed or was cut
+    short fails only the tests of the keys it did not write (`JaxSide`).
+    A complete record is kept for the next run (`Memo`)."""
 
-    def __init__(self, sides):
-        self.sides = sides
+    def __init__(self, sides, modes=None):
+        self.sides, self.modes = sides, JAX_MODES if modes is None else modes
 
     def __getitem__(self, key):
-        mode = next(m for m, keys in JAX_MODES.items() if key in keys)
+        mode = next(m for m, keys in self.modes.items() if key in keys)
         side = self.sides.jax[mode]
-        if side.record is None:
-            self.sides.memos[mode].save(side.result())
-        return side.result()[key]
+        kept = side.complete
+        value = side.key(key)
+        if side.complete and not kept:
+            self.sides.memos[mode].save(side.record)
+        return value
 
 
 class Sides:
@@ -251,12 +309,11 @@ class Sides:
             self.memos[mode] = memo = Memo(in_path, mode)
             kept = memo.load()
             if kept is not None:
-                self.jax[mode] = Side(None, record=kept)
+                self.jax[mode] = JaxSide(None, record=kept)
                 continue
             out = tmp / f"ref_{mode}.pkl"
-            extra = () if mode == "main" else (mode,)
-            self.jax[mode] = Side(jax_mesh(JAX_DEVICES, in_path, out, *extra), out, ok,
-                                  JAX_TIMEOUT)
+            self.jax[mode] = JaxSide(jax_mesh(JAX_DEVICES, in_path, out, mode), out, ok,
+                                     JAX_TIMEOUT)
         self.torch = {}
         for n_ranks in (2, 4):
             self.torch_side(n_ranks)
@@ -369,7 +426,12 @@ def test_each_rank_pair_draws_its_own_public_coin(mesh_run):
 
 
 def test_unaligned_batch_raises_naming_the_mesh(mesh_run):
-    _, _, ranks, _ = mesh_run
+    """Sharing a batch of 9 (larger than the mesh, no multiple of its size)
+    raises `ValueError` naming the mesh, as the JAX package's mesh of the
+    same size does."""
+    n_ranks, _, ranks, jax_ref = mesh_run
+    want = jax_ref["prefix"]["refused"][(min(n_ranks, JAX_DEVICES), "share 9")]
+    assert want.startswith("ValueError") and "mesh" in want, want
     for msg in case(ranks, "unaligned"):
         assert msg.startswith("ValueError") and "mesh" in msg, msg
 
@@ -418,17 +480,60 @@ def test_batch_rule_on_a_mesh(mesh_run):
 
 
 def test_prefix_product_still_refuses_on_a_mesh(mesh_run):
-    """prefix_product of a batch of n >= the mesh size (here a shard of 2
-    elements a rank), eager and traced, raises `NotImplementedError`
-    naming the mesh and the reference lines that draw and place its n + 1
-    inverse pairs."""
-    _, _, ranks, _ = mesh_run
+    """prefix_product of a shard of 2 elements a rank, eager and traced,
+    raises `ValueError` naming the mesh where its 2 size + 1 inverse pairs
+    are drawn, as the JAX package's mesh refuses the 9 pairs of its
+    8-element shard (the reference's `_place`)."""
+    n_ranks, _, ranks, jax_ref = mesh_run
+    want = jax_ref["prefix"]["refused"][(JAX_DEVICES, 8)]
+    assert want.startswith("ValueError") and "batch of 9 elements" in want, want
     for res in case(ranks, "prefix_product_refuses"):
         assert len(res) == 2
         for msg in res:
-            assert msg.startswith("NotImplementedError") and "mesh" in msg, msg
-            assert "ark_mpc_tpu/gadgets/products.py:52" in msg, msg
-            assert "ark_mpc_tpu/fabric/context.py:151-156" in msg, msg
+            assert msg.startswith("ValueError") and f"{n_ranks}-rank mesh" in msg, msg
+            assert f"a batch of {2 * n_ranks + 1} elements" in msg, msg
+
+
+def refuses(size: int, n: int) -> bool:
+    """Whether a mesh of `size` refuses a draw of n (the reference's
+    `_place`: at least the mesh size and no multiple of it)."""
+    return n >= size and n % size != 0
+
+
+def prefix_want(xs: list, n: int) -> list:
+    out = [xs[0]]
+    for v in xs[1:n]:
+        out.append(out[-1] * v % L)
+    return out
+
+
+@pytest.mark.parametrize("n", mesh_prog.PREFIX_SELECTIONS)
+def test_prefix_product_of_a_selection_matches_the_jax_mesh(mesh_run, n):
+    """prefix_product of x[:n] for an 8-element shared batch x, eager and
+    traced: where the mesh takes its n + 1 inverse pairs (n + 1 below the
+    mesh size or a multiple of it), the opens equal Python ints and the JAX
+    package's, and both parties' share and MAC limbs and the traced
+    circuit's rounds equal the JAX package's bit for bit (x[:7] on 4
+    ranks: [2, 6, 30, ...] for [2, 3, 5, ...]); elsewhere both packages
+    raise `ValueError` naming the mesh."""
+    n_ranks, inp, ranks, jax_ref = mesh_run
+    rec = jax_ref["prefix"]
+    if refuses(n_ranks, n + 1):
+        want = rec["refused"][(n_ranks, n)]
+        assert want.startswith("ValueError") and f"batch of {n + 1} elements" in want, want
+        for res in case(ranks, "prefix_selections"):
+            got = res[n]
+            assert got.startswith("ValueError") and f"{n_ranks}-rank mesh" in got, got
+            assert f"a batch of {n + 1} elements" in got, got
+        return
+    want = prefix_want(inp["xs"], n)
+    for res in case(ranks, "prefix_selections"):
+        for pid in (0, 1):
+            got, ref = res[n][pid], rec["records"][n][pid]
+            for name in ("eager", "traced"):
+                assert got[name][0] == want, (n, name)
+                assert_same_record(got[name], ref[name], (n, name))
+            assert got["traced_rounds"] == ref["traced_rounds"]
 
 
 SMALL_OPS = ("share", "mul", "sum", "inner_product")
@@ -521,23 +626,32 @@ def test_prefix_product_on_a_batch_smaller_than_the_mesh(mesh_run):
                         jax_ref["small"]["prefix"][n][pid]["traced_rounds"]
 
 
+POLY_OPS = ("poly_eval", "poly_mul", "poly_inverse_mod_t", "poly_div")
 OPS = ("sum", "sum_times_open", "sum_plus_open", "inner_product", "traced_sum",
-       "shared_matmul", "poly_eval", "poly_mul", "poly_inverse_mod_t", "poly_div")
+       "shared_matmul") + POLY_OPS + ("pow",)
+
+
+def ops_records(res: dict) -> list:
+    """Both parties' records of the ops case's two programs, merged."""
+    return [{k: v for part in mesh_prog.OPS_PARTS for k, v in res[part][pid].items()}
+            for pid in (0, 1)]
 
 
 @pytest.mark.parametrize("op", OPS)
 def test_scalar_op_matches_the_jax_mesh(mesh_run, op):
     """The opened value and the gathered share and MAC limbs of each party,
     on every rank, equal the JAX package's on its mesh (the traced sum
-    brings the traced circuit's other output and its opens along).  Where
-    a batch is added to a one-element share, the reference keeps party 1's
-    share 0-d and the port broadcasts it to the batch: the limbs equal the
-    reference's broadcast."""
+    brings the traced circuit's other output and its opens along; x^7
+    pairs two products in one call, drawn in the reference's column
+    order).  Where a batch is added to a one-element share, the reference
+    keeps party 1's share 0-d and the port broadcasts it to the batch: the
+    limbs equal the reference's broadcast."""
     _, _, ranks, jax_ref = mesh_run
     names = (op, "traced_w") if op == "traced_sum" else (op,)
-    for parties in case(ranks, "ops"):
+    for res in case(ranks, "ops"):
+        parties = ops_records(res)
         for pid in (0, 1):
-            got, want = parties[pid], jax_ref["ops"][pid]
+            got, want = parties[pid], jax_ref["poly" if op in POLY_OPS else "ops"][pid]
             for name in names:
                 (v, sh, mac), (wv, wsh, wmac) = got[name], want[name]
                 assert v == wv, name
@@ -575,10 +689,11 @@ def test_scalar_ops_equal_python_ints(mesh_run):
         "poly_eval": [sum(c * pow(inp["x_eval"], i, L) for i, c in enumerate(f)) % L],
         "poly_mul": poly_mul_ints(f, inp["poly_g"]),
         "share_public_of_open": [x % L for x in xs], "pow_zero": [1] * len(xs),
+        "pow": [pow(x, 7, L) for x in xs],
     }
     t = mesh_prog.POLY_T
-    for parties in case(ranks, "ops"):
-        for got in parties:
+    for res in case(ranks, "ops"):
+        for got in ops_records(res):
             for name, w in want.items():
                 assert got[name][0] == w, name
             assert got["traced_opens"] == [want["traced_sum"], prod, want["traced_w"]]
@@ -590,15 +705,30 @@ def test_scalar_ops_equal_python_ints(mesh_run):
 
 
 def test_traced_levels_that_mix_placements(mesh_run):
-    """A level whose muls and inversions mix a product of two sums with
-    shards takes one fused call per placement: the opens equal Python ints
-    on every rank."""
-    _, inp, ranks, _ = mesh_run
+    """A traced circuit whose first level's muls mix a product of two sums
+    (replicated) with a sharded product and whose second level's
+    inversions mix four inverses of the sums with the product's: each level is
+    one fused call in the reference's column order, so the opens equal
+    Python ints and the JAX package's, both parties' share and MAC limbs
+    equal the JAX package's bit for bit, and the circuit takes the JAX
+    package's rounds, on every rank."""
+    _, inp, ranks, jax_ref = mesh_run
     xs, ys = inp["xs"], inp["ys"]
+    prod = [x * y % L for x, y in zip(xs, ys)]
     sums = sum(xs) * sum(ys) % L
-    want = [[x * y % L for x, y in zip(xs, ys)], [sums], [pow(sums, -1, L)],
-            [pow(x, -1, L) for x in xs]]
-    assert case(ranks, "traced_mixed_levels") == [(want, want)] * len(ranks)
+    want = {"prod": prod, "sums": [sums], "x_inverse": [pow(x, -1, L) for x in xs],
+            "prod_inverse": [pow(p, -1, L) for p in prod],
+            **{f"(sums + {k})_inverse" if k else "sums_inverse": [pow(sums + k, -1, L)]
+               for k in (0,) + mesh_prog.MIXED_SHIFTS}}
+    ref = jax_ref["mixed"]
+    for parties in case(ranks, "traced_mixed_levels"):
+        for pid in (0, 1):
+            (got, rounds), (w_rec, w_rounds) = parties[pid], ref[pid]
+            assert rounds == w_rounds
+            assert sorted(got) == sorted(want)
+            for name, ints in want.items():
+                assert got[name][0] == ints, name
+                assert_same_record(got[name], w_rec[name], name)
 
 
 @pytest.fixture(scope="module")
@@ -609,6 +739,9 @@ def unsharded_points(inputs):
     out = {part: execute_mock_mpc_dealer(mesh_prog.points_program(inp, part), device="cpu")
            for part in mesh_prog.POINT_PARTS}
     out["index"] = execute_mock_mpc_dealer(mesh_prog.index_program(inp), device="cpu")
+    out["index_types"] = execute_mock_mpc_dealer(mesh_prog.index_types_program(inp), device="cpu")
+    out["mixed_points"] = execute_mock_mpc_dealer(mesh_prog.mixed_points_program(inp),
+                                                  device="cpu")
     return out
 
 
@@ -714,22 +847,77 @@ def test_indexing_a_point_shard_selects_global_positions(mesh_run, unsharded_poi
                 np.testing.assert_array_equal(mac, plain[name][2])
 
 
+def held_replicated(n_ranks: int, rows: int) -> bool:
+    """The small-batch rule for a selection of a shard: a shard where its
+    rows are at least the mesh size and a multiple of it, else held
+    replicated."""
+    return rows < n_ranks or rows % n_ranks != 0
+
+
+# each of `mesh_prog.INDEX_TYPES`' leading-axis size (1: a single element)
+INDEX_TYPE_ROWS = {"[0, 2, 5]": 3, "np.array([1, 6])": 2, "torch.tensor([7, 0])": 2, "mask": 4,
+                   ":7": 7, "(4, 2)[1, 0]": 1, "(4, 2)[:, 1]": 4, "(4, 2)[[0, 3]]": 2}
+
+
 def test_index_placement_follows_the_small_batch_rule(mesh_run):
     """A selection with fewer elements (or a reshape with fewer rows) than
     the mesh is replicated (a single element always), one whose size the
-    mesh size divides is a shard, alike for shares, point shares and opened
-    values; a list or a tuple index of a shard raises `ValueError` naming
-    the mesh."""
-    n_ranks, _, ranks, _ = mesh_run
-    sizes = {"0": 1, "-1": 1, "1:3": 2, "::2": 4, "reshape(2, -1)": 2}
-    for parties in case(ranks, "index"):
+    mesh size divides is a shard, and one of any other size (3 or 7 of 8
+    elements) is held replicated, alike for shares, point shares and
+    opened values and for every index type; a float index raises
+    `TypeError`, as it does in the JAX package."""
+    n_ranks, _, ranks, jax_ref = mesh_run
+    sizes = {"0": 1, "-1": 1, "1:3": 2, "::2": 4, "reshape(2, -1)": 2, **INDEX_TYPE_ROWS}
+    want_refused = jax_ref["view"]["index_types"][0]["refused"]
+    assert sorted(want_refused) == ["open", "share"]
+    for name in ("index", "index_types"):
+        for parties in case(ranks, name):
+            for pid in (0, 1):
+                for sel, marks in parties[pid]["placement"].items():
+                    assert marks == (held_replicated(n_ranks, sizes[sel]),) * 3, (sel, marks)
+                if name == "index_types":
+                    refused = parties[pid]["refused"]
+                    assert sorted(refused) == ["open", "points", "share"]
+                    for kind, msg in refused.items():
+                        assert msg.startswith("TypeError"), (kind, msg)
+                        assert want_refused.get(kind, msg).startswith("TypeError")
+
+
+INDEX_TYPE_NAMES = tuple(name for name, _ in mesh_prog.INDEX_TYPES)
+
+
+def selected_types(values: list) -> dict:
+    """`mesh_prog.INDEX_TYPES` of a Python list: {name: ints, row-major}."""
+    arr = np.asarray(values, dtype=object)
+    return {name: np.ravel(sel(arr)).tolist() for name, sel in mesh_prog.INDEX_TYPES}
+
+
+@pytest.mark.parametrize("name", INDEX_TYPE_NAMES)
+def test_index_type_matches_the_jax_mesh(mesh_run, unsharded_points, name):
+    """Each index type the reference takes (a list, numpy and torch
+    integer arrays, a boolean mask, x[:7] whose 7 elements the mesh size
+    neither exceeds nor divides, and tuples of the global (4, 2) reshape)
+    of an 8-element shared batch and of its opened value: the opens equal
+    Python ints, and both parties' gathered share and MAC limbs equal the
+    JAX package's selection on its 4-device mesh bit for bit; of an 8-point
+    shared batch: the opened points are the selected g_i
+    * G and the gathered share and MAC coordinates equal the unsharded
+    fabric's bit for bit; on every rank."""
+    _, inp, ranks, jax_ref = mesh_run
+    want = selected_types(inp["xs"])[name]
+    gen = port.CurvePoint.generator((len(inp["gs"]),), device="cpu")
+    x, y = (selected_types(c.to_ints())[name] for c in
+            gen.mul(port.Scalar.from_ints(inp["gs"], device="cpu")).to_affine())
+    for parties in case(ranks, "index_types"):
         for pid in (0, 1):
-            for name, marks in parties[pid]["placement"].items():
-                assert marks == (sizes[name] < n_ranks,) * 3, (name, marks)
-            refused = parties[pid]["refused"]
-            assert len(refused) == 6
-            for name, msg in refused.items():
-                assert msg.startswith("ValueError") and f"{n_ranks}-rank mesh" in msg, (name, msg)
+            got, ref = parties[pid], jax_ref["view"]["index_types"][pid]["types"][name]
+            plain = unsharded_points["index_types"][pid]["points"][name]
+            assert got["open"][name] == got["share"][name][0] == want
+            assert_same_record(got["share"][name], (want, *ref), name)
+            opened, sh, mac = got["points"][name]
+            assert opened == [x, y] == plain[0]
+            np.testing.assert_array_equal(sh, plain[1])
+            np.testing.assert_array_equal(mac, plain[2])
 
 
 MATMUL_IDS = [f"{m}x{k}@{k}x{n}" for m, k, n in mesh_prog.MATMUL_SHAPES]
@@ -766,6 +954,30 @@ def test_shared_matmul_at_the_reference_shapes(mesh_run, shape):
             assert rep == (m < n_ranks)
 
 
+def test_traced_point_level_that_mixes_placements(mesh_run, unsharded_points):
+    """A traced level whose point products mix each shared point times its
+    scalar (a shard) with the points' sum times the scalars' sum
+    (replicated) is one fused Beaver point product: the opened points and
+    the circuit's rounds equal the unsharded fabric's, the products' share
+    and MAC coordinates equal them bit for bit and the sums' projectively
+    (the mesh adds the ranks' partial sums in rank order), on every rank,
+    for both parties."""
+    _, _, ranks, _ = mesh_run
+    for parties in case(ranks, "traced_mixed_points"):
+        for pid in (0, 1):
+            (got, rounds), (want, w_rounds) = parties[pid], unsharded_points["mixed_points"][pid]
+            assert rounds == w_rounds
+            for name in ("products", "sums"):
+                (opened, sh, mac), (w_opened, w_sh, w_mac) = got[name], want[name]
+                assert opened == w_opened, name
+                for g, w in ((sh, w_sh), (mac, w_mac)):
+                    assert g.shape == w.shape, name
+                    if name == "products":
+                        np.testing.assert_array_equal(g, w)
+                    else:
+                        assert bool(points_of(g).equals(points_of(w)).all()), name
+
+
 def test_one_cheating_rank_pair_aborts_every_rank_on_points(mesh_run):
     """Party 1 of the last rank alone corrupts its point MACs: every rank of
     both parties raises `AuthenticationError`, and nothing hangs."""
@@ -793,15 +1005,15 @@ def test_mixing_a_shard_with_a_replicated_batch_raises(mesh_run):
 def test_jax_record_does_not_depend_on_the_mesh_or_the_xla_level(inputs, sides, tmp_path):
     """The JAX side's record on a 2-device mesh at XLA's default
     optimization level equals the module's (4 devices, level 0) exactly:
-    what lets one JAX run hold every torch mesh.  (The global view's
-    record, whose (1, 3) @ (3, 1) a 2-device mesh refuses, is held by the
-    mesh tests at 2 and 4 ranks.)"""
+    what lets one JAX run hold every torch mesh.  (The other modes' records,
+    whose programs a 2-device mesh refuses in part, are held by the mesh
+    tests at 2 and 4 ranks.)"""
     _, in_path = inputs
     finish(jax_mesh(2, in_path, tmp_path / "ref2.pkl", fast=False), "JAX_MESH_REF_OK 2",
            timeout=900)
     got, want = load(tmp_path / "ref2.pkl"), sides.jax["main"].result()
-    assert pickle.dumps({k: got[k] for k in JAX_MODES["main"] if k != "view"}) == \
-        pickle.dumps({k: want[k] for k in JAX_MODES["main"] if k != "view"})
+    assert pickle.dumps({k: got[k] for k in JAX_MODES["main"]}) == \
+        pickle.dumps({k: want[k] for k in JAX_MODES["main"]})
 
 
 @pytest.mark.slow
@@ -816,12 +1028,10 @@ def test_point_protocols_match_the_jax_mesh(inputs, tmp_path):
     jax_side = jax_mesh(2, in_path, tmp_path / "ref.pkl", "points")
     try:
         finish(torch_mesh(2, in_path, tmp_path / "out.pkl"), "MESH_PROG_OK 2")
-        out, err = jax_side.communicate(timeout=900)
-        assert jax_side.returncode == 0 and "JAX_MESH_REF_OK 2" in out, err[-3000:]
+        finish(jax_side, "JAX_MESH_REF_OK 2", timeout=900)
     finally:
         if jax_side.poll() is None:
-            os.killpg(jax_side.pid, signal.SIGKILL)
-            jax_side.communicate()
+            stop(jax_side)
     record, ranks = load(tmp_path / "ref.pkl"), load(tmp_path / "out.pkl")
     want = point_records(record["points"].__getitem__)
     pairs = [(point_records(lambda part: case(ranks, f"points_{part}")[rank]), want,
@@ -943,9 +1153,9 @@ def test_global_view_of_a_shard_without_a_collective():
     collective would raise): `local[...]` and `local.reshape` take the
     rank's own elements, a reshape whose rows the mesh divides is the
     rank's rows of the global shape (its -1 the global batch's), a
-    replicated value indexes as it is, and a list or tuple index of a
-    shard, or a reshape to a shape the global batch does not take, raises
-    `ValueError` naming the mesh before any collective."""
+    replicated value indexes as it is, a float index of a shard raises
+    `TypeError` and a reshape to a shape the global batch does not take
+    `ValueError` naming the mesh, before any collective."""
     from ark_mpc_tpu_torch.algebra.placement import mark, set_thread_mesh
 
     set_thread_mesh(Mesh(None, 2, 0, torch.device("cpu")))
@@ -970,14 +1180,43 @@ def test_global_view_of_a_shard_without_a_collective():
             assert half.shape == (1, 4) and half.replicated is False
             assert same(half, x.local.reshape(1, 4))
             assert same(x.local.reshape(4, 1), whole.local[0:4].local.reshape(4, 1))
-            for idx in ([0, 1], (slice(None),), torch.tensor([0])):
-                with pytest.raises(ValueError, match="2-rank mesh"):
+            for idx in (1.5, np.array([0.5]), (slice(None), 1.5), torch.tensor([0.0])):
+                with pytest.raises(TypeError, match="integer or boolean"):
                     x[idx]
             for shape in ((4, 1), (3, -1)):
                 with pytest.raises(ValueError, match="2-rank mesh"):
                     x.reshape(*shape)
     finally:
         set_thread_mesh(None)
+
+
+STUB_ENDS = {"cut": "time.sleep(60)", "crash": "raise SystemExit(1)"}
+
+
+@pytest.mark.parametrize("end", sorted(STUB_ENDS))
+def test_a_cut_jax_process_fails_only_the_keys_it_did_not_write(tmp_path, end):
+    """A JAX process that writes its record after its first program and is
+    then cut at its limit (or crashes): the first key's record reads as
+    written, a later key fails its own test with the process's message,
+    and nothing is kept for the next run (a stub process in the place of
+    `_jax_mesh_ref.py`)."""
+    out = tmp_path / "ref.pkl"
+    stub = ("import pickle, time\n"
+            f"pickle.dump({{'first': 1}}, open({str(out)!r}, 'wb'))\n"
+            "print('JAX_MESH_REF_KEY first', flush=True)\n" + STUB_ENDS[end])
+    side = JaxSide(start([sys.executable, "-c", stub]), out, "JAX_MESH_REF_OK", timeout=5)
+    saved = []
+    memo = type("Memo", (), {"save": lambda self, record: saved.append(record)})()
+    sides = type("Sides", (), {"jax": {"stub": side}, "memos": {"stub": memo}})()
+    record = Record(sides, {"stub": ("first", "second")})
+    try:
+        assert record["first"] == 1
+        why = "did not finish within its 5 s" if end == "cut" else "returncode: 1"
+        with pytest.raises(pytest.fail.Exception, match=f"(?s)no 'second': .*{why}"):
+            record["second"]
+        assert not side.complete and not saved
+    finally:
+        side.stop()
 
 
 def test_make_mesh_needs_a_process_group():
