@@ -294,11 +294,14 @@ class ShardedSource(PreprocessingPhase):
             at += n if rep else n * self.size
         out = getattr(self.inner, method)(at)
         keep = all(rep for _, rep in parts)
+        cols = (slice(*spans[0]) if len(spans) == 1 else
+                torch.cat([torch.arange(a, b) for a, b in spans]))
 
-        def take(x):
-            if len(spans) == 1:
-                return x.local[spans[0][0]:spans[0][1]]
-            return x.local[torch.cat([torch.arange(a, b) for a, b in spans]).to(x.device)]
+        def take(x):  # the kept columns, on the mesh's device as `shard` puts them
+            if isinstance(x, ScalarShare):
+                return ScalarShare(take(x.share), take(x.mac))
+            limbs = x.limbs[:, cols.to(x.limbs.device) if torch.is_tensor(cols) else cols]
+            return type(x)(limbs.contiguous().to(self.mesh.device))
 
         if isinstance(out, tuple):
             return tuple(mark(take(x), keep) for x in out)

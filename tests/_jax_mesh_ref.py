@@ -1,6 +1,6 @@
 """Subprocess body for the JAX side of the port's mesh tests.
 
-    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [MODE]
+    python tests/_jax_mesh_ref.py N IN.pkl OUT.pkl [MODE [AT]]
 
 reads the inputs `test_torch_parallel.py` made (`_torch_mesh_prog.py`'s
 IN.pkl) and writes what the JAX package computes from them on an N-device
@@ -21,12 +21,12 @@ another's compilations:
     every index type and `shared_matmul` at the reference's shapes, whose
     products share four matmul compilations, `padded_mont_matmul`);
   - small: the small-batch programs (batches smaller than the mesh);
-  - prefix: prefix_product of selections that a mesh size neither
-    exceeds nor divides ("prefix"), on a 2-device mesh, which runs every
-    such selection (the records do not depend on the mesh size), and what
-    meshes of 2 and N devices refuse;
-  - mixed: a traced circuit whose levels mix placements ("mixed"), on a
-    2-device mesh;
+  - uneven: on a mesh of AT devices (default 2, which runs every such
+    selection; the records do not depend on the mesh size, and one mesh
+    shares its compilations), prefix_product of selections that a mesh
+    size neither exceeds nor divides, and what meshes of AT and N devices
+    refuse ("prefix"), and a traced circuit whose levels mix placements
+    ("mixed");
   - points: the point protocols' program and the index program with its
     point batch (minutes of XLA compilation; the slow test's).
 
@@ -408,8 +408,6 @@ def mixed_program(inp):
 PREFIX_SELECTIONS = (3, 5, 7, 8)
 
 
-
-
 def prefix_selection_program(inp, n):
     """`_torch_mesh_prog.prefix_selection_program`'s calls."""
 
@@ -430,15 +428,14 @@ def prefix_selection_program(inp, n):
     return prog
 
 
-def prefix_records(inputs, mesh) -> dict:
-    """`prefix_selection_program` at each n of `PREFIX_SELECTIONS` that a
-    2-device mesh runs, there (the record does not depend on the mesh
-    size, and one mesh shares its compilations), and what meshes of 2
-    devices and of `mesh`'s size make of each n they refuse and of an
-    input batch of 9: -> {"records": {n: both parties' records},
-    "refused": {(size, n or "share 9"): "TypeName: message"}}."""
+def prefix_records(inputs, at, mesh) -> dict:
+    """`prefix_selection_program` at each n of `PREFIX_SELECTIONS` that the
+    mesh `at` runs, there, and what the meshes `at` and `mesh` make of
+    each n they refuse and of an input batch of 9: -> {"records": {n: both
+    parties' records}, "refused": {(size, n or "share 9"): "TypeName:
+    message"}}."""
     out = {"records": {}, "refused": {}}
-    for m in (step.make_mesh(2), mesh):
+    for m in {at.size: at, mesh.size: mesh}.values():
         for n in PREFIX_SELECTIONS:
             if n + 1 >= m.size and (n + 1) % m.size:  # `_place` refuses its pairs
                 out["refused"][(m.size, n)] = raised(prefix_selection_program(inputs, n), m)
@@ -483,9 +480,10 @@ def points_program(inp, part=None):
     return prog
 
 
-def programs(mode: str, inputs, mesh) -> dict:
+def programs(mode: str, inputs, mesh, at) -> dict:
     """{key: a function computing its record} of `mode`, in order (the
-    modes and keys of `test_torch_parallel.JAX_MODES`)."""
+    modes and keys of `test_torch_parallel.JAX_MODES`); the uneven
+    programs run on the mesh `at`."""
     run = functools.partial(execute_mock_mpc_dealer, mesh=mesh)
     if mode == "points":
         return {"points": lambda: {part: run(points_program(inputs, part))
@@ -498,9 +496,8 @@ def programs(mode: str, inputs, mesh) -> dict:
         "ops": {"ops": lambda: run(ops_program(inputs, "ops"))},
         "view": {"view": lambda: global_view_records(inputs, mesh)},
         "small": {"small": lambda: small_records(inputs, mesh)},
-        "prefix": {"prefix": lambda: prefix_records(inputs, mesh)},
-        "mixed": {"mixed": lambda: execute_mock_mpc_dealer(mixed_program(inputs),
-                                                           mesh=step.make_mesh(2))},
+        "uneven": {"prefix": lambda: prefix_records(inputs, at, mesh),
+                   "mixed": lambda: run(mixed_program(inputs), mesh=at)},
     }[mode]
 
 
@@ -518,8 +515,10 @@ if __name__ == "__main__":
         inputs = pickle.load(fh)
     assert len(jax.devices()) == N_DEV, jax.devices()
     mesh = step.make_mesh(N_DEV)
+    at = step.make_mesh(int(sys.argv[5]) if sys.argv[5:] else 2)
     out = {}
-    for key, compute in programs(sys.argv[4] if sys.argv[4:] else "main", inputs, mesh).items():
+    for key, compute in programs(sys.argv[4] if sys.argv[4:] else "main", inputs, mesh,
+                                 at).items():
         out[key] = compute()
         write(out, sys.argv[3])  # each key as soon as it is known
         print(f"JAX_MESH_REF_KEY {key}", flush=True)

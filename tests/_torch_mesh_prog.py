@@ -915,8 +915,8 @@ GROUPS = (("step", "fabric", "corrupt", "cheat_one_rank_pair", "coins", "unalign
 assert sorted(sum(GROUPS, ())) == sorted(CASES), "every case in exactly one group"
 # seconds a launch (and a collective) may take, and a side's launches
 # together: six copies of the test module at once, each from an empty
-# cache (8 cores, ~1,410 s a copy), took launches of up to 371 s and sides
-# of up to 1,337 s; these leave a quarter more
+# cache (8 cores, ~1,475 s a copy), took launches of up to 413 s and sides
+# of up to 1,360 s; these leave a sixth and a fifth more
 LAUNCH_TIMEOUT = 480
 SIDE_TIMEOUT = 1680
 STOP_MARGIN = 20  # seconds a launch may take past its limit to stop its ranks

@@ -11,8 +11,8 @@ seeds; the JAX side runs on the same inputs on a 4-device virtual CPU mesh
 module beside both torch meshes), so that their XLA compilations do not
 stay in the test worker.  No shape of the programs depends on the mesh
 size, so the JAX package's gathered record is the same on every mesh (a
-slow test holds its 2-device record to its 4-device one): it runs once and
-every torch mesh is held to it.  It runs with XLA's CPU backend at
+slow test holds its records on another mesh size to these): it runs once
+and every torch mesh is held to it.  It runs with XLA's CPU backend at
 optimization level 0, which compiles faster and computes the same integers
 (the slow test compares with the default level too).  Every comparison is
 exact (tolerance 0): gathered limbs are equal bit for bit, opened values
@@ -67,7 +67,7 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = SCALAR_FIELD.modulus
 # seconds: a stuck collective fails the test, never hangs it.  The JAX
-# side's six processes (`JAX_MODES`, ~85-130 s each alone from an empty
+# side's five processes (`JAX_MODES`, ~85-130 s each alone from an empty
 # compile cache, 8-core host) and the two torch meshes (~100 s each alone)
 # all start with the module.  A torch side is one launch a group of cases
 # (`mesh_prog.GROUPS`, at most ~40 s of work each alone), each within its
@@ -76,10 +76,13 @@ L = SCALAR_FIELD.modulus
 # its message as each of its cases' error, which names each rank's case, so
 # it fails only those tests.  The side's own limit adds the interpreter's
 # start and the record's writing.  Six copies of the module at once, each
-# from an empty cache, took JAX processes of up to 1,084 s; the limit
-# leaves a quarter more.
+# from an empty cache, took JAX processes of up to 1,109 s; the limit
+# leaves a fifth more.  A JAX process never waits for another, so one
+# that uses no CPU time for `JAX_STALL` seconds (blocked for good) is
+# stopped then, without waiting out its limit.
 PROG_TIMEOUT = mesh_prog.SIDE_TIMEOUT + 40
 JAX_TIMEOUT = 1350
+JAX_STALL = 120
 JAX_DEVICES = 4
 FAST_XLA = "--xla_backend_optimization_level=0 --xla_llvm_disable_expensive_passes=true"
 
@@ -111,16 +114,48 @@ def stop(proc: subprocess.Popen) -> None:
     proc.wait()
 
 
-def finish(proc: subprocess.Popen, ok_line: str, timeout: float = PROG_TIMEOUT) -> str:
-    """Wait for `proc`; -> its stdout, which must hold `ok_line`.  On
-    timeout the whole session is killed, spawned ranks included: a stuck
-    collective fails the test and leaves nothing running."""
+def cpu_seconds(pid: int):
+    """The CPU time process `pid` has used so far (every thread), or None
+    where `/proc` does not say."""
     try:
-        proc.wait(timeout=max(timeout, 1))
-    except subprocess.TimeoutExpired:
+        with open(f"/proc/{pid}/stat") as fh:
+            fields = fh.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return None
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def wait(proc: subprocess.Popen, timeout: float, stall: float = 0):
+    """Wait for `proc` at most `timeout` seconds and, with `stall`, only
+    while it uses CPU time within every `stall` seconds; -> None once it
+    has ended, else why it has not."""
+    end = time.monotonic() + max(timeout, 1)
+    used, since = None, time.monotonic()
+    while True:
+        try:
+            proc.wait(timeout=max(min(end - time.monotonic(), stall / 4 or timeout), 0.01))
+            return None
+        except subprocess.TimeoutExpired:
+            now = time.monotonic()
+        if now >= end:
+            return f"did not finish within its {timeout:.0f} s"
+        cpu = cpu_seconds(proc.pid) if stall else None
+        if cpu is None or cpu != used:
+            used, since = cpu, now
+        elif now - since >= stall:
+            return f"used no CPU time for {now - since:.0f} s (stalled; its limit {timeout:.0f} s)"
+
+
+def finish(proc: subprocess.Popen, ok_line: str, timeout: float = PROG_TIMEOUT,
+           stall: float = 0) -> str:
+    """Wait for `proc` (`wait`); -> its stdout, which must hold `ok_line`.
+    On timeout (or stall) the whole session is killed, spawned ranks
+    included: a stuck collective fails the test and leaves nothing
+    running."""
+    why = wait(proc, timeout, stall)
+    if why:
         stop(proc)
-        pytest.fail(f"{proc.args} did not finish within its {timeout:.0f} s:\n"
-                    f"{output(proc)[1][-3000:]}")
+        pytest.fail(f"{proc.args} {why}:\n{output(proc)[1][-3000:]}")
     out, err = output(proc)
     assert proc.returncode == 0, (err[-3000:], out[-500:])
     assert ok_line in out
@@ -186,18 +221,20 @@ def load(path):
 
 class Side:
     """One subprocess whose record the tests share: `result()` waits for
-    it (within `timeout` of its start) and keeps the record; or a record
-    kept from an earlier run (`record`, no subprocess)."""
+    it (within `timeout` of its start, and with `stall` as `wait` says)
+    and keeps the record; or a record kept from an earlier run (`record`,
+    no subprocess)."""
 
-    def __init__(self, proc, out_path=None, ok_line="", timeout: float = 0, record=None):
+    def __init__(self, proc, out_path=None, ok_line="", timeout: float = 0, record=None,
+                 stall: float = 0):
         self.proc, self.out_path, self.ok_line = proc, out_path, ok_line
-        self.started, self.timeout = time.monotonic(), timeout
+        self.started, self.timeout, self.stall = time.monotonic(), timeout, stall
         self.record = record
 
     def result(self):
         if self.record is None:
             left = self.timeout - (time.monotonic() - self.started)
-            finish(self.proc, self.ok_line, timeout=left)
+            finish(self.proc, self.ok_line, timeout=left, stall=self.stall)
             self.record = load(self.out_path)
         return self.record
 
@@ -232,12 +269,13 @@ class JaxSide(Side):
 
 # the JAX side's processes by mode (`_jax_mesh_ref.py`), each with the keys
 # of the record it writes, in order, apart so that no process's
-# compilations lengthen another's: the step, the mesh fabric and the
-# shared polynomials; the other scalar operations; the global view's
-# programs (every index type); the small-batch programs; the uneven
-# prefix products; and the traced levels that mix placements
+# compilations lengthen another's (each shares few with the others and
+# holds at most ~220): the step, the mesh fabric and the shared
+# polynomials; the other scalar operations; the global view's programs
+# (every index type); the small-batch programs; and, on a 2-device mesh,
+# the uneven prefix products and the traced levels that mix placements
 JAX_MODES = {"main": ("step", "fabric", "poly"), "ops": ("ops",), "view": ("view",),
-             "small": ("small",), "prefix": ("prefix",), "mixed": ("mixed",)}
+             "small": ("small",), "uneven": ("prefix", "mixed")}
 
 
 class Memo:
@@ -313,7 +351,7 @@ class Sides:
                 continue
             out = tmp / f"ref_{mode}.pkl"
             self.jax[mode] = JaxSide(jax_mesh(JAX_DEVICES, in_path, out, mode), out, ok,
-                                     JAX_TIMEOUT)
+                                     JAX_TIMEOUT, stall=JAX_STALL)
         self.torch = {}
         for n_ranks in (2, 4):
             self.torch_side(n_ranks)
@@ -339,12 +377,14 @@ def sides(inputs, tmp_path_factory):
 
 @pytest.fixture(scope="module", params=[
     2, 4, pytest.param(8, marks=pytest.mark.slow)], ids=lambda n: f"{n}ranks")
-def mesh_run(request, inputs, sides, unsharded_points):
+def mesh_run(request, inputs, unsharded_points, sides):
     """-> (N, inputs, [rank r's {case: ("ok", result) | ("error", tb)}],
     the JAX package's results on the same inputs).  Each torch side runs
     in a fresh interpreter beside the JAX side; a side that fails or hangs
-    is killed with its session.  (`unsharded_points` is computed here,
-    while the subprocesses run, rather than after them.)"""
+    is killed with its session.  (`unsharded_points`, ~1 CPU-minute in
+    this worker, is computed before the subprocesses start: beside them,
+    six copies of the module at once starved it past the simulator's
+    limit.)"""
     n_ranks = request.param
     ranks = sides.torch_side(n_ranks).result()
     assert len(ranks) == n_ranks
@@ -1003,17 +1043,37 @@ def test_mixing_a_shard_with_a_replicated_batch_raises(mesh_run):
 
 @pytest.mark.slow
 def test_jax_record_does_not_depend_on_the_mesh_or_the_xla_level(inputs, sides, tmp_path):
-    """The JAX side's record on a 2-device mesh at XLA's default
-    optimization level equals the module's (4 devices, level 0) exactly:
-    what lets one JAX run hold every torch mesh.  (The other modes' records,
-    whose programs a 2-device mesh refuses in part, are held by the mesh
-    tests at 2 and 4 ranks.)"""
+    """The JAX side's records on another mesh size at XLA's default
+    optimization level equal the module's (level 0) exactly: what lets
+    one JAX run hold every torch mesh.  main's and ops' on a 2-device mesh
+    (the module's run on 4); the uneven programs on 4 devices (the
+    module's run on 2): the mixed levels' record whole, and the
+    prefix products and refusals of a 4-device mesh (x[:3] and x[:7]; x[:5]
+    and x[:8] refused).  (view and small hold programs that a 2-device
+    mesh refuses; the mesh tests hold them at 2 and 4 ranks.)"""
     _, in_path = inputs
-    finish(jax_mesh(2, in_path, tmp_path / "ref2.pkl", fast=False), "JAX_MESH_REF_OK 2",
-           timeout=900)
-    got, want = load(tmp_path / "ref2.pkl"), sides.jax["main"].result()
-    assert pickle.dumps({k: got[k] for k in JAX_MODES["main"]}) == \
-        pickle.dumps({k: want[k] for k in JAX_MODES["main"]})
+    runs = {"main": (2,), "ops": (2,), "uneven": (JAX_DEVICES, str(JAX_DEVICES))}
+    procs = {mode: jax_mesh(n, in_path, tmp_path / f"{mode}.pkl", mode, *at, fast=False)
+             for mode, (n, *at) in runs.items()}
+    try:
+        for mode, (n, *_) in runs.items():
+            finish(procs[mode], f"JAX_MESH_REF_OK {n}", timeout=900)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                stop(proc)
+    for mode in ("main", "ops"):
+        got, want = load(tmp_path / f"{mode}.pkl"), sides.jax[mode].result()
+        assert pickle.dumps({k: got[k] for k in JAX_MODES[mode]}) == \
+            pickle.dumps({k: want[k] for k in JAX_MODES[mode]}), mode
+    got, want = load(tmp_path / "uneven.pkl"), sides.jax["uneven"].result()
+    assert pickle.dumps(got["mixed"]) == pickle.dumps(want["mixed"])
+    got, want = got["prefix"], want["prefix"]
+    assert sorted(got["records"]) == [3, 7]
+    assert set(got["refused"]) == {(JAX_DEVICES, 5), (JAX_DEVICES, 8), (JAX_DEVICES, "share 9")}
+    for part in ("records", "refused"):
+        for key, rec in got[part].items():
+            assert pickle.dumps(rec) == pickle.dumps(want[part][key]), (part, key)
 
 
 @pytest.mark.slow
@@ -1190,31 +1250,38 @@ def test_global_view_of_a_shard_without_a_collective():
         set_thread_mesh(None)
 
 
-STUB_ENDS = {"cut": "time.sleep(60)", "crash": "raise SystemExit(1)"}
+# how the stub process ends, its limit, its stall time and the message
+STUB_ENDS = {"cut": ("time.sleep(60)", 5, 0, "did not finish within its 5 s"),
+             "crash": ("raise SystemExit(1)", 5, 0, "returncode: 1"),
+             "stall": ("time.sleep(60)", 60, 2, r"used no CPU time for \d+ s \(stalled")}
 
 
 @pytest.mark.parametrize("end", sorted(STUB_ENDS))
 def test_a_cut_jax_process_fails_only_the_keys_it_did_not_write(tmp_path, end):
     """A JAX process that writes its record after its first program and is
-    then cut at its limit (or crashes): the first key's record reads as
-    written, a later key fails its own test with the process's message,
-    and nothing is kept for the next run (a stub process in the place of
-    `_jax_mesh_ref.py`)."""
+    then cut at its limit, crashes, or blocks (stopped once it has used no
+    CPU time for its stall time, long before its limit): the first key's
+    record reads as written, a later key fails its own test with the
+    process's message, and nothing is kept for the next run (a stub
+    process in the place of `_jax_mesh_ref.py`)."""
     out = tmp_path / "ref.pkl"
+    body, timeout, stall, why = STUB_ENDS[end]
     stub = ("import pickle, time\n"
             f"pickle.dump({{'first': 1}}, open({str(out)!r}, 'wb'))\n"
-            "print('JAX_MESH_REF_KEY first', flush=True)\n" + STUB_ENDS[end])
-    side = JaxSide(start([sys.executable, "-c", stub]), out, "JAX_MESH_REF_OK", timeout=5)
+            "print('JAX_MESH_REF_KEY first', flush=True)\n" + body)
+    side = JaxSide(start([sys.executable, "-c", stub]), out, "JAX_MESH_REF_OK", timeout=timeout,
+                   stall=stall)
     saved = []
     memo = type("Memo", (), {"save": lambda self, record: saved.append(record)})()
     sides = type("Sides", (), {"jax": {"stub": side}, "memos": {"stub": memo}})()
     record = Record(sides, {"stub": ("first", "second")})
+    t0 = time.monotonic()
     try:
         assert record["first"] == 1
-        why = "did not finish within its 5 s" if end == "cut" else "returncode: 1"
         with pytest.raises(pytest.fail.Exception, match=f"(?s)no 'second': .*{why}"):
             record["second"]
         assert not side.complete and not saved
+        assert time.monotonic() - t0 < 30
     finally:
         side.stop()
 
